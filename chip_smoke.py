@@ -7,6 +7,10 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      per source, all started together) and hold each kernel against its
      plain PyTorch version on the card, at full width and at the serving
      shapes; time both with CUDA events (median of >= 5 runs after warm-up);
+  1b. hold the backward kernel against its plain version at full width
+     (ragged n in fp32 and bf16, then the train step's coarse and fine
+     shapes in bf16), per leaf relative to the leaf's largest gradient,
+     check that two launches on the same inputs agree bitwise, and time both;
   2. serve: write a run directory for the lego serving shape (400x400,
      focal 555, near 2, far 6, white background, 64 + 128 samples, bf16,
      the full-width MLP) with seeded random weights, start the port's HTTP
@@ -15,11 +19,18 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      factor 2);
   3. render a two-pose sequence through ``NerfRenderer.render_video``;
   4. render one small frame with the kernel and with ``kernels="off"`` on
-     the card and compare them.
-The launch counts of phases 2-3 (the main path) are reset just before each
-phase and read just after: the kernel must have launched exactly as often
-as the chunking implies (40 times per 400x400 frame at chunk 8192), and the
-plain version not at all.
+     the card and compare them;
+  5. train (main path): ``create_train_state`` and ``Trainer.run`` for
+     TRAIN_STEPS steps of the lego-shaped workload (400x400 bench scene,
+     1024 rays, 64 + 128 samples, perturb, bf16, full width, Adam lr 5e-4,
+     lr_decay 500), then render one 400x400 frame of the trained params;
+  6. one train step with the kernels and with ``kernels="off"`` from the
+     same state and key, in fp32 and in bf16, compared.
+The launch counts of phases 2, 3 and 5 (the main path) are reset just before
+each phase and read just after: the kernels must have launched exactly as
+often as the chunking implies (40 forward launches per 400x400 frame at
+chunk 8192; 2 forward and 2 backward launches per train step), and the
+plain versions not at all.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, the list of kernels exercised, and as its last line
@@ -56,6 +67,18 @@ TOL_FP32 = 2e-4               # the JAX package's fused-kernel fp32 tolerance
 # bf16: kernel and plain version round the same operands; they differ only
 # in summation order, which can flip the bf16 rounding of an activation.
 TOL_BF16 = 2e-2
+# Backward, per leaf, relative to the leaf's largest gradient. A ReLU whose
+# pre-activation lies within rounding of zero flips its mask between two
+# summation orders and moves one whole term of a sum over n points; with a
+# zero-mean upstream g the leaf's largest gradient grows only like sqrt(n),
+# so one flip weighs ~1/sqrt(n). Phase 1b prints how far two fp32 plain
+# versions (cuBLAS, CPU) disagree at n = 65,573 (3.3e-3 on an H100); fp32
+# gets 1e-2. bf16 keeps the JAX package's bound for its bf16 backward
+# (tests/test_pallas_bwd.py:81), 8e-2.
+TOL_BWD_FP32 = 1e-2
+TOL_BWD_BF16 = 8e-2
+TRAIN_HW = 400
+TRAIN_STEPS = 50
 
 
 def fail(msg: str) -> None:
@@ -96,12 +119,12 @@ def inputs(n: int, gen: torch.Generator, scale: float = 2.0):
 
 
 def phase_kernels(fm, cfg, params):
-    """Build, check and time the fused MLP kernel; returns its JSON row
-    (without ``launches``) and the printed check lines."""
+    """Build every kernel, then check and time the forward kernel; returns
+    its per-shape rows (without ``launches``)."""
     t0 = time.time()
     with ThreadPoolExecutor() as pool:   # one nvcc per kernel source
-        libs = [f.result() for f in [pool.submit(fm.build_library,
-                                                 verbose=True)]]
+        libs = list(pool.map(lambda name: fm.build_library(name, verbose=True),
+                             fm.SOURCES))
     print(f"built {[str(p.name) for p in libs]} in {time.time() - t0:.1f} s",
           flush=True)
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -142,6 +165,277 @@ def phase_kernels(fm, cfg, params):
                      else "bytes"})
         del pts, dirs, got, want
     return rows
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """Per leaf: max |got - want| over the leaf's largest |want|."""
+    return {f"{k}.{p}": ((got[k][p] - want[k][p]).abs().max()
+                         / want[k][p].abs().max().clamp_min(1e-30)).item()
+            for k in want for p in ("w", "b")}
+
+
+def phase_backward(fm, fb, cfg, params):
+    """Check the backward kernel against its plain version, its launch
+    against a second launch (bitwise), and time both; returns the rows."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    rows = []
+    # Ragged size in both dtypes, then a train step's coarse (1024 rays x
+    # 64) and fine (x 192) shapes.
+    cases = [(2 ** 16 + 37, torch.float32), (2 ** 16 + 37, torch.bfloat16),
+             (1024 * 64, torch.bfloat16), (1024 * 192, torch.bfloat16)]
+    for n, dt in cases:
+        w = fm.FusedNerfWeights(params, cfg, dt)
+        pts, dirs = inputs(n, gen)
+        g = (torch.randn(n, 4, generator=gen) * 1e-3).cuda()
+        first = fb.fused_nerf_bwd(w, pts, dirs, g)
+        second = fb.fused_nerf_bwd(w, pts, dirs, g)
+        torch.cuda.synchronize()
+        same = torch.equal(first, second)
+        want = fb.fused_nerf_bwd_plain(params, pts, dirs, g, cfg, dt)
+        errs = leaf_errors(fb.unpack_grads(first, cfg, dt), want)
+        worst = max(errs, key=errs.get)
+        if dt == torch.float32:
+            calibrate_fp32(fb, cfg, params, w, pts, dirs, g, first, want)
+        tol = TOL_BWD_FP32 if dt == torch.float32 else TOL_BWD_BF16
+        finite = bool(torch.isfinite(first).all())
+        print(f"fused_nerf_bwd n={n} {str(dt)[6:]}: max leaf error "
+              f"{errs[worst]:.3e} ({worst}; tol {tol:g}), bitwise equal over "
+              f"two launches: {same}, finite: {finite}", flush=True)
+        if not (finite and same and errs[worst] <= tol):
+            fail(f"backward kernel check failed (n={n}, {dt})")
+        kernel_ms = time_ms(lambda: fb.fused_nerf_bwd(w, pts, dirs, g),
+                            reps=5)
+        plain_ms = time_ms(lambda: fb.fused_nerf_bwd_plain(
+            params, pts, dirs, g, cfg, dt), reps=5)
+        flops = fb.backward_flops(cfg) * n
+        peak = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_FP32_FLOPS
+        nbytes = ((pts.numel() + dirs.numel() + g.numel()) * 4
+                  + w.wmat.numel() * w.wmat.element_size()
+                  + w.wvec.numel() * 4 + first.numel() * 4)
+        ops_ms, bytes_ms = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        print(f"  kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound:.4f} (share {bound / kernel_ms:.2%})",
+              flush=True)
+        rows.append({"n": n, "dtype": str(dt)[6:], "max_abs_err": errs[worst],
+                     "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes"})
+        del pts, dirs, g, first, second
+    return rows
+
+
+def calibrate_fp32(fb, cfg, params, w, pts, dirs, g, whole, want) -> None:
+    """What the fp32 tolerance rests on: how far two plain versions
+    (cuBLAS on the card, the CPU) disagree on the same inputs, and that the
+    kernel's gradients of two halves of the points sum to its whole."""
+    cpu = {k: {p: t.cpu() for p, t in v.items()} for k, v in params.items()}
+    on_cpu = fb.fused_nerf_bwd_plain(cpu, pts.cpu(), dirs.cpu(), g.cpu(), cfg)
+    gap = max(leaf_errors({k: {p: t.cpu() for p, t in v.items()}
+                           for k, v in want.items()}, on_cpu).values())
+    h = pts.shape[0] // 2
+    halves = (fb.fused_nerf_bwd(w, pts[:h], dirs[:h], g[:h])
+              + fb.fused_nerf_bwd(w, pts[h:], dirs[h:], g[h:]))
+    split = max(leaf_errors(fb.unpack_grads(halves, cfg, torch.float32),
+                            fb.unpack_grads(whole, cfg, torch.float32)
+                            ).values())
+    print(f"  fp32 calibration: plain on the card vs plain on the CPU "
+          f"{gap:.3e}; kernel over two halves vs the whole {split:.3e}",
+          flush=True)
+
+
+def reset_counts(fm, fb) -> None:
+    fm.fused_nerf_apply.launches = 0
+    fm.fused_nerf_plain.calls = 0
+    fb.fused_nerf_bwd.launches = 0
+    fb.fused_nerf_bwd_plain.calls = 0
+
+
+def read_counts(fm, fb) -> dict:
+    return {"fwd": fm.fused_nerf_apply.launches,
+            "bwd": fb.fused_nerf_bwd.launches,
+            "fwd_plain": fm.fused_nerf_plain.calls,
+            "bwd_plain": fb.fused_nerf_bwd_plain.calls}
+
+
+def lego_train_config(dt, kernels: str = "on"):
+    from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
+    from cvnerf_torch.render.renderer import RenderConfig
+    from cvnerf_torch.train.loop import TrainConfig
+    rcfg = RenderConfig(n_coarse=64, n_fine=128, perturb=True, noise_std=0.0,
+                        white_bkg=True, mlp=NerfMLPConfig(),
+                        compute_dtype=dt, kernels=kernels)
+    return TrainConfig(height=TRAIN_HW, width=TRAIN_HW, focal=555.0,
+                       near=2.0, far=6.0, n_rays=1024, lr=5e-4, lr_decay=500,
+                       render=rcfg)
+
+
+def phase_train(fm, fb, card: str):
+    """Train the lego-shaped workload through ``Trainer`` (main path) and
+    render a frame of the trained params; returns the launch counts."""
+    from cvnerf_torch.data.synthetic import bench_scene
+    from cvnerf_torch.render.frames import render_image
+    from cvnerf_torch.train.loop import Trainer
+    from cvnerf_torch.train.state import create_train_state
+    images, poses = bench_scene(TRAIN_HW, TRAIN_HW)
+    tcfg = lego_train_config(torch.bfloat16)
+    state = create_train_state(torch.Generator().manual_seed(SEED),
+                               lr=tcfg.lr, lr_decay=tcfg.lr_decay,
+                               mlp=tcfg.render.mlp, device="cuda")
+    tr = Trainer(tcfg, state, images, poses, [0, 1], seed=SEED)
+    seen, events, walls = [], [], []
+
+    def on_step(i, trainer, m):
+        seen.append(m)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        walls.append(time.perf_counter())
+
+    tr.add_callback(1, on_step)
+    torch.cuda.synchronize()
+    reset_counts(fm, fb)
+    tr.run(1, 1 + TRAIN_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts(fm, fb)
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    wall_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
+    med = float(np.median(step_ms))
+    losses = [m["loss"] for m in seen]
+    finite = all(np.isfinite(v) for m in seen for v in m.values())
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"train: {TRAIN_STEPS} lego-shaped bf16 steps through Trainer: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of first 10 "
+          f"{first:.4f}, last 10 {last:.4f}), psnr {seen[-1]['psnr']:.2f}, "
+          f"grad_norm {seen[-1]['grad_norm']:.4f}, metrics finite: {finite}",
+          flush=True)
+    print(f"train: median step {med:.3f} ms by CUDA events (wall "
+          f"{float(np.median(wall_ms)):.3f} ms), {tcfg.n_rays / med * 1e3:.1f}"
+          f" rays/s; launches {counts} (expected fwd {2 * TRAIN_STEPS}, bwd "
+          f"{2 * TRAIN_STEPS}, plain 0); card: {card}", flush=True)
+    if not finite or len(seen) != TRAIN_STEPS:
+        fail("train: missing or non-finite metrics")
+    if not last < first:
+        fail("train: the loss did not fall")
+    if counts != {"fwd": 2 * TRAIN_STEPS, "bwd": 2 * TRAIN_STEPS,
+                  "fwd_plain": 0, "bwd_plain": 0}:
+        fail("train: the step did not run exactly through the kernels")
+    split = profile_steps(tr, 1 + TRAIN_STEPS, 5, med)
+    # Hand the trained state to the serving path of the first slice.
+    nets = {k: fm.FusedNerfWeights(v, tcfg.render.mlp, torch.bfloat16)
+            for k, v in tr.state.params.items()}
+    rcfg = dataclasses.replace(tcfg.render, deterministic_resample=True
+                               ).eval_mode()
+    reset_counts(fm, fb)
+    out = render_image(nets, TRAIN_HW, TRAIN_HW, 555.0,
+                       torch.as_tensor(poses[0], device="cuda"), 2.0, 6.0,
+                       rcfg, chunk=CHUNK)
+    rgb = out["rgb"].cpu().numpy()
+    frame_counts = read_counts(fm, fb)
+    frame_psnr = float(-10 * np.log10(np.mean((rgb - images[0]) ** 2)))
+    print(f"train: rendered the trained params at {rgb.shape}, psnr vs the "
+          f"training view {frame_psnr:.2f} dB; launches {frame_counts}",
+          flush=True)
+    if rgb.shape != (TRAIN_HW, TRAIN_HW, 3) or not np.isfinite(rgb).all():
+        fail("train: the trained frame is misshapen or non-finite")
+    if frame_counts["fwd"] != 2 * -(-TRAIN_HW * TRAIN_HW // CHUNK):
+        fail("train: the trained frame did not run through the kernel")
+    return counts, med, split
+
+
+def profile_steps(tr, start: int, n: int, step_ms: float) -> dict:
+    """Device time per train step by kernel group, from ``torch.profiler``
+    (device activity only) over ``n`` more steps after the counted run, and
+    the device's idle share of the unprofiled median step ``step_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.run(start, start + n)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    us = {"fwd_kernels": 0.0, "bwd_kernels": 0.0, "other_device": 0.0}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        t = e.self_device_time_total
+        if "fused_nerf_bwd_kernel" in e.key or "reduce_slabs" in e.key:
+            us["bwd_kernels"] += t
+        elif "fused_nerf_kernel" in e.key:
+            us["fwd_kernels"] += t
+        else:
+            us["other_device"] += t
+    busy_ms = sum(us.values()) / n / 1e3
+    split = {k: v / n / 1e3 for k, v in us.items()}
+    split["profiled_wall"] = wall_us / n / 1e3
+    split["idle_share"] = 1.0 - busy_ms / step_ms if busy_ms > 0 else None
+    if busy_ms > 0:
+        print("train step split (torch.profiler, ms per step over "
+              f"{n} steps): forward kernels {split['fwd_kernels']:.3f}, "
+              f"backward kernels {split['bwd_kernels']:.3f}, other device "
+              f"work {split['other_device']:.3f} (profiled wall "
+              f"{split['profiled_wall']:.3f}); device idle "
+              f"{split['idle_share']:.1%} of the {step_ms:.3f} ms step",
+              flush=True)
+    else:
+        print("train step split: the profiler saw no device time (not "
+              "measured)", flush=True)
+    return split
+
+
+def phase_step_vs_off(cfg):
+    """One train step with the kernels and with kernels="off" from one
+    state and key, fp32 and bf16."""
+    from cvnerf_torch.data.synthetic import bench_scene
+    from cvnerf_torch.ops.rng import PRNGKey, fold_in
+    from cvnerf_torch.train.loop import make_train_step
+    from cvnerf_torch.train.state import create_train_state, tree_leaves
+    images, poses = bench_scene(TRAIN_HW, TRAIN_HW)
+    images = torch.as_tensor(images, device="cuda")
+    poses = torch.as_tensor(poses, device="cuda")
+    idx = torch.tensor([0, 1])
+    key = fold_in(PRNGKey(SEED), 1)
+    # loss rtol; mu (= 0.1 x the gradient after one step) relative to each
+    # leaf's largest; updated params: Adam's first step moves a weight by
+    # ~lr·sign(g)·|g|/(|g| + eps), so a weight whose gradient is small enough
+    # to change sign between the two paths may differ by up to 2·lr, and must
+    # agree to 1e-6 where |g| is above the given fraction of its leaf's
+    # largest and far above Adam's eps (1e-8), where the step no longer
+    # depends on |g|.
+    for dt, tol_loss, tol_g, gfrac in ((torch.float32, 1e-5, 1e-2, 1e-2),
+                                       (torch.bfloat16, 2e-2, 1.5e-1, 0.3)):
+        outs = []
+        for kernels in ("on", "off"):
+            tcfg = lego_train_config(dt, kernels)
+            state = create_train_state(torch.Generator().manual_seed(SEED + 5),
+                                       lr=tcfg.lr, lr_decay=tcfg.lr_decay,
+                                       device="cuda")
+            new, m = make_train_step(tcfg)(state, key, images, poses, idx,
+                                           False)
+            outs.append((new, {k: float(v) for k, v in m.items()}))
+        (on, m_on), (off, m_off) = outs
+        loss_err = abs(m_on["loss"] - m_off["loss"]) / abs(m_off["loss"])
+        mu_on = tree_leaves(on.opt_state.mu)
+        mu_off = tree_leaves(off.opt_state.mu)
+        g_err = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(mu_on, mu_off))
+        p_any, p_big = 0.0, 0.0
+        for a, b, g in zip(tree_leaves(on.params), tree_leaves(off.params),
+                           mu_off):
+            d = (a - b).abs()
+            p_any = max(p_any, d.max().item())
+            big = (g.abs() > gfrac * g.abs().max()) & (g.abs() > 1e-6)
+            if big.any():
+                p_big = max(p_big, d[big].max().item())
+        lr = lego_train_config(dt).lr
+        print(f"train step {str(dt)[6:]} kernels vs kernels='off': loss "
+              f"{m_on['loss']:.6f} vs {m_off['loss']:.6f} (rel {loss_err:.2e}, "
+              f"tol {tol_loss:g}); grads rel {g_err:.2e} (tol {tol_g:g}); "
+              f"params max {p_any:.2e} (tol {2 * lr:g}), where |g| > "
+              f"{gfrac:g} max and 1e-5: {p_big:.2e} (tol 1e-6)", flush=True)
+        if not (loss_err <= tol_loss and g_err <= tol_g
+                and p_any <= 2 * lr + 1e-6 and p_big <= 1e-6):
+            fail(f"train step {dt}: kernels and kernels='off' disagree")
 
 
 def write_run_dir(run: str, cfg, convert, init, gen_seed: int) -> None:
@@ -210,6 +504,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
     from cvnerf_torch.ops import fused_mlp as fm
+    from cvnerf_torch.ops import fused_mlp_bwd as fb
     from cvnerf_torch.render.frames import render_image
     from cvnerf_torch.render.renderer import RenderConfig
     from cvnerf_torch.server import build_parser, make_server, renderer_from_args
@@ -223,6 +518,8 @@ def main() -> int:
 
     # -- 1. kernels against their plain versions --------------------------
     rows = phase_kernels(fm, cfg, params)
+    # -- 1b. the backward kernel against its plain version ----------------
+    bwd_rows = phase_backward(fm, fb, cfg, params)
 
     with tempfile.TemporaryDirectory() as tmp:
         run = os.path.join(tmp, "lego_serve")
@@ -327,8 +624,15 @@ def main() -> int:
             if not v <= (tol_depth if k == "depth" else tol_rgb):
                 fail(f"end-to-end {dt} {k} differs by {v}")
 
-    main_launches = serve_launches + video_launches
+    # -- 5. train through Trainer (main path) -----------------------------
+    train_counts, step_ms, split = phase_train(fm, fb, card)
+
+    # -- 6. one train step, kernels vs kernels="off", on the card ----------
+    phase_step_vs_off(cfg)
+
+    main_launches = serve_launches + video_launches + train_counts["fwd"]
     serve_row = next(r for r in rows if r["n"] == CHUNK * 192)
+    fine_row = next(r for r in bwd_rows if r["n"] == 1024 * 192)
     report = {"kernels": [{
         "name": "fused_nerf_apply", "route": "cuda",
         "source": "cvnerf_torch/csrc/fused_mlp.cu",
@@ -342,10 +646,28 @@ def main() -> int:
         "note": "ms/plain_ms/bound_ms at the fine-pass chunk "
                 f"(n={CHUNK * 192}, bf16); no single PyTorch call computes "
                 "this function, so library_ms is null",
+    }, {
+        "name": "fused_nerf_bwd", "route": "cuda",
+        "source": "cvnerf_torch/csrc/fused_mlp_bwd.cu",
+        "replaces": "cvnerf_tpu/ops/pallas/fused_mlp_bwd.py:207",
+        "launches": train_counts["bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        "ms": fine_row["ms"], "plain_ms": fine_row["plain_ms"],
+        "bound_ms": fine_row["bound_ms"], "bound_by": fine_row["bound_by"],
+        "library_ms": None,
+        "shapes": bwd_rows,
+        "step_ms": step_ms,
+        "step_split_ms": split,
+        "note": "ms/plain_ms/bound_ms at a train step's fine pass "
+                "(n=196608, bf16); max_abs_err is the largest per-leaf error "
+                "relative to the leaf's largest gradient; the bound counts "
+                "the least work (wgrad of 12 layers + dgrad of 11), not the "
+                "forward recompute; no single PyTorch call computes this "
+                "function, so library_ms is null",
     }]}
     print(json.dumps(report), flush=True)
     print(f"card: {card}", flush=True)
-    print('kernels: ["fused_nerf_apply"]', flush=True)
+    print('kernels: ["fused_nerf_apply", "fused_nerf_bwd"]', flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

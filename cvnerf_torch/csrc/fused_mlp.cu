@@ -31,227 +31,16 @@
 // 8-row output padding) has no counterpart here: the encoding keeps
 // freq_encode's own layout [x | sin_0 cos_0 | ...], zero-padded to 16.
 //
-// Operand layout (packed once on the host by cvnerf_torch/ops/fused_mlp.py):
-//   wmat (compute dtype): w1 [W,KX], w2..w5 [W,W], w6a [W,W], w6b [W,KX],
-//     w7, w8, w9 [W,W], w10a [H,W], w10b [H,KD]; each [out, in] row-major for
-//     bf16 (wmma's column-major B) and [in, out] row-major for fp32.
-//   wvec (fp32): b1..b9 [W] each, b10 [H], wa [W], w11 [3, H], ba [4], b11 [4]
-//     (wa and w11 already rounded to the compute dtype).
-// KX = round_up(3 + 6 Lx, 16), KD = round_up(3 + 6 Ld, 16); pad columns and
-// rows of the weights are zero.
+// Operand layout, encoding and the layer walk: nerf_common.cuh (shared with
+// the backward kernel, fused_mlp_bwd.cu).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "nerf_common.cuh"
 
 namespace {
 
-constexpr int TILE = 64;       // points per block
-constexpr int THREADS = 256;   // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int PAD = 8;         // shared-memory row padding (elements)
+using namespace cvnerf;
 
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-struct Dims {
-  int W, H, KX, KD, Lx, Ld;
-};
-
-struct Offsets {  // element offsets into wmat / wvec
-  long w1, w2, w3, w4, w5, w6a, w6b, w7, w8, w9, w10a, w10b, mat_total;
-  long b[9], b10, wa, w11, ba, b11, vec_total;
-};
-
-__host__ __device__ inline Offsets offsets(const Dims& d) {
-  Offsets o;
-  long p = 0;
-  const long WW = (long)d.W * d.W;
-  o.w1 = p; p += (long)d.W * d.KX;
-  o.w2 = p; p += WW;
-  o.w3 = p; p += WW;
-  o.w4 = p; p += WW;
-  o.w5 = p; p += WW;
-  o.w6a = p; p += WW;
-  o.w6b = p; p += (long)d.W * d.KX;
-  o.w7 = p; p += WW;
-  o.w8 = p; p += WW;
-  o.w9 = p; p += WW;
-  o.w10a = p; p += (long)d.H * d.W;
-  o.w10b = p; p += (long)d.H * d.KD;
-  o.mat_total = p;
-  long q = 0;
-  for (int i = 0; i < 9; ++i) { o.b[i] = q; q += d.W; }
-  o.b10 = q; q += d.H;
-  o.wa = q; q += d.W;
-  o.w11 = q; q += 3L * d.H;
-  o.ba = q; q += 4;
-  o.b11 = q; q += 4;
-  o.vec_total = q;
-  return o;
-}
-
-template <typename T> __device__ inline T from_float(float v);
-template <> __device__ inline float from_float<float>(float v) { return v; }
-template <> __device__ inline __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-__device__ inline float to_float(float v) { return v; }
-__device__ inline float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Encode TILE points into enc_x [TILE, ldx] and enc_d [TILE, ldd] (compute
-// dtype), freq_encode's layout, zero pad columns; rows past n are zero.
-template <typename T>
-__device__ void encode_tile(const float* __restrict__ pts, const float* __restrict__ dirs,
-                            int p0, int n, const Dims& d, T* enc_x, int ldx, T* enc_d,
-                            int ldd) {
-  for (int idx = threadIdx.x; idx < TILE * d.KX; idx += THREADS) {
-    const int r = idx / d.KX, c = idx % d.KX;
-    const int p = p0 + r;
-    float v = 0.f;
-    if (p < n && c < 3 + 6 * d.Lx) {
-      if (c < 3) {
-        v = pts[3L * p + c];
-      } else {
-        const int k = (c - 3) / 6, j = (c - 3) % 6;
-        const float s = pts[3L * p + (j % 3)] * (float)(1 << k);  // exact
-        v = j < 3 ? sinf(s) : cosf(s);
-      }
-    }
-    enc_x[r * ldx + c] = from_float<T>(v);
-  }
-  for (int idx = threadIdx.x; idx < TILE * d.KD; idx += THREADS) {
-    const int r = idx / d.KD, c = idx % d.KD;
-    const int p = p0 + r;
-    float v = 0.f;
-    if (p < n && c < 3 + 6 * d.Ld) {
-      if (c < 3) {
-        v = dirs[3L * p + c];
-      } else {
-        const int k = (c - 3) / 6, j = (c - 3) % 6;
-        const float s = dirs[3L * p + (j % 3)] * (float)(1 << k);
-        v = j < 3 ? sinf(s) : cosf(s);
-      }
-    }
-    enc_d[r * ldd + c] = from_float<T>(v);
-  }
-}
-
-// ---------------------------------------------------------------- bf16 path
-// out[TILE, N] = act(in[TILE, K] @ W + in2[TILE, K2] @ W2 + bias), W given as
-// [N, K] row-major (wmma column-major B, ldm K). Each warp owns 16x16 output
-// tiles; the fp32 accumulator goes through a per-warp 16x16 scratch for the
-// bias + ReLU epilogue and the cast to bf16.
-__device__ void layer_bf16(const __nv_bfloat16* in, int ldin, int K,
-                           const __nv_bfloat16* __restrict__ W,
-                           const __nv_bfloat16* in2, int ldin2, int K2,
-                           const __nv_bfloat16* __restrict__ W2,
-                           const float* __restrict__ bias, int N, bool relu,
-                           __nv_bfloat16* out, int ldout, float* scratch) {
-  using namespace nvcuda;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sc = scratch + warp * 256;
-  const int n_tiles = (TILE / 16) * (N / 16);
-  for (int t = warp; t < n_tiles; t += WARPS) {
-    const int mi = t % (TILE / 16), ni = t / (TILE / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-    for (int k = 0; k < K; k += 16) {
-      wmma::load_matrix_sync(a, in + mi * 16 * ldin + k, ldin);
-      wmma::load_matrix_sync(b, W + (long)ni * 16 * K + k, K);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    for (int k = 0; k < K2; k += 16) {
-      wmma::load_matrix_sync(a, in2 + mi * 16 * ldin2 + k, ldin2);
-      wmma::load_matrix_sync(b, W2 + (long)ni * 16 * K2 + k, K2);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(sc, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    const int row = lane / 2, col0 = (lane % 2) * 8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float v = sc[row * 16 + col0 + j] + bias[ni * 16 + col0 + j];
-      if (relu) v = fmaxf(v, 0.f);
-      out[(mi * 16 + row) * ldout + ni * 16 + col0 + j] = __float2bfloat16(v);
-    }
-    __syncwarp();
-  }
-}
-
-// ---------------------------------------------------------------- fp32 path
-// Same contract with W given as [K, N] row-major; plain FFMA. Thread (ty, tx)
-// of a 16x16 grid owns rows ty + 16 i (i < TILE/16) and columns tx + 16 j
-// (j < N/16 <= 16).
-__device__ void layer_f32(const float* in, int ldin, int K, const float* __restrict__ W,
-                          const float* in2, int ldin2, int K2,
-                          const float* __restrict__ W2, const float* __restrict__ bias,
-                          int N, bool relu, float* out, int ldout) {
-  constexpr int R = TILE / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int nj = N / 16;
-  float acc[R][16];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < K; ++k) {
-    float a[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) a[i] = in[(ty + 16 * i) * ldin + k];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      if (j < nj) {
-        const float w = W[(long)k * N + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < R; ++i) acc[i][j] = fmaf(a[i], w, acc[i][j]);
-      }
-    }
-  }
-  for (int k = 0; k < K2; ++k) {
-    float a[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) a[i] = in2[(ty + 16 * i) * ldin2 + k];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      if (j < nj) {
-        const float w = W2[(long)k * N + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < R; ++i) acc[i][j] = fmaf(a[i], w, acc[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    if (j < nj) {
-      const int c = tx + 16 * j;
-      const float bc = bias[c];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        float v = acc[i][j] + bc;
-        if (relu) v = fmaxf(v, 0.f);
-        out[(ty + 16 * i) * ldout + c] = v;
-      }
-    }
-  }
-}
-
-__device__ inline void layer(const __nv_bfloat16* in, int ldin, int K,
-                             const __nv_bfloat16* W, const __nv_bfloat16* in2, int ldin2,
-                             int K2, const __nv_bfloat16* W2, const float* bias, int N,
-                             bool relu, __nv_bfloat16* out, int ldout, float* scratch) {
-  layer_bf16(in, ldin, K, W, in2, ldin2, K2, W2, bias, N, relu, out, ldout, scratch);
-}
-__device__ inline void layer(const float* in, int ldin, int K, const float* W,
-                             const float* in2, int ldin2, int K2, const float* W2,
-                             const float* bias, int N, bool relu, float* out, int ldout,
-                             float*) {
-  layer_f32(in, ldin, K, W, in2, ldin2, K2, W2, bias, N, relu, out, ldout);
-}
-
-__host__ __device__ inline size_t align128(size_t b) { return (b + 127) / 128 * 128; }
+constexpr int TILE = 64;  // points per block
 
 // Dynamic shared-memory plan, in bytes: two activation buffers [TILE, W+PAD],
 // enc_x [TILE, KX+PAD], enc_d [TILE, KD+PAD], sigma [TILE], and (bf16 only)
@@ -275,8 +64,10 @@ __host__ __device__ inline void smem_plan(const Dims& d, size_t* off_b, size_t* 
   *total = p;
 }
 
+// fp32 fits one block per SM in shared memory, so its registers need not
+// leave room for a second; bf16 fits two.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 1 : 2)
 fused_nerf_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
                   const T* __restrict__ wmat, const float* __restrict__ wvec,
                   float* __restrict__ out, int n, Dims d) {
@@ -293,48 +84,11 @@ fused_nerf_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
   const Offsets o = offsets(d);
   const int p0 = blockIdx.x * TILE;
 
-  encode_tile<T>(pts, dirs, p0, n, d, enc_x, ldx, enc_d, ldd);
+  encode_tile<T, TILE>(pts, dirs, p0, n, d, enc_x, ldx, enc_d, ldd);
   __syncthreads();
-  const int W = d.W;
-  layer(enc_x, ldx, d.KX, wmat + o.w1, nullptr, 0, 0, nullptr, wvec + o.b[0], W, true,
-        bufA, ld, scratch);
-  __syncthreads();
-  layer(bufA, ld, W, wmat + o.w2, nullptr, 0, 0, nullptr, wvec + o.b[1], W, true, bufB, ld,
-        scratch);
-  __syncthreads();
-  layer(bufB, ld, W, wmat + o.w3, nullptr, 0, 0, nullptr, wvec + o.b[2], W, true, bufA, ld,
-        scratch);
-  __syncthreads();
-  layer(bufA, ld, W, wmat + o.w4, nullptr, 0, 0, nullptr, wvec + o.b[3], W, true, bufB, ld,
-        scratch);
-  __syncthreads();
-  layer(bufB, ld, W, wmat + o.w5, nullptr, 0, 0, nullptr, wvec + o.b[4], W, true, bufA, ld,
-        scratch);
-  __syncthreads();
-  // l6 on [xyz_enc | h5]: hidden part + encoding part into one accumulator.
-  layer(bufA, ld, W, wmat + o.w6a, enc_x, ldx, d.KX, wmat + o.w6b, wvec + o.b[5], W, true,
-        bufB, ld, scratch);
-  __syncthreads();
-  layer(bufB, ld, W, wmat + o.w7, nullptr, 0, 0, nullptr, wvec + o.b[6], W, true, bufA, ld,
-        scratch);
-  __syncthreads();
-  layer(bufA, ld, W, wmat + o.w8, nullptr, 0, 0, nullptr, wvec + o.b[7], W, true, bufB, ld,
-        scratch);  // h8 in bufB
-  __syncthreads();
-  // sigma = h8 . wa + ba, fp32 (no activation).
-  for (int r = threadIdx.x; r < TILE; r += THREADS) {
-    float s = 0.f;
-    for (int k = 0; k < W; ++k) s = fmaf(to_float(bufB[r * ld + k]), wvec[o.wa + k], s);
-    sig[r] = s + wvec[o.ba];
-  }
-  // feat = l9(h8), cast without ReLU (bufA is free: h7 is dead).
-  layer(bufB, ld, W, wmat + o.w9, nullptr, 0, 0, nullptr, wvec + o.b[8], W, false, bufA, ld,
-        scratch);
-  __syncthreads();
-  // l10 on [feat | dir_enc] (H wide) into bufB.
-  layer(bufA, ld, W, wmat + o.w10a, enc_d, ldd, d.KD, wmat + o.w10b, wvec + o.b10, d.H, true,
-        bufB, ld, scratch);
-  __syncthreads();
+  // Activations ping-pong: h1 A, h2 B, ..., h8 B, feat A, h10 B.
+  T* const h[10] = {bufA, bufB, bufA, bufB, bufA, bufB, bufA, bufB, bufA, bufB};
+  forward_tile<T, TILE>(enc_x, ldx, enc_d, ldd, wmat, wvec, d, o, h, ld, sig, scratch);
   // rgb = l11(h10), fp32; write (r, g, b, sigma) for the points that exist.
   for (int idx = threadIdx.x; idx < TILE * 3; idx += THREADS) {
     const int r = idx / 3, c = idx % 3;
@@ -372,12 +126,10 @@ extern "C" {
 // Element counts of the packed operands, so the host can check its packing
 // against the kernel's layout.
 long cvnerf_fused_nerf_mat_elems(int W, int H, int Lx, int Ld) {
-  Dims d{W, H, round_up(3 + 6 * Lx, 16), round_up(3 + 6 * Ld, 16), Lx, Ld};
-  return offsets(d).mat_total;
+  return offsets(make_dims(W, H, Lx, Ld)).mat_total;
 }
 long cvnerf_fused_nerf_vec_elems(int W, int H, int Lx, int Ld) {
-  Dims d{W, H, round_up(3 + 6 * Lx, 16), round_up(3 + 6 * Ld, 16), Lx, Ld};
-  return offsets(d).vec_total;
+  return offsets(make_dims(W, H, Lx, Ld)).vec_total;
 }
 
 // out[n, 4] = fused encode -> MLP of (pts[n, 3], dirs[n, 3]). bf16 != 0
@@ -387,7 +139,7 @@ int cvnerf_fused_nerf_forward(const float* pts, const float* dirs, const void* w
                               const float* wvec, float* out, int n, int W, int H, int Lx,
                               int Ld, int bf16, void* stream) {
   if (n <= 0) return 0;
-  Dims d{W, H, round_up(3 + 6 * Lx, 16), round_up(3 + 6 * Ld, 16), Lx, Ld};
+  const Dims d = make_dims(W, H, Lx, Ld);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) return launch<__nv_bfloat16>(pts, dirs, wmat, wvec, out, n, d, s);
   return launch<float>(pts, dirs, wmat, wvec, out, n, d, s);

@@ -30,9 +30,7 @@ def volume_render(raw_rgba: torch.Tensor, t_vals: torch.Tensor,
     sigma = raw_rgba[..., 3]
     if noise_std > 0.0:
         if noise is None:
-            raise NotImplementedError(
-                "density noise needs pre-drawn normals: the per-ray RNG "
-                "(ops/rng.py) is ROADMAP Queue 1 item 2")
+            raise ValueError("density noise needs pre-drawn normals")
         sigma = sigma + noise * noise_std
 
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * deltas)

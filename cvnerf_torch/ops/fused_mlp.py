@@ -5,12 +5,14 @@ PyTorch version (port of the JAX package's ``ops/pallas/fused_mlp.py``).
 both inputs followed by the full 12-layer MLP and returns ``[n, 4]`` raw
 ``(r, g, b, sigma)`` in fp32. For CUDA tensors it launches the hand-written
 kernel in ``cvnerf_torch/csrc/fused_mlp.cu`` (or raises); for CPU tensors it
-runs :func:`fused_nerf_plain`. The kernel source is compiled with ``nvcc``
-at first use into ``build/cvnerf_torch_kernels/`` (keyed by the source's
-hash) and bound with ``ctypes``; nothing is built at import time.
+runs :func:`fused_nerf_plain`. Each kernel source in ``SOURCES`` (this
+forward and the backward of ``ops/fused_mlp_bwd.py``) is compiled with
+``nvcc`` at first use into its own library under
+``build/cvnerf_torch_kernels/`` (keyed by the hash of the source and the
+shared headers) and bound with ``ctypes``; nothing is built at import time.
 
-Weights are packed once, by :class:`FusedNerfWeights`, into the kernel's
-operand layout (see the ``.cu`` header): the l6 and l10 weights are split
+Weights are packed once, by :class:`FusedNerfWeights`, into the kernels'
+operand layout (``csrc/nerf_common.cuh``): the l6 and l10 weights are split
 into their hidden/feature and encoding parts, encoding inputs zero-padded to
 a multiple of 16, and every operand rounded to the compute dtype.
 """
@@ -31,12 +33,16 @@ import torch
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, apply_nerf
 from cvnerf_torch.ops.encoding import freq_encode
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_mlp.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+# One shared library per kernel source; every source includes the headers
+# in csrc/ (nerf_common.cuh), so they are part of each build's hash.
+SOURCES = {"fused_mlp": _CSRC / "fused_mlp.cu",
+           "fused_mlp_bwd": _CSRC / "fused_mlp_bwd.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cvnerf_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_lib = None
+_libs: dict = {}
 _lib_lock = threading.Lock()
 
 
@@ -55,50 +61,57 @@ def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the fused MLP kernel is built from "
-                       f"{_SOURCE} on a machine with the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the fused MLP kernels are built from "
+                       f"{_CSRC} on a machine with the CUDA toolkit")
 
 
-def build_library(verbose: bool = False) -> Path:
-    """Compile the kernel source into a shared library (if this source hash
-    has not been built yet) and return its path. Safe to call from several
-    processes: each compiles to a temporary file and renames it."""
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"fused_mlp_{digest[:16]}.so"
+def build_library(name: str = "fused_mlp", verbose: bool = False) -> Path:
+    """Compile the kernel source ``SOURCES[name]`` into a shared library (if
+    this source and header hash has not been built yet) and return its
+    path. Safe to call from several processes and threads: each compiles
+    to a temporary file and renames it."""
+    source = SOURCES[name]
+    blob = source.read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = _BUILD_DIR / f"{name}_{digest[:16]}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc failed on {source.name} ({res.returncode}):"
+                           f"\n{res.stderr}")
     if verbose and res.stderr:
         print(res.stderr, flush=True)
     os.replace(tmp, out)
     return out
 
 
-def _library():
-    global _lib
+def load_library(name: str, bind) -> ctypes.CDLL:
+    """The built library ``name``, loaded once; ``bind(lib)`` sets its
+    functions' ctypes signatures on first load."""
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.cvnerf_fused_nerf_forward.argtypes = [p, p, p, p, p, i, i, i, i,
-                                                      i, i, p]
-            lib.cvnerf_fused_nerf_forward.restype = ctypes.c_int
-            for fn in (lib.cvnerf_fused_nerf_mat_elems,
-                       lib.cvnerf_fused_nerf_vec_elems):
-                fn.argtypes = [i, i, i, i]
-                fn.restype = ctypes.c_long
-            _lib = lib
-        return _lib
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build_library(name)))
+            bind(lib)
+            _libs[name] = lib
+        return _libs[name]
+
+
+def _bind_forward(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.cvnerf_fused_nerf_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.cvnerf_fused_nerf_forward.restype = ctypes.c_int
+    for fn in (lib.cvnerf_fused_nerf_mat_elems, lib.cvnerf_fused_nerf_vec_elems):
+        fn.argtypes = [i, i, i, i]
+        fn.restype = ctypes.c_long
 
 
 def _round_up(x: int, m: int) -> int:
@@ -115,6 +128,25 @@ def check_kernel_config(cfg: NerfMLPConfig) -> None:
             f"16 with head <= trunk <= 256, got {w}/{h}; use kernels='off'")
     if not 0 <= cfg.xyz_freqs <= 20 or not 0 <= cfg.dir_freqs <= 20:
         raise ValueError("the fused kernel takes at most 20 frequency bands")
+
+
+def mat_blocks(cfg: NerfMLPConfig) -> list[tuple[str, int, int]]:
+    """The packed matrices in operand order, as ``(name, padded fan-in,
+    fan-out)``; the backward kernel's gradients use the same layout."""
+    w, h = cfg.trunk_width, cfg.head_width
+    kx, kd = _round_up(cfg.xyz_dim, 16), _round_up(cfg.dir_dim, 16)
+    return ([("l1", kx, w)] + [(f"l{i}", w, w) for i in range(2, 6)]
+            + [("l6a", w, w), ("l6b", kx, w)]
+            + [(f"l{i}", w, w) for i in (7, 8, 9)]
+            + [("l10a", w, h), ("l10b", kd, h)])
+
+
+def packed_size(cfg: NerfMLPConfig) -> int:
+    """Elements of ``wmat`` plus ``wvec`` (the matrices, then b1..b9, b10,
+    wa, w11, ba[4], b11[4])."""
+    w, h = cfg.trunk_width, cfg.head_width
+    mats = sum(fin * fout for _, fin, fout in mat_blocks(cfg))
+    return mats + 9 * w + h + w + 3 * h + 4 + 4
 
 
 def pack_params(params: dict, cfg: NerfMLPConfig,
@@ -136,10 +168,11 @@ def pack_params(params: dict, cfg: NerfMLPConfig,
     def pad_in(mat, rows):  # mat [in, out] → [rows, out], zero rows appended
         return torch.cat([mat, mat.new_zeros(rows - mat.shape[0], mat.shape[1])])
 
-    mats = [pad_in(f32("l1"), kx), f32("l2"), f32("l3"), f32("l4"), f32("l5"),
-            f32("l6")[xd:], pad_in(f32("l6")[:xd], kx),
-            f32("l7"), f32("l8"), f32("l9"),
-            f32("l10")[:w], pad_in(f32("l10")[w:], kd)]
+    blocks = {f"l{i}": f32(f"l{i}") for i in (2, 3, 4, 5, 7, 8, 9)}
+    blocks.update(l1=pad_in(f32("l1"), kx), l6a=f32("l6")[xd:],
+                  l6b=pad_in(f32("l6")[:xd], kx), l10a=f32("l10")[:w],
+                  l10b=pad_in(f32("l10")[w:], kd))
+    mats = [blocks[name] for name, _, _ in mat_blocks(cfg)]
     if compute_dtype == torch.bfloat16:
         wmat = torch.cat([m.t().contiguous().reshape(-1) for m in mats])
     else:
@@ -217,7 +250,7 @@ def fused_nerf_apply(weights: FusedNerfWeights, points: torch.Tensor,
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
     cfg = weights.cfg
-    lib = _library()
+    lib = load_library("fused_mlp", _bind_forward)
     n = points.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"n={n} points exceeds the kernel's int32 range")

@@ -1,9 +1,9 @@
 """Stratified and inverse-CDF hierarchical sampling (port of
 the JAX package's ``ops/sampling.py``).
 
-The serving slice draws no random numbers: ``stratified_samples`` and
-``sample_pdf`` take pre-drawn uniforms ``u`` (or run their deterministic
-paths). The TPU's masked-reduction bracketing becomes
+``stratified_samples`` and ``sample_pdf`` take pre-drawn uniforms ``u``
+(the renderer draws them with ``ops/rng.py``) or run their deterministic
+paths. The TPU's masked-reduction bracketing becomes
 ``torch.searchsorted(right=True)`` + ``gather`` and its bitonic merge a
 ``torch.sort`` of the concatenation — both give the same values.
 """
@@ -22,9 +22,8 @@ def stratified_samples(near, far, n_samples: int, n_rays: int,
     ``s = linspace(0, 1, n)``; with ``perturb``, each sample moves by
     ``u`` inside the bin bounded by its neighbours' midpoints."""
     if perturb and u is None:
-        raise NotImplementedError(
-            "perturbed stratified samples need pre-drawn uniforms u: the "
-            "per-ray RNG (ops/rng.py) is ROADMAP Queue 1 item 2")
+        raise ValueError("perturbed stratified samples need pre-drawn "
+                         "uniforms u")
     if device is None:
         device = near.device if torch.is_tensor(near) else "cpu"
     s = torch.linspace(0.0, 1.0, n_samples, dtype=torch.float32,
@@ -74,9 +73,7 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
                            device=cdf.device)
         u = u.expand(*cdf.shape[:-1], n_samples)
     elif u is None:
-        raise NotImplementedError(
-            "stochastic resampling needs pre-drawn uniforms u: the per-ray "
-            "RNG (ops/rng.py) is ROADMAP Queue 1 item 2")
+        raise ValueError("stochastic resampling needs pre-drawn uniforms u")
     u = u.contiguous()
 
     nb = cdf.shape[-1]

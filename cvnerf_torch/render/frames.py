@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from cvnerf_torch.ops.rays import ndc_rays, ray_grid
+from cvnerf_torch.ops.rng import split
 from cvnerf_torch.render.renderer import RenderConfig, render_rays_chunked
 
 
@@ -24,9 +25,10 @@ def render_image(params: dict, height: int, width: int, focal: float,
                  c2w: torch.Tensor, near: float, far: float,
                  cfg: RenderConfig, ndc: bool = False,
                  ndc_variant: str = "canonical",
-                 chunk: int = 4096) -> dict:
+                 chunk: int = 4096, key: torch.Tensor | None = None) -> dict:
     """Render one ``[H, W]`` frame from a ``[3, 4]`` pose; the frame is
-    rendered on ``c2w``'s device. Returns ``rgb``, ``rgb_coarse``, ``acc``
+    rendered on ``c2w``'s device. ``key`` (``ops.rng``) keys the draws of
+    a stochastic configuration. Returns ``rgb``, ``rgb_coarse``, ``acc``
     and ``depth`` as tensors of shape ``[H, W, ...]``."""
     rays_o, rays_d = ray_grid(height, width, focal, c2w)
     rays_o = rays_o.reshape(-1, 3)
@@ -36,7 +38,7 @@ def render_image(params: dict, height: int, width: int, focal: float,
         rays_o, rays_d = ndc_rays(height, width, focal, 1.0, rays_o, rays_d,
                                   variant=ndc_variant)
     out = render_rays_chunked(params, rays_o, rays_d, viewdirs, near, far,
-                              cfg, chunk=chunk)
+                              cfg, chunk=chunk, key=key)
     return {k: v.reshape(height, width, *v.shape[1:]) for k, v in out.items()}
 
 
@@ -49,7 +51,8 @@ def render_poses_to_frames(params: dict, poses, height: int, width: int,
                            | None = None,
                            frame_keys: tuple[str, ...] = ("rgb",),
                            collect: bool = True,
-                           device: str | torch.device = "cuda"):
+                           device: str | torch.device = "cuda",
+                           key: torch.Tensor | None = None):
     """Render a pose sequence to ``[N, H, W, 3]`` float frames on
     ``device``.
 
@@ -58,8 +61,9 @@ def render_poses_to_frames(params: dict, poses, height: int, width: int,
     result is the stacked rgb array, otherwise a dict of stacked arrays.
     ``on_frame(i, rgb)`` receives each rgb frame as it lands;
     ``collect=False`` (which needs ``on_frame``) keeps no frames and
-    returns None. Every pose renders the same way whatever its position in
-    the sequence: serving renders are deterministic.
+    returns None. A stochastic configuration renders pose ``i`` with key
+    ``split(key, len(poses))[i]``, as the JAX package does; a deterministic
+    one needs no key and renders every pose alike wherever it sits.
     """
     if not collect and on_frame is None:
         raise ValueError("collect=False requires on_frame (nothing would "
@@ -80,6 +84,8 @@ def render_poses_to_frames(params: dict, poses, height: int, width: int,
             return empty_for("rgb")
         return {k: empty_for(k) for k in frame_keys}
 
+    keys = (split(key, len(poses)) if key is not None
+            else [None] * len(poses))
     pending: list[tuple[int, dict]] = []
     frames: list[dict | None] = [None] * len(poses)
 
@@ -96,7 +102,7 @@ def render_poses_to_frames(params: dict, poses, height: int, width: int,
                               device=device)
         out = render_image(params, height, width, float(focal), c2w,
                            float(near), float(far), cfg, ndc=ndc,
-                           ndc_variant=ndc_variant, chunk=chunk)
+                           ndc_variant=ndc_variant, chunk=chunk, key=keys[i])
         pending.append((i, out))
         if len(pending) > 1:   # one frame in flight
             drain(pending.pop(0))

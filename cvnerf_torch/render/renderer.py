@@ -3,11 +3,13 @@ the JAX package's ``render/renderer.py``): stratified coarse samples → coarse 
 → composite → inverse-CDF resampling on the detached weights → merge with
 the coarse depths → fine MLP → composite.
 
-This slice serves: it renders in eval mode with the deterministic resample,
-so it draws no random numbers. A configuration that needs the per-ray RNG
-(``perturb``, ``noise_std > 0`` or a stochastic resample) raises
-``NotImplementedError`` until ``ops/rng.py`` is ported (ROADMAP Queue 1
-item 2). Occupancy grids, int8 and device meshes come in later slices.
+Random draws are keyed by ``(key, tag, global ray id)`` through
+``ops/rng.py``, bit for bit as in the JAX package: tag 1 the stratified
+jitter, 2 the resample (sorted uniforms, or iid then sorted), 3 and 4 the
+coarse and fine density noise. A render is therefore independent of the
+chunk size. ``render_rays`` is differentiable in the params (training);
+``render_rays_chunked`` renders frames without a graph. Occupancy grids,
+int8 and device meshes come in later slices.
 """
 
 from __future__ import annotations
@@ -20,10 +22,10 @@ from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, apply_nerf
 from cvnerf_torch.ops.compositing import volume_render
 from cvnerf_torch.ops.encoding import freq_encode
 from cvnerf_torch.ops.fused_mlp import FusedNerfWeights, fused_nerf_apply
+from cvnerf_torch.ops.fused_mlp_bwd import fused_nerf_train_apply
+from cvnerf_torch.ops.rng import ray_normal, ray_sorted_uniform, ray_uniform
 from cvnerf_torch.ops.sampling import (merge_sorted, sample_pdf,
                                        stratified_samples)
-
-RNG_ITEM = "ROADMAP Queue 1 item 2 (port ops/rng.py bit for bit)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +38,10 @@ class RenderConfig:
     noise_std: float = 0.0
     white_bkg: bool = False
     deterministic_resample: bool = False
+    # Draw the inverse-CDF uniforms pre-sorted per ray (exponential
+    # spacings, ops/rng.ray_sorted_uniform); False draws iid uniforms and
+    # sorts the merged depths (the reference-shaped stream).
+    sorted_resample: bool = True
     mlp: NerfMLPConfig = NerfMLPConfig()
     compute_dtype: torch.dtype = torch.float32
     # MLP execution path: "on" runs the fused CUDA kernel for CUDA tensors
@@ -48,18 +54,15 @@ class RenderConfig:
         return dataclasses.replace(self, perturb=False, noise_std=0.0)
 
     def check_supported(self) -> None:
-        """Raise for what this slice cannot render."""
+        """Raise for a configuration the port cannot render."""
         if self.kernels not in ("on", "off"):
             raise ValueError(f"kernels must be 'on' or 'off', got "
                              f"{self.kernels!r}")
-        needs_rng = [name for name, on in (
-            ("perturb", self.perturb), ("noise_std > 0", self.noise_std > 0),
-            ("stochastic resampling",
-             self.n_fine > 0 and not self.deterministic_resample)) if on]
-        if needs_rng:
-            raise NotImplementedError(
-                f"{', '.join(needs_rng)} need the per-ray RNG: {RNG_ITEM}. "
-                "Render with cfg.eval_mode() and deterministic_resample=True")
+
+    def needs_key(self) -> bool:
+        """Whether a render draws random numbers (and so needs a key)."""
+        return (self.perturb or self.noise_std > 0
+                or (self.n_fine > 0 and not self.deterministic_resample))
 
 
 def _net_params(net) -> dict:
@@ -72,19 +75,22 @@ def _query_mlp(net, points: torch.Tensor, viewdirs: torch.Tensor,
     with per-ray ``viewdirs`` ``[n_rays, 3]``; returns ``[n_rays,
     n_samples, 4]``.
 
-    With ``kernels="on"`` the points go through ``fused_nerf_apply``: the
-    CUDA kernel for CUDA tensors, its plain version for CPU tensors. ``net``
-    is then a :class:`FusedNerfWeights` (packed once by the caller) or a
-    params dict, which is packed here on every call.
+    With ``kernels="on"`` the points go through the fused kernels (their
+    plain versions for CPU tensors): a :class:`FusedNerfWeights` (packed
+    once by a server) through the forward kernel alone, a params dict
+    through ``fused_nerf_train_apply``, which packs it on every call and is
+    differentiable in it (the forward kernel, then the backward kernel).
     """
     n_rays, n_samples = points.shape[:2]
     if cfg.kernels == "on":
-        if not isinstance(net, FusedNerfWeights):
-            net = FusedNerfWeights(net, cfg.mlp, cfg.compute_dtype)
         pts_flat = points.reshape(-1, 3).contiguous()
         dirs_flat = viewdirs[:, None, :].expand(
             n_rays, n_samples, 3).reshape(-1, 3).contiguous()
-        raw = fused_nerf_apply(net, pts_flat, dirs_flat)
+        if isinstance(net, FusedNerfWeights):
+            raw = fused_nerf_apply(net, pts_flat, dirs_flat)
+        else:
+            raw = fused_nerf_train_apply(net, pts_flat, dirs_flat, cfg.mlp,
+                                         cfg.compute_dtype)
         return raw.reshape(n_rays, n_samples, 4)
     xyz_enc = freq_encode(points, cfg.mlp.xyz_freqs)
     dir_enc = freq_encode(viewdirs, cfg.mlp.dir_freqs)
@@ -94,11 +100,13 @@ def _query_mlp(net, points: torch.Tensor, viewdirs: torch.Tensor,
                       compute_dtype=cfg.compute_dtype)
 
 
-@torch.no_grad()
 def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
-                viewdirs: torch.Tensor, near, far,
-                cfg: RenderConfig) -> dict:
-    """Hierarchical volume render of a ray batch.
+                viewdirs: torch.Tensor, near, far, cfg: RenderConfig,
+                key: torch.Tensor | None = None,
+                ray_ids: torch.Tensor | None = None,
+                noise_scale: float | torch.Tensor = 1.0) -> dict:
+    """Hierarchical volume render of a ray batch, differentiable in the
+    params.
 
     Args:
         params: ``{"coarse": net, "fine": net}``, each a params dict or a
@@ -106,29 +114,56 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
         rays_o, rays_d: ``[n_rays, 3]`` (possibly NDC-warped) rays.
         viewdirs: ``[n_rays, 3]`` unit directions of the pre-NDC rays.
         near, far: scalars or ``[n_rays]`` bounds.
+        key: ``ops.rng`` key of the draws; needed when ``cfg.needs_key()``.
+        ray_ids: ``[n_rays]`` global ray ids keying the draws (default
+            ``arange``); a chunk or shard passes its rays' global positions.
+        noise_scale: multiplier on the density-noise std.
     Returns:
         ``rgb`` (fine), ``rgb_coarse``, ``acc`` and ``depth`` (fine pass).
     """
     cfg.check_supported()
+    if key is None and cfg.needs_key():
+        raise ValueError("this configuration draws random numbers (perturb, "
+                         "noise_std or a stochastic resample): pass key=")
     n_rays = rays_o.shape[0]
-    t_coarse = stratified_samples(near, far, cfg.n_coarse, n_rays, False,
-                                  device=rays_o.device)
-    points = rays_o[..., None, :] + rays_d[..., None, :] * t_coarse[..., :, None]
+    dev = rays_o.device
+    if ray_ids is None:
+        ray_ids = torch.arange(n_rays, dtype=torch.int64, device=dev)
+    u_strat = (ray_uniform(key, 1, ray_ids, cfg.n_coarse) if cfg.perturb
+               else None)
+    t_coarse = stratified_samples(near, far, cfg.n_coarse, n_rays,
+                                  cfg.perturb, u=u_strat, device=dev)
+    points = rays_o[..., None, :] + rays_d[..., None, :] * t_coarse[..., None]
     raw = _query_mlp(params["coarse"], points, viewdirs, cfg)
-    coarse = volume_render(raw, t_coarse, rays_d, white_bkg=cfg.white_bkg)
+    noise_c = (ray_normal(key, 3, ray_ids, cfg.n_coarse) * noise_scale
+               if cfg.noise_std > 0 else None)
+    coarse = volume_render(raw, t_coarse, rays_d, noise_std=cfg.noise_std,
+                           white_bkg=cfg.white_bkg, noise=noise_c)
 
     if cfg.n_fine > 0:
         mids = 0.5 * (t_coarse[..., 1:] + t_coarse[..., :-1])
-        t_new = sample_pdf(mids, coarse["weights"][..., 1:-1], cfg.n_fine,
-                           deterministic=True)
-        # linspace u ascending → t_new ascending → a merge, not a sort.
+        if cfg.deterministic_resample:
+            u_pdf = None
+        elif cfg.sorted_resample:
+            u_pdf = ray_sorted_uniform(key, 2, ray_ids, cfg.n_fine)
+        else:
+            u_pdf = ray_uniform(key, 2, ray_ids, cfg.n_fine)
+        # The resampled depths carry no gradient (reference main.py:250).
+        t_new = sample_pdf(mids, coarse["weights"][..., 1:-1].detach(),
+                           cfg.n_fine, u=u_pdf,
+                           deterministic=cfg.deterministic_resample).detach()
+        # Sorted (or evenly spaced) u gives ascending t_new, so the JAX
+        # package merges; iid u sorts. Both are one sort here.
         t_fine = merge_sorted(t_coarse, t_new)
     else:
         t_fine = t_coarse
 
     points = rays_o[..., None, :] + rays_d[..., None, :] * t_fine[..., :, None]
     raw = _query_mlp(params["fine"], points, viewdirs, cfg)
-    fine = volume_render(raw, t_fine, rays_d, white_bkg=cfg.white_bkg)
+    noise_f = (ray_normal(key, 4, ray_ids, t_fine.shape[-1]) * noise_scale
+               if cfg.noise_std > 0 else None)
+    fine = volume_render(raw, t_fine, rays_d, noise_std=cfg.noise_std,
+                         white_bkg=cfg.white_bkg, noise=noise_f)
     return {"rgb": fine["rgb"], "rgb_coarse": coarse["rgb"],
             "acc": fine["acc"], "depth": fine["depth"]}
 
@@ -137,11 +172,13 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
 def render_rays_chunked(params: dict, rays_o: torch.Tensor,
                         rays_d: torch.Tensor, viewdirs: torch.Tensor,
                         near: float, far: float, cfg: RenderConfig,
-                        chunk: int = 4096) -> dict:
+                        chunk: int = 4096,
+                        key: torch.Tensor | None = None) -> dict:
     """Memory-bounded render of a flat ray batch: a Python loop over
     ``chunk``-ray slices. The rays are padded with zero rays to a chunk
     multiple, as the JAX ``lax.map`` does, and the padding is dropped on
-    return, so every chunk has the same shape."""
+    return, so every chunk has the same shape. Each chunk keys its draws
+    by its rays' global ids, so the result does not depend on ``chunk``."""
     n = rays_o.shape[0]
     n_chunks = -(-n // chunk)
     pad = n_chunks * chunk - n
@@ -153,6 +190,8 @@ def render_rays_chunked(params: dict, rays_o: torch.Tensor,
     outs = []
     for i in range(n_chunks):
         sl = slice(i * chunk, (i + 1) * chunk)
+        ids = torch.arange(i * chunk, (i + 1) * chunk, dtype=torch.int64,
+                           device=rays_o.device)
         outs.append(render_rays(params, ro[sl], rd[sl], vd[sl], near, far,
-                                cfg))
+                                cfg, key=key, ray_ids=ids))
     return {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}

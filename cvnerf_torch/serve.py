@@ -13,9 +13,11 @@ Example::
     rgb = r.render_pose(c2w)                  # [H, W, 3] float32 in [0, 1]
     frames = r.render_video(spiral_poses)     # [N, H, W, 3]
 
-Serving is deterministic: eval mode and the evenly spaced inverse-CDF
-resample, so a pose always renders the same image. The weights are packed
-for the fused kernel once, here, and reused by every render.
+Serving renders in eval mode with the evenly spaced inverse-CDF resample by
+default, so a pose always renders the same image; ``deterministic=False``
+resamples stochastically with ``PRNGKey(seed)``, as the JAX package's
+``--stochastic`` serving does. The weights are packed for the fused kernel
+once, here, and reused by every render.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from cvnerf_torch import resolve_device
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
 from cvnerf_torch.ops.fused_mlp import FusedNerfWeights
 from cvnerf_torch.render.frames import render_image, render_poses_to_frames
+from cvnerf_torch.ops.rng import PRNGKey
 from cvnerf_torch.render.renderer import RenderConfig
 from cvnerf_torch.utils.convert import load_torch_checkpoint
 
@@ -71,6 +74,7 @@ class NerfRenderer:
                  cfg: RenderConfig | None = None,
                  mlp: NerfMLPConfig | None = None,
                  chunk: int = 8192,
+                 seed: int = 0,
                  deterministic: bool = True,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
@@ -88,6 +92,7 @@ class NerfRenderer:
         self.near, self.far = float(near), float(far)
         self.ndc, self.ndc_variant = ndc, ndc_variant
         self.chunk = chunk
+        self._key = PRNGKey(seed)
 
         params, found, step = load_torch_checkpoint(ckpt_path)
         if found != self.cfg.mlp:
@@ -106,7 +111,7 @@ class NerfRenderer:
             self._nets = self.params
 
     @classmethod
-    def from_run_dir(cls, run_dir: str, *, chunk: int = 8192,
+    def from_run_dir(cls, run_dir: str, *, chunk: int = 8192, seed: int = 0,
                      deterministic: bool = True, which: str = "auto",
                      device: str | torch.device = "cuda") -> "NerfRenderer":
         """Load a renderer from a run directory: geometry, NDC mode,
@@ -153,7 +158,8 @@ class NerfRenderer:
         r = cls(ckpt, height=geo["height"], width=geo["width"],
                 focal=geo["focal"], near=geo["near"], far=geo["far"],
                 ndc=geo["ndc"], ndc_variant=geo["ndc_variant"], cfg=cfg,
-                chunk=chunk, deterministic=deterministic, device=device)
+                chunk=chunk, seed=seed, deterministic=deterministic,
+                device=device)
         r.which = "best" if ckpt == best else "last"
         fa = int(geo.get("freq_anneal", 0) or 0)
         if fa > 0 and r.step < fa:
@@ -185,7 +191,8 @@ class NerfRenderer:
             h, w, f = h // factor, w // factor, f / factor
         out = render_image(self._nets, h, w, f, self._pose(c2w), self.near,
                            self.far, self.cfg, ndc=self.ndc,
-                           ndc_variant=self.ndc_variant, chunk=self.chunk)
+                           ndc_variant=self.ndc_variant, chunk=self.chunk,
+                           key=self._key)
         return {k: out[k].cpu().numpy() for k in keys}
 
     def render_video(self, poses, factor: int = 0, on_frame=None,
@@ -196,7 +203,8 @@ class NerfRenderer:
             self._nets, poses, self.height, self.width, self.focal,
             self.near, self.far, self.cfg, ndc=self.ndc,
             ndc_variant=self.ndc_variant, chunk=self.chunk, factor=factor,
-            on_frame=on_frame, collect=collect, device=self.device)
+            on_frame=on_frame, collect=collect, device=self.device,
+            key=self._key)
 
     def render_poses_extras(self, poses, factor: int = 0,
                             keys: tuple[str, ...] = ("rgb",)) -> dict:
@@ -206,5 +214,5 @@ class NerfRenderer:
             self._nets, poses, self.height, self.width, self.focal,
             self.near, self.far, self.cfg, ndc=self.ndc,
             ndc_variant=self.ndc_variant, chunk=self.chunk, factor=factor,
-            frame_keys=tuple(keys), device=self.device)
+            frame_keys=tuple(keys), device=self.device, key=self._key)
         return {"rgb": out} if tuple(keys) == ("rgb",) else out

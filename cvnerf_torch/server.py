@@ -483,8 +483,6 @@ def make_server(renderer: NerfRenderer, host: str = "127.0.0.1",
 # Serving options of the JAX package that this slice does not carry yet:
 # each is refused with the ROADMAP item that brings it, never ignored.
 UNPORTED_FLAGS = {
-    "stochastic": "stochastic resampling needs the per-ray RNG: ROADMAP "
-                  "Queue 1 item 2",
     "occupancy": "occupancy-grid serving: ROADMAP Queue 1 item 10",
     "int8": "int8 serving needs ops/quantize.py and the int8 kernel: "
             "ROADMAP Queue 1 item 10 and Queue 2 item 3",
@@ -528,7 +526,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-wave deadline for /render_video frames")
     p.add_argument("--chunk", type=int, default=8192)
     p.add_argument("--stochastic", action="store_true",
-                   help="not available yet: " + UNPORTED_FLAGS["stochastic"])
+                   help="reference-style stochastic eval resampling")
     p.add_argument("--occupancy", default=None, choices=["merge", "full"],
                    help="not available yet: " + UNPORTED_FLAGS["occupancy"])
     p.add_argument("--int8", action="store_true",
@@ -561,7 +559,7 @@ def renderer_from_args(args) -> NerfRenderer:
                 f"{' '.join(given)} (edit <run>/scene.json instead)")
         return NerfRenderer.from_run_dir(
             args.run, chunk=args.chunk, which=args.which or "auto",
-            device=args.device)
+            deterministic=not args.stochastic, device=args.device)
     required = ("ckpt", "height", "width", "focal", "near", "far")
     missing = [f"--{k}" for k in required if getattr(args, k) is None]
     if missing:
@@ -573,7 +571,7 @@ def renderer_from_args(args) -> NerfRenderer:
                         focal=args.focal, near=args.near, far=args.far,
                         chunk=args.chunk, ndc=bool(args.ndc),
                         ndc_variant=args.ndc_variant or "canonical",
-                        device=args.device)
+                        deterministic=not args.stochastic, device=args.device)
 
 
 def main(argv=None):

@@ -1,0 +1,115 @@
+"""Train state: coarse+fine params, Adam state, step counter (port of the
+JAX package's ``train/state.py``).
+
+Adam(b1 0.9, b2 0.999, eps 1e-8) over both nets with the exponential decay
+``lr · 0.1^(k / (1000 · lr_decay))``, written out as optax computes it, in
+float32: ``k`` is the update count, 0 at the first update; the moments are
+``(1 - b) · g^p + b · m``, bias-corrected by ``1 - b^(k+1)``; the update is
+``-lr(k) · m̂ / (sqrt(v̂) + eps)`` (eps outside the root). The optimizer
+returns new tensors and leaves its inputs as they were, like the JAX one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from cvnerf_torch import resolve_device
+from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
+
+
+@dataclasses.dataclass
+class AdamState:
+    """optax's ``ScaleByAdamState``: the update count and both moments."""
+    count: int
+    mu: dict
+    nu: dict
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything that changes during training."""
+    params: dict      # {"coarse": net, "fine": net}
+    opt_state: AdamState
+    step: int
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a nested dict, in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def _f32(x: float) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    """``optax.adam(exponential_decay(lr, 1000 · lr_decay, 0.1))``."""
+    lr: float
+    lr_decay: int
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def learning_rate(self, count: int) -> torch.Tensor:
+        """The float32 step size at update count ``count`` (optax's
+        ``exponential_decay``: exactly ``lr`` at ``count <= 0``)."""
+        lr = _f32(self.lr)
+        steps = 1000 * self.lr_decay
+        if count <= 0 or steps <= 0:
+            return lr
+        p = _f32(count) / steps
+        return lr * torch.pow(_f32(0.1), p)
+
+    def init(self, params: dict) -> AdamState:
+        zeros = _tree_map(lambda p: torch.zeros_like(p.detach()), params)
+        return AdamState(count=0, mu=zeros,
+                         nu=_tree_map(torch.zeros_like, zeros))
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: AdamState,
+               params: dict) -> tuple[dict, AdamState]:
+        """One Adam step: ``(new params, new state)``. The scalars are
+        float32 values computed on the CPU and passed as Python floats
+        (exact), so a step on the card needs no host-device copy."""
+        c1 = state.count + 1
+        bc1 = float(1 - _f32(self.b1) ** c1)
+        bc2 = float(1 - _f32(self.b2) ** c1)
+        step = -float(self.learning_rate(state.count))
+        mu = _tree_map(lambda g, m: (1 - self.b1) * g + self.b1 * m,
+                       grads, state.mu)
+        nu = _tree_map(lambda g, v: (1 - self.b2) * (g * g) + self.b2 * v,
+                       grads, state.nu)
+        new = _tree_map(
+            lambda p, m, v: p.detach() + step * ((m / bc1) / (
+                torch.sqrt(v / bc2) + self.eps)),
+            params, mu, nu)
+        return new, AdamState(count=c1, mu=mu, nu=nu)
+
+
+def make_optimizer(lr: float, lr_decay: int) -> Adam:
+    return Adam(lr=lr, lr_decay=lr_decay)
+
+
+def create_train_state(generator: torch.Generator, lr: float = 5e-4,
+                       lr_decay: int = 250,
+                       mlp: NerfMLPConfig = NerfMLPConfig(),
+                       device: str | torch.device = "cuda") -> TrainState:
+    """Fresh coarse+fine networks (drawn from ``generator`` on the CPU,
+    coarse first) and a zeroed Adam state, on ``device``."""
+    dev = resolve_device(device)
+    params = {"coarse": init_nerf_params(generator, mlp, dev),
+              "fine": init_nerf_params(generator, mlp, dev)}
+    return TrainState(params=params,
+                      opt_state=make_optimizer(lr, lr_decay).init(params),
+                      step=0)

@@ -1,5 +1,6 @@
 """Checkpoint conversion (port of the JAX package's ``utils/convert.py``:
-state_dict mapping and ``.pt`` loader).
+state_dict mapping and ``.pt`` loader), and the carry-over of params and
+train states from the JAX package.
 
 The port serves the plain-tensor two-net ``.pt`` that the JAX tool writes
 (``cvnerf-import --export <run>/checkpoints <file>.pt``: ``{"coarse": sd,
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
+from cvnerf_torch.train.state import AdamState, TrainState
 
 # our layer name -> reference nn.Module attribute
 _NAME_MAP = {
@@ -142,3 +144,17 @@ def params_from_jax(tree: dict, device: str | torch.device = "cpu") -> dict:
             return {k: conv(v) for k, v in x.items()}
         return torch.from_numpy(np.array(x, np.float32)).to(device)
     return conv(tree)
+
+
+def train_state_from_jax(state, device: str | torch.device = "cpu"):
+    """A JAX package ``TrainState`` (arrays or numpy) → the port's
+    ``TrainState`` on ``device``: params, the Adam moments ``mu``/``nu``
+    and count of its ``optax.adam`` state, and the step. Lets both
+    frameworks continue from one mid-run state."""
+    adam = state.opt_state[0]
+    return TrainState(
+        params=params_from_jax(state.params, device),
+        opt_state=AdamState(count=int(np.asarray(adam.count)),
+                            mu=params_from_jax(adam.mu, device),
+                            nu=params_from_jax(adam.nu, device)),
+        step=int(np.asarray(state.step)))

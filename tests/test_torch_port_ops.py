@@ -15,11 +15,13 @@ from cvnerf_tpu.models import nerf_mlp as jmlp
 from cvnerf_tpu.ops import compositing as jcomp
 from cvnerf_tpu.ops import encoding as jenc
 from cvnerf_tpu.ops import rays as jrays
+from cvnerf_tpu.ops import rng as jrng
 from cvnerf_tpu.ops import sampling as jsamp
 from cvnerf_torch.models import nerf_mlp as tmlp
 from cvnerf_torch.ops import compositing as tcomp
 from cvnerf_torch.ops import encoding as tenc
 from cvnerf_torch.ops import rays as trays
+from cvnerf_torch.ops import rng as trng
 from cvnerf_torch.ops import sampling as tsamp
 from cvnerf_torch.utils.convert import params_from_jax
 
@@ -240,12 +242,66 @@ def test_volume_render_matches_jax(white_bkg):
     _close(got["rgb"], want["rgb"], 1e-5)
 
 
-def test_random_draws_are_refused_until_the_rng_is_ported():
-    bins, w = _pdf_inputs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+def test_random_draws_come_from_the_rng_and_match_jax():
+    """The renderer's draws (port ``ops.rng``, bitwise the JAX stream) fed
+    to the stratified jitter, the stochastic resample and the density
+    noise give the JAX results (1e-5: the ops' own arithmetic); an op that
+    needs a draw it was not given raises."""
+    ids = np.arange(7, dtype=np.int32) + 100
+    jk = jax.random.PRNGKey(3)
+    tk = trng.PRNGKey(3)
+    u_j = jrng.ray_uniform(jk, 1, jnp.asarray(ids), 16)
+    u_t = trng.ray_uniform(tk, 1, torch.from_numpy(ids), 16)
+    np.testing.assert_array_equal(u_t.numpy(), np.asarray(u_j))
+    _close(tsamp.stratified_samples(2.0, 6.0, 16, 7, True, u=u_t),
+           jsamp.stratified_samples(None, 2.0, 6.0, 16, 7, True, u=u_j), 1e-6)
+    bins, w = _pdf_inputs(seed=10)
+    v_j = jrng.ray_sorted_uniform(jk, 2, jnp.asarray(ids), 25)
+    v_t = trng.ray_sorted_uniform(tk, 2, torch.from_numpy(ids), 25)
+    want = jsamp.sample_pdf(None, jnp.asarray(bins), jnp.asarray(w), 25,
+                            u=v_j)
+    _close(tsamp.sample_pdf(_t(bins), _t(w), 25, u=v_t), want, 1e-5)
+    raw = np.random.RandomState(11).randn(7, 16, 4).astype(np.float32)
+    t = np.sort(np.random.RandomState(12).uniform(2, 6, (7, 16)),
+                -1).astype(np.float32)
+    d = np.ones((7, 3), np.float32)
+    want = jcomp.volume_render(jnp.asarray(raw), jnp.asarray(t),
+                               jnp.asarray(d), noise_std=1.0,
+                               noise=jrng.ray_normal(jk, 3, jnp.asarray(ids),
+                                                     16))
+    got = tcomp.volume_render(_t(raw), _t(t), _t(d), noise_std=1.0,
+                              noise=trng.ray_normal(tk, 3,
+                                                    torch.from_numpy(ids), 16))
+    _close(got["rgb"], want["rgb"], 1e-5)
+    with pytest.raises(ValueError, match="uniforms u"):
         tsamp.sample_pdf(_t(bins), _t(w), 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(ValueError, match="uniforms u"):
         tsamp.stratified_samples(2.0, 6.0, 8, 3, True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(ValueError, match="normals"):
         tcomp.volume_render(torch.zeros(2, 4, 4), torch.ones(2, 4),
                             torch.ones(2, 3), noise_std=1.0)
+
+
+@pytest.mark.parametrize("white_bkg", [False, True])
+def test_volume_render_autograd_matches_jax_grad(white_bkg):
+    """d(sum of rgb, acc and depth)/d(raw) through the port's
+    ``volume_render`` (torch autograd) equals ``jax.grad`` of the JAX one
+    (1e-5)."""
+    rng = np.random.RandomState(13)
+    raw = rng.randn(5, 12, 4).astype(np.float32) * 2
+    t = np.sort(rng.uniform(2, 6, (5, 12)), -1).astype(np.float32)
+    d = rng.randn(5, 3).astype(np.float32)
+    noise = rng.randn(5, 12).astype(np.float32)
+
+    def j_loss(r):
+        out = jcomp.volume_render(r, jnp.asarray(t), jnp.asarray(d),
+                                  noise_std=0.5, white_bkg=white_bkg,
+                                  noise=jnp.asarray(noise))
+        return out["rgb"].sum() + out["acc"].sum() + 0.1 * out["depth"].sum()
+
+    want = jax.grad(j_loss)(jnp.asarray(raw))
+    r = _t(raw).requires_grad_()
+    out = tcomp.volume_render(r, _t(t), _t(d), noise_std=0.5,
+                              white_bkg=white_bkg, noise=_t(noise))
+    (out["rgb"].sum() + out["acc"].sum() + 0.1 * out["depth"].sum()).backward()
+    _close(r.grad, want, 1e-5)

@@ -2,7 +2,8 @@
 
 The same params (converted with ``params_from_jax``) and the same pose go
 through JAX ``render_image(pallas="off")`` and the port on the CPU, in the
-serving configuration (eval mode, deterministic resample). Tolerances:
+serving configuration (eval mode, deterministic resample) and with the
+random draws on (same key). Tolerances:
 rgb/acc 1e-4, depth 1e-3 — the deterministic ``u = 1`` meets ``cdf[-1] ≈
 1``, whose rounding differs between the frameworks' cumsums.
 """
@@ -22,6 +23,7 @@ from cvnerf_tpu.render.renderer import RenderConfig as JaxRender
 from cvnerf_tpu.render.renderer import render_rays as jax_render_rays
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
 from cvnerf_torch.ops import fused_mlp as fm
+from cvnerf_torch.ops.rng import PRNGKey
 from cvnerf_torch.render.frames import render_image, render_poses_to_frames
 from cvnerf_torch.render.renderer import (RenderConfig, render_rays,
                                           render_rays_chunked)
@@ -143,12 +145,22 @@ def test_render_poses_to_frames_matches_render_image():
 @pytest.mark.parametrize("change", [dict(perturb=True),
                                     dict(noise_std=1.0),
                                     dict(deterministic_resample=False)])
-def test_configs_that_need_the_rng_raise(change):
-    tp = params_from_jax(_params(TINY))
-    _, cfg = _cfgs(TINY)
-    cfg = dataclasses.replace(cfg, **change)
+def test_stochastic_configs_match_jax(change):
+    """The configurations that draw random numbers render as JAX
+    ``render_image`` does from the same key (the port's RNG is the JAX
+    stream bit for bit); tolerances as above. Without a key they raise."""
+    p = _params(TINY)
+    jcfg, tcfg = _cfgs(TINY)
+    jcfg = dataclasses.replace(jcfg, **change)
+    tcfg = dataclasses.replace(tcfg, **change)
+    want = jax_render_image(jax.random.PRNGKey(5), p, 6, 8, 7.0,
+                            jnp.asarray(POSE), 2.0, 6.0, jcfg, chunk=16)
+    got = render_image(params_from_jax(p), 6, 8, 7.0, torch.from_numpy(POSE),
+                       2.0, 6.0, tcfg, chunk=16, key=PRNGKey(5))
+    _check(got, want)
     o = torch.zeros(2, 3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        render_rays_chunked(tp, o, o + 1, o + 1, 2.0, 6.0, cfg)
+    with pytest.raises(ValueError, match="pass key="):
+        render_rays_chunked(params_from_jax(p), o, o + 1, o + 1, 2.0, 6.0,
+                            tcfg)
     with pytest.raises(ValueError, match="kernels"):
-        dataclasses.replace(cfg, kernels="auto").check_supported()
+        dataclasses.replace(tcfg, kernels="auto").check_supported()

@@ -19,6 +19,7 @@ from cvnerf_tpu.models.nerf_mlp import NerfMLPConfig as JaxCfg
 from cvnerf_tpu.models.nerf_mlp import anneal_model_params
 from cvnerf_tpu.models.nerf_mlp import init_nerf_params as jax_init
 from cvnerf_tpu.render.frames import render_image as jax_render_image
+from cvnerf_tpu.render.frames import render_poses_to_frames as jax_render_frames
 from cvnerf_tpu.render.renderer import RenderConfig as JaxRender
 from cvnerf_tpu.utils.convert import torch_state_dict_from_params
 from cvnerf_torch.serve import NerfRenderer
@@ -93,6 +94,27 @@ def test_from_run_dir_matches_jax_render_image(run_dir):
     np.testing.assert_array_equal(r.render_pose(POSE), got["rgb"])
 
 
+def test_stochastic_serving_matches_jax(run_dir):
+    """``deterministic=False`` serves the stochastic resample keyed by
+    ``PRNGKey(seed)``, as the JAX renderer does: one pose renders as JAX
+    ``render_image`` with that key, a pose sequence as JAX
+    ``render_poses_to_frames`` (one split key per pose)."""
+    run, params = run_dir
+    r = NerfRenderer.from_run_dir(run, chunk=16, device="cpu", seed=3,
+                                  deterministic=False)
+    assert not r.cfg.deterministic_resample and not r.cfg.perturb
+    cfg = JaxRender(n_coarse=8, n_fine=16, white_bkg=True,
+                    mlp=JaxCfg(**TINY), pallas="off").eval_mode()
+    want = jax_render_image(jax.random.PRNGKey(3), params, 6, 8, 7.0,
+                            jnp.asarray(POSE), 2.0, 6.0, cfg, chunk=16)
+    _check(r.render_pose_extras(POSE, keys=KEYS), want)
+    poses = np.stack([POSE, POSE2])
+    want = jax_render_frames(jax.random.PRNGKey(3), params, poses, 6, 8, 7.0,
+                             2.0, 6.0, cfg, chunk=16)
+    np.testing.assert_allclose(r.render_video(poses), want, rtol=1e-4,
+                               atol=1e-4)
+
+
 def test_render_poses_extras_equals_separate_calls(run_dir):
     run, _ = run_dir
     r = NerfRenderer.from_run_dir(run, chunk=16, device="cpu")
@@ -154,8 +176,6 @@ def test_unported_and_unsupported_setups_raise(run_dir, tmp_path,
     _write_run(occ, _jax_params(), occ_train={"resolution": 8})
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         NerfRenderer.from_run_dir(occ, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        NerfRenderer.from_run_dir(run, device="cpu", deterministic=False)
     with pytest.raises(ValueError, match="architecture"):
         NerfRenderer(os.path.join(run, "torch_checkpoints", "000007.pt"),
                      height=6, width=8, focal=7.0, near=2.0, far=6.0,

@@ -123,7 +123,6 @@ def test_unknown_paths_are_404(server_url):
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["--stochastic"], "Queue 1 item 2"),
     (["--occupancy", "full"], "Queue 1 item 10"),
     (["--int8"], "Queue 2 item 3"),
     (["--height", "8"], "drop --height"),
@@ -135,6 +134,20 @@ def test_cli_refuses_what_it_cannot_serve(run_dir, flags, msg):
     with pytest.raises(SystemExit) as ei:
         main(argv)
     assert msg is None or msg in str(ei.value.code)
+
+
+def test_cli_stochastic_serves_the_keyed_resample(run_dir):
+    """``--stochastic`` serves the stochastic resample with ``PRNGKey(0)``
+    (the JAX server's default seed): the same pose renders the same image
+    twice, and it differs from the deterministic render."""
+    r = renderer_from_args(build_parser().parse_args(
+        ["--run", run_dir, "--device", "cpu", "--stochastic"]))
+    assert not r.cfg.deterministic_resample
+    det = renderer_from_args(build_parser().parse_args(
+        ["--run", run_dir, "--device", "cpu"]))
+    a, b = r.render_pose_extras(POSE), r.render_pose_extras(POSE)
+    np.testing.assert_array_equal(a["rgb"], b["rgb"])
+    assert not np.array_equal(a["depth"], det.render_pose_extras(POSE)["depth"])
 
 
 def test_cli_requires_geometry_without_run():
