@@ -191,30 +191,39 @@ __device__ __forceinline__ void gemm(const __nv_bfloat16* A, int lda, int K,
 }
 
 // fp32: plain FFMA, never TF32 (the JAX kernels demand Precision.HIGHEST).
-// Thread (ty, tx) of a 16x16 grid owns rows ty + 16 i (i < TILE/16) and
-// columns tx + 16 j (j < N/16 <= 16).
+// Threads form an RG x CG grid: thread (ty, tx) owns rows ty + RG i (i < R)
+// and columns tx + CG j (j < C, up to N <= 256), so that each k step loads
+// R activations (shared) and C weights (global, adjacent threads adjacent
+// columns) for R x C FFMAs: 4 x 16 for a 64-point tile, 4 x 4 for 16.
+template <int TILE> struct FfmaGrid {
+  static constexpr int RG = TILE >= 64 ? 16 : 4;
+  static constexpr int CG = THREADS / RG;
+  static constexpr int R = TILE / RG;
+  static constexpr int C = 256 / CG;
+};
+
 template <int TILE, bool B_COL, bool COLSUM, class Epi>
 __device__ __forceinline__ void gemm(const float* A, int lda, int K,
                                      const float* __restrict__ B, int ldb,
                                      const float* A2, int lda2, int K2,
                                      const float* __restrict__ B2, int ldb2, int N,
                                      float*, float* colpart, const Epi& epi) {
-  constexpr int R = TILE / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int nj = N / 16;
-  float acc[R][16];
+  using G = FfmaGrid<TILE>;
+  constexpr int R = G::R, C = G::C;
+  const int tx = threadIdx.x % G::CG, ty = threadIdx.x / G::CG;
+  float acc[R][C];
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < C; ++j) acc[i][j] = 0.f;
   for (int k = 0; k < K; ++k) {
     float a[R];
 #pragma unroll
-    for (int i = 0; i < R; ++i) a[i] = A[(ty + 16 * i) * lda + k];
+    for (int i = 0; i < R; ++i) a[i] = A[(ty + G::RG * i) * lda + k];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      if (j < nj) {
-        const int c = tx + 16 * j;
+    for (int j = 0; j < C; ++j) {
+      const int c = tx + G::CG * j;
+      if (c < N) {
         const float w = B_COL ? B[(long)c * ldb + k] : B[(long)k * ldb + c];
 #pragma unroll
         for (int i = 0; i < R; ++i) acc[i][j] = fmaf(a[i], w, acc[i][j]);
@@ -224,11 +233,11 @@ __device__ __forceinline__ void gemm(const float* A, int lda, int K,
   for (int k = 0; k < K2; ++k) {
     float a[R];
 #pragma unroll
-    for (int i = 0; i < R; ++i) a[i] = A2[(ty + 16 * i) * lda2 + k];
+    for (int i = 0; i < R; ++i) a[i] = A2[(ty + G::RG * i) * lda2 + k];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      if (j < nj) {
-        const int c = tx + 16 * j;
+    for (int j = 0; j < C; ++j) {
+      const int c = tx + G::CG * j;
+      if (c < N) {
         const float w = B_COL ? B2[(long)c * ldb2 + k] : B2[(long)k * ldb2 + c];
 #pragma unroll
         for (int i = 0; i < R; ++i) acc[i][j] = fmaf(a[i], w, acc[i][j]);
@@ -236,12 +245,12 @@ __device__ __forceinline__ void gemm(const float* A, int lda, int K,
     }
   }
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    if (j < nj) {
-      const int c = tx + 16 * j;
+  for (int j = 0; j < C; ++j) {
+    const int c = tx + G::CG * j;
+    if (c < N) {
       float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < R; ++i) s += epi(ty + 16 * i, c, acc[i][j]);
+      for (int i = 0; i < R; ++i) s += epi(ty + G::RG * i, c, acc[i][j]);
       if (COLSUM) colpart[ty * N + c] = s;
     }
   }
@@ -249,7 +258,7 @@ __device__ __forceinline__ void gemm(const float* A, int lda, int K,
 
 // Row groups of gemm's column partial sums.
 template <typename T, int TILE> __host__ __device__ constexpr int colgroups() {
-  return sizeof(T) == 2 ? TILE / 16 : 16;
+  return sizeof(T) == 2 ? TILE / 16 : FfmaGrid<TILE>::RG;
 }
 
 // Forward epilogue: bias + optional ReLU in fp32, then the cast.

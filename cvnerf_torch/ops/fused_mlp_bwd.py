@@ -25,9 +25,9 @@ import torch
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
 from cvnerf_torch.ops.encoding import freq_encode
-from cvnerf_torch.ops.fused_mlp import (FusedNerfWeights, fused_nerf_apply,
-                                        load_library, mat_blocks,
-                                        packed_size)
+from cvnerf_torch.ops.fused_mlp import (FusedNerfWeights, forward_flops,
+                                        fused_nerf_apply, load_library,
+                                        mat_blocks, packed_size)
 
 # Param leaves in the order the autograd function takes them.
 LEAVES = tuple((name, part)
@@ -41,21 +41,35 @@ def backward_flops(cfg: NerfMLPConfig) -> int:
     all 12 layers plus the input gradient of every layer but l1 (2 × MACs
     each). The kernel also recomputes the forward, which this omits."""
     w, h = cfg.trunk_width, cfg.head_width
-    wgrad = (cfg.xyz_dim * w + 6 * w * w + (w + cfg.xyz_dim) * w + w * w + w
-             + (w + cfg.dir_dim) * h + 3 * h)
-    dgrad = wgrad - cfg.xyz_dim * w - cfg.xyz_dim * w - cfg.dir_dim * h
+    wgrad = forward_flops(cfg) // 2          # one MAC per weight
+    # No input gradient of the encodings (l1, l6's skip part, l10's dirs).
+    dgrad = wgrad - 2 * cfg.xyz_dim * w - cfg.dir_dim * h
     return 2 * (wgrad + dgrad)
 
 
 def _bind_backward(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cvnerf_fused_nerf_backward.argtypes = [p, p, p, p, p, p, i, p, i, i,
-                                               i, i, i, i, p]
+    lib.cvnerf_fused_nerf_backward.argtypes = [p, p, p, p, p, p, p,
+                                               ctypes.c_long, p, i, i, i, i,
+                                               i, i, p]
     lib.cvnerf_fused_nerf_backward.restype = ctypes.c_int
-    lib.cvnerf_fused_nerf_bwd_blocks.argtypes = [i, i, i, i, i, i]
-    lib.cvnerf_fused_nerf_bwd_blocks.restype = ctypes.c_int
-    lib.cvnerf_fused_nerf_bwd_slab_stride.argtypes = [i, i, i, i]
-    lib.cvnerf_fused_nerf_bwd_slab_stride.restype = ctypes.c_long
+    lib.cvnerf_fused_nerf_bwd_workspace.argtypes = [i, i, i, i, i, i]
+    lib.cvnerf_fused_nerf_bwd_workspace.restype = ctypes.c_long
+
+
+def out_in_matrices(weights: FusedNerfWeights) -> torch.Tensor:
+    """``weights.wmat`` with every block in the ``[out, in]`` layout, which
+    the kernel's input gradients read (adjacent threads, adjacent weights).
+    The bf16 packing already is; the fp32 one is ``[in, out]`` and is
+    transposed here, block by block."""
+    if weights.compute_dtype == torch.bfloat16:
+        return weights.wmat
+    parts, p = [], 0
+    for _, fin, fout in mat_blocks(weights.cfg):
+        blk = weights.wmat[p:p + fin * fout]
+        parts.append(blk.reshape(fin, fout).t().reshape(-1))
+        p += fin * fout
+    return torch.cat(parts)
 
 
 def unpack_grads(flat: torch.Tensor, cfg: NerfMLPConfig,
@@ -205,20 +219,20 @@ def fused_nerf_bwd(weights: FusedNerfWeights, points: torch.Tensor,
     lx, ld = cfg.xyz_freqs, cfg.dir_freqs
     bf16 = int(weights.compute_dtype == torch.bfloat16)
     with torch.cuda.device(points.device):
-        blocks = lib.cvnerf_fused_nerf_bwd_blocks(n, w, h, lx, ld, bf16)
-        if blocks <= 0:
+        nbytes = lib.cvnerf_fused_nerf_bwd_workspace(n, w, h, lx, ld, bf16)
+        if nbytes <= 0:
             raise RuntimeError(f"fused_nerf_bwd: no launch configuration "
-                               f"(CUDA error {-blocks})")
-        stride = lib.cvnerf_fused_nerf_bwd_slab_stride(w, h, lx, ld)
-        # One zeroed fp32 partial slab per block, summed in block order by
-        # the kernel's second pass: deterministic, no float atomics.
-        slabs = torch.zeros(blocks * stride, dtype=torch.float32,
-                            device=points.device)
+                               f"(CUDA error {-nbytes})")
+        # Workspace: the stashed operands of the weight gradients and their
+        # per-split fp32 partials, which the kernel sums in a fixed order
+        # (no float atomics).
+        ws = torch.empty(nbytes, dtype=torch.uint8, device=points.device)
+        wout = out_in_matrices(weights)
         stream = torch.cuda.current_stream(points.device).cuda_stream
         err = lib.cvnerf_fused_nerf_backward(
             points.data_ptr(), viewdirs.data_ptr(), g.data_ptr(),
-            weights.wmat.data_ptr(), weights.wvec.data_ptr(),
-            slabs.data_ptr(), blocks, out.data_ptr(), n, w, h, lx, ld, bf16,
+            weights.wmat.data_ptr(), wout.data_ptr(), weights.wvec.data_ptr(),
+            ws.data_ptr(), nbytes, out.data_ptr(), n, w, h, lx, ld, bf16,
             stream)
     if err != 0:
         raise RuntimeError(f"fused_nerf_bwd kernel launch failed: CUDA error "

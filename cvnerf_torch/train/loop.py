@@ -197,7 +197,8 @@ class Trainer:
         self.cfg = cfg
         self.state = state
         self.step_fn = make_train_step(cfg)
-        self.steps_per_call = max(1, steps_per_call)
+        # steps_per_call is accepted for the JAX signature and changes nothing.
+        del steps_per_call
         self.base_key = PRNGKey(seed)
         dev = tree_leaves(state.params)[0].device
         self.images = torch.as_tensor(images, dtype=torch.float32).to(dev)

@@ -12,6 +12,8 @@ which can flip a bf16 rounding). The CUDA kernel itself is held against
 the plain version on the card (``chip_smoke.py``; the ``cuda`` test here).
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -85,6 +87,24 @@ def test_unpack_grads_inverts_the_packing(dtype):
     for k, v in params.items():
         for p, t in v.items():
             torch.testing.assert_close(back[k][p], t, rtol=0, atol=0)
+
+
+def test_out_in_matrices_match_the_bf16_packing_layout():
+    """The fp32 weights handed to the kernel's input gradients are the
+    packed blocks transposed to ``[out, in]``: the bf16 packing's layout
+    (values representable in bf16, so both packings hold the same values).
+    The bf16 packing is passed through unchanged."""
+    cfg = NerfMLPConfig(**TINY)
+    gen = torch.Generator().manual_seed(8)
+    params = {k: {p: torch.round(t * 64) / 64 for p, t in v.items()}
+              for k, v in init_nerf_params(gen, cfg).items()}
+    wmat32, _ = fm.pack_params(params, cfg, torch.float32)
+    wmat16, _ = fm.pack_params(params, cfg, torch.bfloat16)
+    as32 = SimpleNamespace(wmat=wmat32, cfg=cfg, compute_dtype=torch.float32)
+    as16 = SimpleNamespace(wmat=wmat16, cfg=cfg, compute_dtype=torch.bfloat16)
+    torch.testing.assert_close(fb.out_in_matrices(as32), wmat16.float(),
+                               rtol=0, atol=0)
+    assert fb.out_in_matrices(as16) is wmat16
 
 
 def test_autograd_function_on_cpu_is_the_plain_backward():
