@@ -15,12 +15,26 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      at the ragged n also print what the tolerances rest on (two plain
      versions, two halves against the whole, a planted fault) and check the
      ragged tail's points alone;
+  1c. hold the int8 kernel against its plain version at full width: the
+     phase-1 net quantized on the card from ``calibration_samples``, at the
+     ragged n and the serving chunks (coarse 8192 x 64, fine 8192 x 192);
+     bitwise with power-of-two head scales and zero head biases, within
+     TOL_INT8 with the real scales, and bitwise over two launches; time
+     both;
   2. serve: write a run directory for the lego serving shape (400x400,
      focal 555, near 2, far 6, white background, 64 + 128 samples, bf16,
-     the full-width MLP) with seeded random weights, start the port's HTTP
-     server from its own argument parser with ``--device cuda``, and send
-     ``GET /health`` and three ``POST /render`` (png, json with depth,
-     factor 2);
+     the full-width MLP) with seeded random weights and a few camera poses
+     for int8 calibration, start the port's HTTP server from its own
+     argument parser with ``--device cuda``, and send ``GET /health`` and
+     three ``POST /render`` (png, json with depth, factor 2);
+  2b. serve int8: start the server from the same run directory with
+     ``--int8`` (calibrated on the run's poses by the step ``main`` runs),
+     send ``GET /health`` and ``POST /render`` as png and as json with
+     depth; then hold the served frame bitwise against the same pose
+     rendered on the card with ``kernels="off"`` from the same quantized
+     nets, compare it with phase 2's bf16 frame (each pixel whose last
+     sample flips witnessed by its terminal density's sign), and time
+     phase 3's pose sequence under int8;
   3. render a two-pose sequence through ``NerfRenderer.render_video``;
   4. render one small frame with the kernel and with ``kernels="off"`` on
      the card and compare them;
@@ -30,10 +44,11 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      lr_decay 500), then render one 400x400 frame of the trained params;
   6. one train step with the kernels and with ``kernels="off"`` from the
      same state and key, in fp32 and in bf16, compared.
-The launch counts of phases 2, 3 and 5 (the main path) are reset just before
-each phase and read just after: the kernels must have launched exactly as
-often as the chunking implies (40 forward launches per 400x400 frame at
-chunk 8192; 2 forward and 2 backward launches per train step), and the
+The launch counts of phases 2, 2b, 3 and 5 (the main paths) are reset just
+before each phase and read just after: the kernels must have launched
+exactly as often as the chunking implies (40 forward launches per 400x400
+frame at chunk 8192, or 40 int8 launches and no forward launch under
+``--int8``; 2 forward and 2 backward launches per train step), and the
 plain versions not at all.
 
 Prints the card's name and power limit, one JSON line of per-kernel
@@ -63,6 +78,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM
 H100_FP32_FLOPS = 67e12       # fp32 FFMA peak outside the tensor cores
+H100_INT8_OPS = 1979e12       # dense int8 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12    # HBM3
 SEED = 0
 CHUNK = 8192
@@ -89,6 +105,11 @@ TOL_BF16 = 2e-2
 TOL_BWD_FP32 = 1e-2
 TOL_BWD_BF16 = 2e-2
 TOL_TAIL = 1e-5
+# int8 with the real head scales: the JAX package's bound between its int8
+# kernel and its plain version (tests/test_quantize.py:122). The kernel
+# rounds every fp32 step as the plain version does, so it reads 0.
+TOL_INT8 = 1e-6
+INT8_FLIP_SHARE = 0.02        # see phase_int8_serve
 TRAIN_HW = 400
 TRAIN_STEPS = 50
 
@@ -178,6 +199,69 @@ def phase_kernels(fm, cfg, params):
                      "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes"})
         del pts, dirs, got, want
+    return rows
+
+
+def pow2_heads(tq, qp):
+    """``qp`` with power-of-two head scales and zero head biases: the heads'
+    fp32 dequant is then exact, so equal outputs mean equal int8
+    activations and head accumulators."""
+    layers = dict(qp.layers)
+    for h in ("alpha", "l11"):
+        layers[h] = {"qw": layers[h]["qw"],
+                     "s": torch.full_like(layers[h]["s"], 2.0 ** -10),
+                     "b": torch.zeros_like(layers[h]["b"])}
+    return tq.QuantizedNerfParams(layers=layers, inv_act=qp.inv_act)
+
+
+def phase_int8(fm, fq, tq, rng, cfg, params):
+    """Quantize the full-width net on the card, check the int8 kernel
+    against its plain version (bitwise with power-of-two heads, TOL_INT8
+    with the real scales, bitwise over two launches) and time both."""
+    cpts, cdirs = tq.calibration_samples(rng.PRNGKey(SEED + 6), 1 << 17,
+                                         (-6.0,) * 3, (6.0,) * 3, "cuda")
+    qp = tq.quantize_nerf(params, cfg, cpts, cdirs)
+    real, exact = fq.QuantizedNerfWeights(qp, cfg), pow2_heads(tq, qp)
+    exact_w = fq.QuantizedNerfWeights(exact, cfg)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    rows = []
+    for n in (2 ** 16 + 37, CHUNK * 64, CHUNK * 192):
+        pts, dirs = inputs(n, gen)
+        first = fq.fused_nerf_apply_int8(real, pts, dirs)
+        second = fq.fused_nerf_apply_int8(real, pts, dirs)
+        got_exact = fq.fused_nerf_apply_int8(exact_w, pts, dirs)
+        torch.cuda.synchronize()
+        want = fq.fused_nerf_int8_plain(qp, pts, dirs, cfg)
+        err = (first - want).abs().max().item()
+        bitwise = torch.equal(got_exact,
+                              fq.fused_nerf_int8_plain(exact, pts, dirs, cfg))
+        same = torch.equal(first, second)
+        ok = bool(torch.isfinite(first).all()) and first.shape == (n, 4)
+        print(f"fused_nerf_apply_int8 n={n}: power-of-two heads bitwise "
+              f"equal to plain: {bitwise}; real scales max_abs_err={err:.3e} "
+              f"(tol {TOL_INT8:g}); two launches bitwise equal: {same}; "
+              f"finite_and_shaped={ok}", flush=True)
+        if not (bitwise and same and ok and err <= TOL_INT8):
+            fail(f"int8 kernel disagrees with its plain version (n={n})")
+        del want, got_exact, second
+        kernel_ms = time_ms(lambda: fq.fused_nerf_apply_int8(real, pts, dirs))
+        plain_ms = time_ms(lambda: fq.fused_nerf_int8_plain(qp, pts, dirs,
+                                                            cfg),
+                           reps=3, warmup=1)
+        ops = fm.forward_flops(cfg) * n
+        nbytes = (pts.numel() * 4 + dirs.numel() * 4 + first.numel() * 4
+                  + real.qmat.numel() + real.qvec.numel() * 4)
+        ops_ms, bytes_ms = ops / H100_INT8_OPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        print(f"  kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound:.4f} (share {bound / kernel_ms:.2%}, "
+              f"{ops / kernel_ms / 1e9:.2f} TOPS)", flush=True)
+        rows.append({"n": n, "max_abs_err": err, "ms": kernel_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes"})
+        del pts, dirs, first
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -288,18 +372,22 @@ def calibrate(fb, cfg, params, w, pts, dirs, g, whole, want) -> None:
         fail(f"backward check of the ragged tail failed (n={n}, {dt})")
 
 
-def reset_counts(fm, fb) -> None:
+def reset_counts(fm, fb, fq) -> None:
     fm.fused_nerf_apply.launches = 0
     fm.fused_nerf_plain.calls = 0
     fb.fused_nerf_bwd.launches = 0
     fb.fused_nerf_bwd_plain.calls = 0
+    fq.fused_nerf_apply_int8.launches = 0
+    fq.fused_nerf_int8_plain.calls = 0
 
 
-def read_counts(fm, fb) -> dict:
+def read_counts(fm, fb, fq) -> dict:
     return {"fwd": fm.fused_nerf_apply.launches,
             "bwd": fb.fused_nerf_bwd.launches,
+            "int8": fq.fused_nerf_apply_int8.launches,
             "fwd_plain": fm.fused_nerf_plain.calls,
-            "bwd_plain": fb.fused_nerf_bwd_plain.calls}
+            "bwd_plain": fb.fused_nerf_bwd_plain.calls,
+            "int8_plain": fq.fused_nerf_int8_plain.calls}
 
 
 def lego_train_config(dt, kernels: str = "on"):
@@ -314,7 +402,7 @@ def lego_train_config(dt, kernels: str = "on"):
                        render=rcfg)
 
 
-def phase_train(fm, fb, card: str):
+def phase_train(fm, fb, fq, card: str):
     """Train the lego-shaped workload through ``Trainer`` (main path) and
     render a frame of the trained params; returns the launch counts."""
     from cvnerf_torch.data.synthetic import bench_scene
@@ -338,10 +426,10 @@ def phase_train(fm, fb, card: str):
 
     tr.add_callback(1, on_step)
     torch.cuda.synchronize()
-    reset_counts(fm, fb)
+    reset_counts(fm, fb, fq)
     tr.run(1, 1 + TRAIN_STEPS)
     torch.cuda.synchronize()
-    counts = read_counts(fm, fb)
+    counts = read_counts(fm, fb, fq)
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     wall_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
     med = float(np.median(step_ms))
@@ -361,8 +449,8 @@ def phase_train(fm, fb, card: str):
         fail("train: missing or non-finite metrics")
     if not last < first:
         fail("train: the loss did not fall")
-    if counts != {"fwd": 2 * TRAIN_STEPS, "bwd": 2 * TRAIN_STEPS,
-                  "fwd_plain": 0, "bwd_plain": 0}:
+    if counts != {"fwd": 2 * TRAIN_STEPS, "bwd": 2 * TRAIN_STEPS, "int8": 0,
+                  "fwd_plain": 0, "bwd_plain": 0, "int8_plain": 0}:
         fail("train: the step did not run exactly through the kernels")
     split = profile_steps(tr, 1 + TRAIN_STEPS, 5, med)
     # Hand the trained state to the serving path of the first slice.
@@ -370,12 +458,12 @@ def phase_train(fm, fb, card: str):
             for k, v in tr.state.params.items()}
     rcfg = dataclasses.replace(tcfg.render, deterministic_resample=True
                                ).eval_mode()
-    reset_counts(fm, fb)
+    reset_counts(fm, fb, fq)
     out = render_image(nets, TRAIN_HW, TRAIN_HW, 555.0,
                        torch.as_tensor(poses[0], device="cuda"), 2.0, 6.0,
                        rcfg, chunk=CHUNK)
     rgb = out["rgb"].cpu().numpy()
-    frame_counts = read_counts(fm, fb)
+    frame_counts = read_counts(fm, fb, fq)
     frame_psnr = float(-10 * np.log10(np.mean((rgb - images[0]) ** 2)))
     print(f"train: rendered the trained params at {rgb.shape}, psnr vs the "
           f"training view {frame_psnr:.2f} dB; launches {frame_counts}",
@@ -500,7 +588,12 @@ def write_run_dir(run: str, cfg, convert, init, gen_seed: int) -> None:
              "pallas": "auto",
              "mlp": {"xyz_freqs": cfg.xyz_freqs, "dir_freqs": cfg.dir_freqs,
                      "trunk_width": cfg.trunk_width,
-                     "head_width": cfg.head_width}}
+                     "head_width": cfg.head_width},
+             # The camera set a trained run's snapshot carries (--int8
+             # calibrates on it).
+             "calib_poses": [pose(t).tolist()
+                             for t in np.linspace(0, 2 * np.pi, 8,
+                                                  endpoint=False)]}
     with open(os.path.join(run, "scene.json"), "w") as fp:
         json.dump(scene, fp)
     gen = torch.Generator().manual_seed(gen_seed)
@@ -508,6 +601,140 @@ def write_run_dir(run: str, cfg, convert, init, gen_seed: int) -> None:
             for net in ("coarse", "fine")}
     blob["step"] = 1000
     torch.save(blob, os.path.join(run, "torch_checkpoints", "001000.pt"))
+
+
+def phase_int8_serve(fm, fb, fq, run: str, c2w, bf16_renderer, rgb_bf16,
+                     acc_bf16, t_json_bf16):
+    """Serve the run directory with ``--int8`` through the server's own
+    startup (``renderer_from_args``, then the int8 step ``main`` runs):
+    ``/health``, a png and a json+depth ``/render``; exactly 40 int8 launches
+    a frame and nothing else. Then, outside the counted run: the served
+    frame against the same pose rendered on the card with ``kernels="off"``
+    from the same quantized nets (bitwise), and against phase 2's bf16
+    frame of the same weights.
+
+    The check against bf16: the last sample of a ray lies at ``far`` with
+    delta 1e10, so a pixel whose far-end density lies near 0 renders that
+    sample's colour or the background, whichever side of 0 it lands (its
+    opacity jumps by ~1, its rgb by up to ~0.5). The random net has such
+    pixels. So at most INT8_FLIP_SHARE of the pixels may flip (opacity
+    differing by more than 0.5), each flipped pixel's terminal density must
+    change sign between the two fine nets (the witness that the flip is
+    that sample), and every other pixel must lie within the JAX package's
+    int8 bound, 0.2 (tests/test_quantize.py:169, :251)."""
+    from cvnerf_torch.ops.rays import ray_grid
+    from cvnerf_torch.render.frames import render_image
+    from cvnerf_torch.server import (build_parser, int8_from_args,
+                                     make_server, renderer_from_args)
+    args = build_parser().parse_args(["--run", run, "--device", "cuda",
+                                      "--port", "0", "--int8"])
+    reset_counts(fm, fb, fq)
+    renderer = renderer_from_args(args)
+    int8_from_args(renderer, args)
+    srv = make_server(renderer, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        health = json.loads(http(url + "/health")[0])
+        if health["status"] != "ok" or health["height"] != SERVE_HW:
+            fail(f"bad /health under --int8: {health}")
+        t0 = time.time()
+        body, ctype = http(url + "/render", {"c2w": c2w})
+        t_png = time.time() - t0
+        check_png_or_ppm(body, ctype, SERVE_HW, SERVE_HW)
+        t0 = time.time()
+        body, _ = http(url + "/render", {"c2w": c2w, "format": "json",
+                                         "include_depth": True})
+        t_json = time.time() - t0
+        torch.cuda.synchronize()
+        counts = read_counts(fm, fb, fq)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+    out = json.loads(body)
+    rgb = np.asarray(out["rgb"], np.float32)
+    depth = np.asarray(out["depth"], np.float32)
+    if (rgb.shape != (SERVE_HW, SERVE_HW, 3)
+            or depth.shape != (SERVE_HW, SERVE_HW)
+            or not (np.isfinite(rgb).all() and np.isfinite(depth).all())):
+        fail("int8 json render: wrong shape or non-finite values")
+    acc = np.asarray(out["acc"], np.float32)
+    per_frame = 2 * -(-SERVE_HW * SERVE_HW // CHUNK)          # 40
+    want = {"fwd": 0, "bwd": 0, "int8": 2 * per_frame, "fwd_plain": 0,
+            "bwd_plain": 0, "int8_plain": 0}
+    print(f"serve --int8: 2 x 200 from /render (png {ctype}, json+depth); "
+          f"png {t_png * 1e3:.1f} ms, json {t_json * 1e3:.1f} ms wall (bf16 "
+          f"json {t_json_bf16 * 1e3:.1f} ms); launches {counts} (expected "
+          f"{want})", flush=True)
+    if counts != want:
+        fail("int8 serving did not run exactly through the int8 kernel")
+
+    # The same pose through the plain int8 version on the card, from the
+    # served renderer's quantized nets: the kernel repeats every rounding.
+    c2w_t = renderer._pose(c2w)
+    calls = fq.fused_nerf_int8_plain.calls
+    launches = fq.fused_nerf_apply_int8.launches
+    plain = render_image({k: w.qp for k, w in renderer._nets.items()},
+                         SERVE_HW, SERVE_HW, renderer.focal, c2w_t,
+                         renderer.near, renderer.far,
+                         dataclasses.replace(renderer.cfg, kernels="off"),
+                         chunk=renderer.chunk, key=renderer._key)
+    plain = {k: v.cpu().numpy() for k, v in plain.items()}
+    if (fq.fused_nerf_int8_plain.calls - calls != per_frame
+            or fq.fused_nerf_apply_int8.launches != launches):
+        fail("the kernels='off' int8 render did not run the plain version")
+    unequal = {k: int((plain[k] != v).sum())
+               for k, v in (("rgb", rgb), ("acc", acc), ("depth", depth))}
+    print(f"served int8 frame vs kernels='off' int8 frame on the card: "
+          f"unequal values {unequal} (bitwise required)", flush=True)
+    if any(unequal.values()):
+        fail("the served int8 frame differs from its plain version")
+
+    # Against bf16, with the witness of every flipped pixel: its terminal
+    # sample (t = far) has densities of opposite sign under the two nets.
+    flipped = np.abs(acc - acc_bf16) > 0.5
+    drgb = np.abs(rgb - rgb_bf16).max(axis=-1)
+    diff = float(drgb[~flipped].max())
+    share = float(flipped.mean())
+    rays_o, rays_d = (r.reshape(-1, 3) for r in ray_grid(
+        SERVE_HW, SERVE_HW, renderer.focal, c2w_t))
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    pts = rays_o + rays_d * torch.full_like(rays_o[:, :1], renderer.far)
+    s8 = fq.fused_nerf_apply_int8(renderer._nets["fine"], pts, viewdirs
+                                  )[:, 3].cpu().numpy()
+    s16 = fm.fused_nerf_apply(bf16_renderer._nets["fine"], pts, viewdirs
+                              )[:, 3].cpu().numpy()
+    sign = ((s8 > 0) != (s16 > 0)).reshape(SERVE_HW, SERVE_HW)
+    witnessed = int((flipped & sign).sum())
+    sig_flip = (float(np.abs(s16[flipped.reshape(-1)]).max())
+                if flipped.any() else 0.0)
+    print(f"int8 vs bf16 frame: {share:.4%} of the pixels flip (tol "
+          f"{INT8_FLIP_SHARE:.0%}), {witnessed} of {int(flipped.sum())} with "
+          f"a terminal density of opposite sign under the two fine nets "
+          f"({int(sign.sum())} such pixels in the frame); terminal |sigma| "
+          f"bf16 at the flipped pixels max {sig_flip:.4e}, over the frame "
+          f"median {float(np.median(np.abs(s16))):.4e}, |int8 - bf16| median "
+          f"{float(np.median(np.abs(s8 - s16))):.4e}; the other pixels max "
+          f"|rgb diff| {diff:.4e} (tol 0.2); all pixels max "
+          f"{float(drgb.max()):.4f}", flush=True)
+    if witnessed != int(flipped.sum()):
+        fail("a flipped pixel is not explained by its terminal sample")
+    if not (diff < 0.2 and share <= INT8_FLIP_SHARE):
+        fail("the int8 frame is too far from the bf16 frame")
+
+    # Phase 3's pose sequence under int8, for a frame time measured as
+    # phase 3 measures the bf16 one.
+    torch.cuda.synchronize()
+    t0 = time.time()
+    frames = renderer.render_video(np.stack([pose(0.3), pose(1.1)]))
+    video_ms = (time.time() - t0) * 1e3
+    if not np.array_equal(frames[0], rgb):
+        fail("int8 render_video frame 0 differs from the served json render")
+    print(f"int8 render_video: 2 frames in {video_ms:.1f} ms wall "
+          f"({video_ms / 2:.1f} ms/frame)", flush=True)
+    return counts
 
 
 def check_png_or_ppm(body: bytes, ctype: str, h: int, w: int) -> None:
@@ -558,6 +785,9 @@ def main() -> int:
     from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
     from cvnerf_torch.ops import fused_mlp as fm
     from cvnerf_torch.ops import fused_mlp_bwd as fb
+    from cvnerf_torch.ops import fused_mlp_int8 as fq
+    from cvnerf_torch.ops import quantize as tq
+    from cvnerf_torch.ops import rng
     from cvnerf_torch.render.frames import render_image
     from cvnerf_torch.render.renderer import RenderConfig
     from cvnerf_torch.server import build_parser, make_server, renderer_from_args
@@ -573,6 +803,8 @@ def main() -> int:
     rows = phase_kernels(fm, cfg, params)
     # -- 1b. the backward kernel against its plain version ----------------
     bwd_rows = phase_backward(fm, fb, cfg, params)
+    # -- 1c. the int8 kernel against its plain version --------------------
+    int8_rows = phase_int8(fm, fq, tq, rng, cfg, params)
 
     with tempfile.TemporaryDirectory() as tmp:
         run = os.path.join(tmp, "lego_serve")
@@ -654,6 +886,11 @@ def main() -> int:
         if not np.allclose(frames[0], rgb, atol=1e-6):
             fail("render_video frame 0 differs from the served json render")
 
+        # -- 2b. int8 serving over HTTP (main path) -----------------------
+        int8_counts = phase_int8_serve(fm, fb, fq, run, c2w, renderer, rgb,
+                                       np.asarray(out["acc"], np.float32),
+                                       t_json)
+
     # -- 4. kernel vs kernels="off", end to end, on the card -------------
     nets = {k: init_nerf_params(torch.Generator().manual_seed(SEED + 3 + i),
                                 cfg, "cuda")
@@ -678,7 +915,7 @@ def main() -> int:
                 fail(f"end-to-end {dt} {k} differs by {v}")
 
     # -- 5. train through Trainer (main path) -----------------------------
-    train_counts, step_ms, split = phase_train(fm, fb, card)
+    train_counts, step_ms, split = phase_train(fm, fb, fq, card)
 
     # -- 6. one train step, kernels vs kernels="off", on the card ----------
     phase_step_vs_off(cfg)
@@ -717,10 +954,26 @@ def main() -> int:
                 "the least work (wgrad of 12 layers + dgrad of 11), not the "
                 "forward recompute; no single PyTorch call computes this "
                 "function, so library_ms is null",
+    }, {
+        "name": "fused_nerf_apply_int8", "route": "cuda",
+        "source": "cvnerf_torch/csrc/fused_mlp_int8.cu",
+        "replaces": "cvnerf_tpu/ops/pallas/fused_mlp_int8.py:268",
+        "launches": int8_counts["int8"],
+        "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
+        "ms": int8_rows[-1]["ms"], "plain_ms": int8_rows[-1]["plain_ms"],
+        "bound_ms": int8_rows[-1]["bound_ms"],
+        "bound_by": int8_rows[-1]["bound_by"],
+        "library_ms": None,
+        "shapes": int8_rows,
+        "note": f"ms/plain_ms/bound_ms at the fine-pass chunk (n={CHUNK * 192}"
+                "), real head scales; the bound counts 1,186,816 int8 "
+                "operations a point at 1,979 TOPS; no single PyTorch call "
+                "computes this function, so library_ms is null",
     }]}
     print(json.dumps(report), flush=True)
     print(f"card: {card}", flush=True)
-    print('kernels: ["fused_nerf_apply", "fused_nerf_bwd"]', flush=True)
+    print('kernels: ["fused_nerf_apply", "fused_nerf_bwd", '
+          '"fused_nerf_apply_int8"]', flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

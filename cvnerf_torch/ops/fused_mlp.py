@@ -6,7 +6,8 @@ both inputs followed by the full 12-layer MLP and returns ``[n, 4]`` raw
 ``(r, g, b, sigma)`` in fp32. For CUDA tensors it launches the hand-written
 kernel in ``cvnerf_torch/csrc/fused_mlp.cu`` (or raises); for CPU tensors it
 runs :func:`fused_nerf_plain`. Each kernel source in ``SOURCES`` (this
-forward and the backward of ``ops/fused_mlp_bwd.py``) is compiled with
+forward, the backward of ``ops/fused_mlp_bwd.py`` and the int8 forward of
+``ops/fused_mlp_int8.py``) is compiled with
 ``nvcc`` at first use into its own library under
 ``build/cvnerf_torch_kernels/`` (keyed by the hash of the source and the
 shared headers) and bound with ``ctypes``; nothing is built at import time.
@@ -37,7 +38,8 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # One shared library per kernel source; every source includes the headers
 # in csrc/ (nerf_common.cuh), so they are part of each build's hash.
 SOURCES = {"fused_mlp": _CSRC / "fused_mlp.cu",
-           "fused_mlp_bwd": _CSRC / "fused_mlp_bwd.cu"}
+           "fused_mlp_bwd": _CSRC / "fused_mlp_bwd.cu",
+           "fused_mlp_int8": _CSRC / "fused_mlp_int8.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cvnerf_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -222,6 +224,37 @@ def fused_nerf_plain(params: dict, points: torch.Tensor,
 fused_nerf_plain.calls = 0
 
 
+def check_point_inputs(points: torch.Tensor, viewdirs: torch.Tensor) -> None:
+    """Raise unless ``points`` and ``viewdirs`` are ``[n, 3]`` tensors of
+    one length on one device."""
+    for name, t in (("points", points), ("viewdirs", viewdirs)):
+        if t.dim() != 2 or t.shape[1] != 3:
+            raise ValueError(f"{name} must be [n, 3], got {list(t.shape)}")
+    if points.shape[0] != viewdirs.shape[0]:
+        raise ValueError("points and viewdirs must have the same length")
+    if points.device != viewdirs.device:
+        raise ValueError("points and viewdirs must be on one device")
+
+
+def check_kernel_inputs(points: torch.Tensor, viewdirs: torch.Tensor,
+                        weights_device: torch.device, packed: bool) -> None:
+    """Raise unless a forward kernel can take these inputs: CUDA tensors,
+    contiguous float32, fewer than 2^31 points, and weights packed on the
+    points' device."""
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    if not packed or weights_device != points.device:
+        raise ValueError(f"weights live on {weights_device}, points on "
+                         f"{points.device}: pack the weights on the "
+                         "points' device")
+    for name, t in (("points", points), ("viewdirs", viewdirs)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+    if points.shape[0] >= 2 ** 31:
+        raise ValueError(f"n={points.shape[0]} points exceeds the kernel's "
+                         "int32 range")
+
+
 def fused_nerf_apply(weights: FusedNerfWeights, points: torch.Tensor,
                      viewdirs: torch.Tensor) -> torch.Tensor:
     """Evaluate the encode→MLP pipeline at ``points``/``viewdirs`` ``[n, 3]``.
@@ -230,30 +263,15 @@ def fused_nerf_apply(weights: FusedNerfWeights, points: torch.Tensor,
     ``fused_nerf_apply.launches``); CPU tensors to :func:`fused_nerf_plain`.
     Returns ``[n, 4]`` fp32 ``(r, g, b, sigma)``.
     """
-    for name, t in (("points", points), ("viewdirs", viewdirs)):
-        if t.dim() != 2 or t.shape[1] != 3:
-            raise ValueError(f"{name} must be [n, 3], got {list(t.shape)}")
-    if points.shape[0] != viewdirs.shape[0]:
-        raise ValueError("points and viewdirs must have the same length")
-    if points.device != viewdirs.device:
-        raise ValueError("points and viewdirs must be on one device")
+    check_point_inputs(points, viewdirs)
     if points.device.type == "cpu":
         return fused_nerf_plain(weights.params, points, viewdirs, weights.cfg,
                                 weights.compute_dtype)
-    if points.device.type != "cuda":
-        raise ValueError(f"unsupported device {points.device}")
-    if weights.wmat is None or weights.device != points.device:
-        raise ValueError(f"weights live on {weights.device}, points on "
-                         f"{points.device}: pack the weights on the "
-                         "points' device")
-    for name, t in (("points", points), ("viewdirs", viewdirs)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32")
+    check_kernel_inputs(points, viewdirs, weights.device,
+                        weights.wmat is not None)
     cfg = weights.cfg
     lib = load_library("fused_mlp", _bind_forward)
     n = points.shape[0]
-    if n >= 2 ** 31:
-        raise ValueError(f"n={n} points exceeds the kernel's int32 range")
     w, h, lx, ld = cfg.trunk_width, cfg.head_width, cfg.xyz_freqs, cfg.dir_freqs
     if (lib.cvnerf_fused_nerf_mat_elems(w, h, lx, ld) != weights.wmat.numel()
             or lib.cvnerf_fused_nerf_vec_elems(w, h, lx, ld)

@@ -6,9 +6,10 @@ A key is a CPU ``int64`` tensor of its two 32-bit words, exactly the
 the JAX package draws from the same key: the renderer's per-ray jitter,
 resample and noise (``ray_uniform`` / ``ray_sorted_uniform`` /
 ``ray_normal``, keyed by ``(key, tag, global ray id)``), the trainer's pixel
-permutation (``sample_without_replacement``) and the key derivations the
+permutation (``sample_without_replacement``), the key derivations the
 train step uses (``PRNGKey``, ``fold_in``, ``split``, ``randint``,
-``bernoulli``), as JAX 0.9.0 computes them with
+``bernoulli``) and the int8 calibration's draws (``uniform``, ``randint``,
+``normal``), as JAX 0.9.0 computes them with
 ``jax_threefry_partitionable`` on (its default).
 
 PyTorch has no full uint32 arithmetic, so words are held in ``int64`` and
@@ -110,9 +111,28 @@ def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape: tuple[int, ...],
-            device: str | torch.device = "cpu") -> torch.Tensor:
-    """``jax.random.uniform`` over ``[0, 1)`` in float32."""
-    return _bits_to_unit_float(random_bits(key, shape, device))
+            device: str | torch.device = "cpu", minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` over ``[minval, maxval)`` in float32: the unit
+    floats as ``floats * (maxval - minval) + minval``, held at ``minval``
+    from below, the bounds and their difference in float32."""
+    floats = _bits_to_unit_float(random_bits(key, shape, device))
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+_BELOW_ONE = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+_ABOVE_MINUS_ONE = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key: torch.Tensor, shape: tuple[int, ...],
+           device: str | torch.device = "cpu") -> torch.Tensor:
+    """``jax.random.normal`` in float32: ``sqrt(2)·erfinv(u)`` of uniforms
+    over ``[nextafter(-1, 0), 1)`` (bit for bit JAX's)."""
+    return _SQRT2 * torch.special.erfinv(
+        uniform(key, shape, device, _ABOVE_MINUS_ONE, 1.0))
 
 
 def bernoulli(key: torch.Tensor, p: float = 0.5) -> bool:
@@ -160,10 +180,6 @@ def ray_uniform(key: torch.Tensor, tag: int, ray_ids: torch.Tensor,
     return _bits_to_unit_float(_ray_bits(key, tag, ray_ids, n))
 
 
-_BELOW_ONE = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
-_ABOVE_MINUS_ONE = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-
-
 def ray_sorted_uniform(key: torch.Tensor, tag: int, ray_ids: torch.Tensor,
                        n: int) -> torch.Tensor:
     """``[len(ray_ids), n]`` float32 uniforms, ascending per ray: the
@@ -182,7 +198,7 @@ def ray_normal(key: torch.Tensor, tag: int, ray_ids: torch.Tensor,
     ``sqrt(2)·erfinv(2u - 1)`` with the lower end held one ulp inside -1."""
     u = ray_uniform(key, tag, ray_ids, n)
     v = torch.clamp(2.0 * u - 1.0, min=_ABOVE_MINUS_ONE)
-    return float(np.float32(np.sqrt(2.0))) * torch.special.erfinv(v)
+    return _SQRT2 * torch.special.erfinv(v)
 
 
 def sample_without_replacement(key: torch.Tensor, n: int, m: int,

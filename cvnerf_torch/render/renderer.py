@@ -8,8 +8,11 @@ Random draws are keyed by ``(key, tag, global ray id)`` through
 jitter, 2 the resample (sorted uniforms, or iid then sorted), 3 and 4 the
 coarse and fine density noise. A render is therefore independent of the
 chunk size. ``render_rays`` is differentiable in the params (training);
-``render_rays_chunked`` renders frames without a graph. Occupancy grids,
-int8 and device meshes come in later slices.
+``render_rays_chunked`` renders frames without a graph. A net given as
+int8 params (``QuantizedNerfParams``, or its packed
+``QuantizedNerfWeights``) is queried through the int8 path and ignores
+``compute_dtype``, as in the JAX package. Occupancy grids and device meshes
+come in later slices.
 """
 
 from __future__ import annotations
@@ -23,6 +26,10 @@ from cvnerf_torch.ops.compositing import volume_render
 from cvnerf_torch.ops.encoding import freq_encode
 from cvnerf_torch.ops.fused_mlp import FusedNerfWeights, fused_nerf_apply
 from cvnerf_torch.ops.fused_mlp_bwd import fused_nerf_train_apply
+from cvnerf_torch.ops.fused_mlp_int8 import (QuantizedNerfWeights,
+                                             fused_nerf_apply_int8,
+                                             fused_nerf_int8_plain)
+from cvnerf_torch.ops.quantize import QuantizedNerfParams
 from cvnerf_torch.ops.rng import ray_normal, ray_sorted_uniform, ray_uniform
 from cvnerf_torch.ops.sampling import (merge_sorted, sample_pdf,
                                        stratified_samples)
@@ -80,24 +87,51 @@ def _query_mlp(net, points: torch.Tensor, viewdirs: torch.Tensor,
     once by a server) through the forward kernel alone, a params dict
     through ``fused_nerf_train_apply``, which packs it on every call and is
     differentiable in it (the forward kernel, then the backward kernel).
+
+    Int8 nets take the same two routes: with ``kernels="on"`` through the
+    int8 kernel (its plain version for CPU tensors), a
+    :class:`QuantizedNerfWeights` as packed once by a server, a
+    ``QuantizedNerfParams`` packed on every call; with ``kernels="off"``
+    through the kernel's plain version, ``fused_nerf_int8_plain``.
     """
-    n_rays, n_samples = points.shape[:2]
+    shape = (*points.shape[:2], 4)
+    if isinstance(net, (QuantizedNerfWeights, QuantizedNerfParams)):
+        if cfg.kernels == "off":
+            qp = net.qp if isinstance(net, QuantizedNerfWeights) else net
+            raw = fused_nerf_int8_plain(qp, *_flat(points, viewdirs), cfg.mlp)
+        else:
+            if isinstance(net, QuantizedNerfParams):
+                net = QuantizedNerfWeights(net, cfg.mlp)
+            raw = fused_nerf_apply_int8(net, *_flat(points, viewdirs))
+        return raw.reshape(shape)
     if cfg.kernels == "on":
-        pts_flat = points.reshape(-1, 3).contiguous()
-        dirs_flat = viewdirs[:, None, :].expand(
-            n_rays, n_samples, 3).reshape(-1, 3).contiguous()
+        pts_flat, dirs_flat = _flat(points, viewdirs)
         if isinstance(net, FusedNerfWeights):
             raw = fused_nerf_apply(net, pts_flat, dirs_flat)
         else:
             raw = fused_nerf_train_apply(net, pts_flat, dirs_flat, cfg.mlp,
                                          cfg.compute_dtype)
-        return raw.reshape(n_rays, n_samples, 4)
-    xyz_enc = freq_encode(points, cfg.mlp.xyz_freqs)
-    dir_enc = freq_encode(viewdirs, cfg.mlp.dir_freqs)
-    dir_enc = dir_enc[..., None, :].expand(*points.shape[:-1],
-                                           dir_enc.shape[-1])
-    return apply_nerf(_net_params(net), xyz_enc, dir_enc, cfg.mlp,
-                      compute_dtype=cfg.compute_dtype)
+        return raw.reshape(shape)
+    return apply_nerf(_net_params(net), *_encoded(points, viewdirs, cfg.mlp),
+                      cfg.mlp, compute_dtype=cfg.compute_dtype)
+
+
+def _flat(points: torch.Tensor, viewdirs: torch.Tensor):
+    """``[n_rays, n_samples, 3]`` points and per-ray ``[n_rays, 3]``
+    viewdirs as two contiguous ``[n, 3]`` tensors."""
+    n_rays, n_samples = points.shape[:2]
+    return (points.reshape(-1, 3).contiguous(),
+            viewdirs[:, None, :].expand(n_rays, n_samples, 3)
+            .reshape(-1, 3).contiguous())
+
+
+def _encoded(points: torch.Tensor, viewdirs: torch.Tensor, mlp):
+    """Both encodings, the per-ray dir encoding broadcast over the
+    samples."""
+    xyz_enc = freq_encode(points, mlp.xyz_freqs)
+    dir_enc = freq_encode(viewdirs, mlp.dir_freqs)
+    return xyz_enc, dir_enc[..., None, :].expand(*points.shape[:-1],
+                                                 dir_enc.shape[-1])
 
 
 def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
@@ -109,8 +143,9 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
     params.
 
     Args:
-        params: ``{"coarse": net, "fine": net}``, each a params dict or a
-            :class:`FusedNerfWeights`.
+        params: ``{"coarse": net, "fine": net}``, each a params dict, a
+            :class:`FusedNerfWeights`, or int8 params
+            (``QuantizedNerfParams`` / ``QuantizedNerfWeights``).
         rays_o, rays_d: ``[n_rays, 3]`` (possibly NDC-warped) rays.
         viewdirs: ``[n_rays, 3]`` unit directions of the pre-NDC rays.
         near, far: scalars or ``[n_rays]`` bounds.

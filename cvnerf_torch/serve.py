@@ -17,7 +17,8 @@ Serving renders in eval mode with the evenly spaced inverse-CDF resample by
 default, so a pose always renders the same image; ``deterministic=False``
 resamples stochastically with ``PRNGKey(seed)``, as the JAX package's
 ``--stochastic`` serving does. The weights are packed for the fused kernel
-once, here, and reused by every render.
+once, here, and reused by every render. ``enable_int8`` quantizes both nets
+and serves through the int8 kernel from then on.
 """
 
 from __future__ import annotations
@@ -33,6 +34,9 @@ import torch
 from cvnerf_torch import resolve_device
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
 from cvnerf_torch.ops.fused_mlp import FusedNerfWeights
+from cvnerf_torch.ops.fused_mlp_int8 import QuantizedNerfWeights
+from cvnerf_torch.ops.quantize import (calibration_samples, quantize_nerf,
+                                       ray_calibration_samples)
 from cvnerf_torch.render.frames import render_image, render_poses_to_frames
 from cvnerf_torch.ops.rng import PRNGKey
 from cvnerf_torch.render.renderer import RenderConfig
@@ -102,6 +106,12 @@ class NerfRenderer:
         self.params = {k: {n: {p: t.to(self.device) for p, t in layer.items()}
                            for n, layer in net.items()}
                        for k, net in params.items()}
+        # The float master copy: enable_int8 swaps the nets a render uses,
+        # never these.
+        self._float_params = self.params
+        # A camera set for calibration (enable_int8); from_run_dir fills it
+        # when the run's snapshot stores poses.
+        self.calib_poses = None
         # Pack once for the kernel; every render reuses the packing.
         if self.cfg.kernels == "on":
             self._nets = {k: FusedNerfWeights(net, self.cfg.mlp,
@@ -161,6 +171,8 @@ class NerfRenderer:
                 chunk=chunk, seed=seed, deterministic=deterministic,
                 device=device)
         r.which = "best" if ckpt == best else "last"
+        if geo.get("calib_poses"):
+            r.calib_poses = np.asarray(geo["calib_poses"], np.float32)
         fa = int(geo.get("freq_anneal", 0) or 0)
         if fa > 0 and r.step < fa:
             # The JAX package serves its raw orbax weights through the
@@ -172,6 +184,49 @@ class NerfRenderer:
                   f"freq_anneal {fa}): its exported weights already carry "
                   f"the training-time frequency window")
         return r
+
+    def enable_int8(self, *, poses=None, n_calib: int = 1 << 17,
+                    bound: float | None = None,
+                    seed: int = 0) -> "NerfRenderer":
+        """Quantize both nets to int8 and serve every render with them.
+
+        Post-training symmetric quantization (``ops/quantize.py``): weights
+        and activations carry per-channel scales, calibrated max-abs over
+        ``n_calib`` samples drawn from ``PRNGKey(seed)``, on the renderer's
+        device. Renders then run the int8 kernel (``kernels="on"``) or the
+        plain int8 graph (``kernels="off"``). Checkpoints and the float
+        master copy are untouched; reloading weights needs a re-enable.
+        Returns self.
+
+        Calibration samples real rays through ``poses`` (``[P, 3+, 4]``
+        c2w), by default the run snapshot's ``calib_poses``; without poses,
+        NDC scenes sample the NDC box (exact) and others a ``±bound`` cube
+        (``bound=None`` → ``far``), a heuristic: rays reach ``|origin| +
+        far``, and an under-sized box clips the position encoding.
+        """
+        key = PRNGKey(seed)
+        if poses is None:
+            poses = self.calib_poses
+        if poses is not None:
+            pts, dirs = ray_calibration_samples(
+                key, n_calib, poses, self.height, self.width, self.focal,
+                self.near, self.far, ndc=self.ndc,
+                ndc_variant=self.ndc_variant, device=self.device)
+        elif self.ndc:
+            pts, dirs = calibration_samples(key, n_calib, (-1.0, -1.0, 0.0),
+                                            (1.0, 1.0, 1.0), self.device)
+        else:
+            b = self.far if bound is None else bound
+            pts, dirs = calibration_samples(key, n_calib, (-b,) * 3, (b,) * 3,
+                                            self.device)
+        qs = {k: quantize_nerf(net, self.cfg.mlp, pts, dirs)
+              for k, net in self._float_params.items()}
+        if self.cfg.kernels == "on":
+            self._nets = {k: QuantizedNerfWeights(q, self.cfg.mlp)
+                          for k, q in qs.items()}
+        else:
+            self._nets = qs
+        return self
 
     def _pose(self, c2w) -> torch.Tensor:
         return torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4],

@@ -23,6 +23,9 @@ Run (geometry from the run's scene.json, weights from its
 torch_checkpoints/):
     python -m cvnerf_torch.server --run logs/lego --port 8000
 
+Run int8-quantized (calibrated at startup on the run's stored poses):
+    python -m cvnerf_torch.server --run logs/lego --int8
+
 Run (explicit geometry and a .pt file):
     python -m cvnerf_torch.server --ckpt lego.pt \
         --height 400 --width 400 --focal 555 --near 2 --far 6 --port 8000
@@ -480,12 +483,10 @@ def make_server(renderer: NerfRenderer, host: str = "127.0.0.1",
     return srv
 
 
-# Serving options of the JAX package that this slice does not carry yet:
+# Serving options of the JAX package that the port does not carry yet:
 # each is refused with the ROADMAP item that brings it, never ignored.
 UNPORTED_FLAGS = {
     "occupancy": "occupancy-grid serving: ROADMAP Queue 1 item 10",
-    "int8": "int8 serving needs ops/quantize.py and the int8 kernel: "
-            "ROADMAP Queue 1 item 10 and Queue 2 item 3",
 }
 
 
@@ -530,7 +531,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--occupancy", default=None, choices=["merge", "full"],
                    help="not available yet: " + UNPORTED_FLAGS["occupancy"])
     p.add_argument("--int8", action="store_true",
-                   help="not available yet: " + UNPORTED_FLAGS["int8"])
+                   help="quantize the nets to int8 at startup and serve "
+                        "through the fused int8 kernel (ops/quantize.py); "
+                        "opt-in per deployment, frame times in PERF.md")
+    p.add_argument("--int8_calib", type=int, default=1 << 17,
+                   help="calibration sample count for --int8")
+    p.add_argument("--int8_bound", type=float, default=None,
+                   help="calibration cube half-width for --int8 when the "
+                        "run snapshot stores no camera poses (default: "
+                        "far). Calibration normally samples real rays "
+                        "through the run's stored poses — this flag only "
+                        "affects the pose-less fallback; under-sized "
+                        "bounds clip the position encoding and cost dB")
     p.add_argument("--ndc", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="NDC ray warp — required for forward-facing LLFF "
@@ -548,6 +560,12 @@ def renderer_from_args(args) -> NerfRenderer:
         if getattr(args, flag):
             raise SystemExit(f"--{flag} is not supported by cvnerf_torch "
                              f"yet ({why})")
+    if args.int8 and args.int8_calib < 1:
+        raise SystemExit(f"--int8_calib must be at least 1, got "
+                         f"{args.int8_calib}")
+    if args.int8 and args.int8_bound is not None and not args.int8_bound > 0:
+        raise SystemExit(f"--int8_bound must be positive, got "
+                         f"{args.int8_bound}")
     geo_flags = ("ckpt", "height", "width", "focal", "near", "far",
                  "ndc", "ndc_variant")
     if args.run:
@@ -574,9 +592,25 @@ def renderer_from_args(args) -> NerfRenderer:
                         deterministic=not args.stochastic, device=args.device)
 
 
+def int8_from_args(renderer: NerfRenderer, args) -> None:
+    """With ``--int8``, quantize the renderer's nets (calibrated on
+    ``--int8_calib`` samples: the run's poses, else the NDC box, else the
+    ``±--int8_bound`` cube) and say so; without it, nothing."""
+    if not args.int8:
+        return
+    renderer.enable_int8(n_calib=args.int8_calib, bound=args.int8_bound)
+    bound = renderer.far if args.int8_bound is None else args.int8_bound
+    src = ("run poses" if renderer.calib_poses is not None
+           else "NDC box" if renderer.ndc
+           else f"±{bound} cube")
+    print(f"int8 quantized serving active "
+          f"(calibrated on {args.int8_calib} samples via {src})", flush=True)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     renderer = renderer_from_args(args)
+    int8_from_args(renderer, args)
     srv = make_server(renderer, args.host, args.port,
                       queue_size=args.queue_size, batch_max=args.batch_max,
                       request_timeout=args.request_timeout,

@@ -1,6 +1,6 @@
 """Checkpoint conversion (port of the JAX package's ``utils/convert.py``:
-state_dict mapping and ``.pt`` loader), and the carry-over of params and
-train states from the JAX package.
+state_dict mapping and ``.pt`` loader), and the carry-over of params,
+int8 params and train states from the JAX package.
 
 The port serves the plain-tensor two-net ``.pt`` that the JAX tool writes
 (``cvnerf-import --export <run>/checkpoints <file>.pt``: ``{"coarse": sd,
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
+from cvnerf_torch.ops.quantize import QuantizedNerfParams
 from cvnerf_torch.train.state import AdamState, TrainState
 
 # our layer name -> reference nn.Module attribute
@@ -144,6 +145,21 @@ def params_from_jax(tree: dict, device: str | torch.device = "cpu") -> dict:
             return {k: conv(v) for k, v in x.items()}
         return torch.from_numpy(np.array(x, np.float32)).to(device)
     return conv(tree)
+
+
+def quantized_params_from_jax(qp, device: str | torch.device = "cpu"
+                              ) -> QuantizedNerfParams:
+    """The JAX package's ``QuantizedNerfParams`` of one net (arrays or
+    numpy leaves) → the port's, on ``device``: ``qw`` int8, ``s``, ``b``
+    and ``inv_act`` fp32, with no transposes (the layouts are the same)."""
+    def conv(x, dtype):
+        return torch.from_numpy(np.array(x, dtype)).to(device)
+    return QuantizedNerfParams(
+        layers={name: {"qw": conv(lay["qw"], np.int8),
+                       "s": conv(lay["s"], np.float32),
+                       "b": conv(lay["b"], np.float32)}
+                for name, lay in qp.layers.items()},
+        inv_act={k: conv(v, np.float32) for k, v in qp.inv_act.items()})
 
 
 def train_state_from_jax(state, device: str | torch.device = "cpu"):

@@ -211,3 +211,25 @@ def test_checkpoint_conversion(tmp_path):
     with pytest.raises(ValueError, match="unrecognized"):
         torch.save({"x": torch.zeros(1)}, single)
         convert.load_torch_checkpoint(single)
+
+
+def test_from_run_dir_reads_calib_poses_for_int8(tmp_path):
+    """``calib_poses`` in ``scene.json`` become the renderer's calibration
+    camera set, the default of ``enable_int8``; the float master copy stays
+    as loaded."""
+    from cvnerf_torch.ops.fused_mlp_int8 import QuantizedNerfWeights
+    params = _jax_params()
+    run = str(tmp_path / "int8")
+    _write_run(run, params, calib_poses=np.stack([POSE, POSE2]).tolist())
+    r = NerfRenderer.from_run_dir(run, chunk=16, device="cpu")
+    np.testing.assert_array_equal(r.calib_poses, np.stack([POSE, POSE2]))
+    float_rgb = r.render_pose(POSE)
+    a = r.enable_int8(n_calib=1024).render_pose(POSE)
+    assert isinstance(r._nets["fine"], QuantizedNerfWeights)
+    b = r.enable_int8(poses=np.stack([POSE, POSE2]),
+                      n_calib=1024).render_pose(POSE)
+    np.testing.assert_array_equal(a, b)   # the stored poses are the default
+    assert np.isfinite(a).all() and np.abs(a - float_rgb).max() < 0.2
+    assert r._float_params is r.params
+    np.testing.assert_array_equal(r.params["fine"]["l1"]["w"].numpy(),
+                                  params["fine"]["l1"]["w"])

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
-from cvnerf_torch.server import (build_parser, main, make_server,
-                                 renderer_from_args)
+from cvnerf_torch.ops import fused_mlp_int8 as fq
+from cvnerf_torch.server import (build_parser, int8_from_args, main,
+                                 make_server, renderer_from_args)
 from cvnerf_torch.utils.convert import torch_state_dict_from_params
 
 TINY = dict(xyz_freqs=4, dir_freqs=2, trunk_width=32, head_width=16)
@@ -124,7 +125,9 @@ def test_unknown_paths_are_404(server_url):
 
 @pytest.mark.parametrize("flags,msg", [
     (["--occupancy", "full"], "Queue 1 item 10"),
-    (["--int8"], "Queue 2 item 3"),
+    (["--int8", "--int8_calib", "0"], "--int8_calib"),
+    (["--int8", "--int8_bound", "0"], "--int8_bound must be positive"),
+    (["--int8", "--int8_bound", "-2"], "--int8_bound must be positive"),
     (["--height", "8"], "drop --height"),
     (["--which", "best"], None),
 ])
@@ -154,3 +157,44 @@ def test_cli_requires_geometry_without_run():
     with pytest.raises(SystemExit) as ei:
         main(["--ckpt", "x.pt"])
     assert "--height" in str(ei.value.code)
+
+
+def test_cli_int8_serves_renders(run_dir, capsys):
+    """``--int8`` quantizes at startup through the step ``main`` runs and
+    the server answers ``/render`` through the int8 path (its plain version
+    on the CPU); the snapshot has no poses, so calibration uses the
+    ``±--int8_bound`` cube."""
+    defaults = build_parser().parse_args(["--run", run_dir])
+    assert (defaults.int8, defaults.int8_calib, defaults.int8_bound) == (
+        False, 1 << 17, None)
+    args = build_parser().parse_args(
+        ["--run", run_dir, "--device", "cpu", "--chunk", "128", "--port", "0",
+         "--int8", "--int8_calib", "2048", "--int8_bound", "3.5"])
+    renderer = renderer_from_args(args)
+    int8_from_args(renderer, args)
+    assert ("int8 quantized serving active (calibrated on 2048 samples via "
+            "±3.5 cube)") in capsys.readouterr().out
+    assert isinstance(renderer._nets["fine"], fq.QuantizedNerfWeights)
+    srv = make_server(renderer, "127.0.0.1", 0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        calls = fq.fused_nerf_int8_plain.calls
+        with _post(url + "/render", {"c2w": POSE, "format": "json",
+                                     "include_depth": True}) as resp:
+            out = json.loads(resp.read())
+        # 192 rays in chunks of 128: two chunks, a coarse and a fine pass each
+        assert fq.fused_nerf_int8_plain.calls == calls + 4
+        with _post(url + "/render", {"c2w": POSE}) as resp:
+            assert resp.status == 200
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+    rgb = np.asarray(out["rgb"], np.float32)
+    assert out["shape"] == [12, 16, 3] and np.isfinite(rgb).all()
+    assert np.asarray(out["depth"]).shape == (12, 16)
+    renderer.calib_poses = np.asarray([POSE], np.float32)
+    int8_from_args(renderer, args)
+    assert "via run poses" in capsys.readouterr().out
