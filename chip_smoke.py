@@ -4,9 +4,16 @@
 
 Phases (any failure exits non-zero; no phase is caught and passed over):
   1. build every kernel from the checkout's sources (``nvcc``, one process
-     per source, all started together) and hold each kernel against its
-     plain PyTorch version on the card, at full width and at the serving
-     shapes; time both with CUDA events (median of >= 5 runs after warm-up);
+     per source, all started together), print ptxas' registers and spills
+     of the bf16 forward kernel (a spill fails), and hold the forward
+     kernel against its plain PyTorch version on the card at full width:
+     fp32 at a ragged n; bf16 at ragged sizes around its 128-point tiles and
+     one-block-per-SM grid (1, 127, 129, a full wave of tiles + 1, 65,573),
+     the serving chunks and a train step's shapes, each bf16 case launched
+     twice and bitwise equal, its launch plan the host's; time both with
+     CUDA events (median of >= 5 runs after warm-up), and beside the fine
+     chunk the same products unfused through ``torch.matmul``
+     (``gemm_chain_ms``, a yardstick of cuBLAS on these shapes);
   1b. hold the backward kernel against its plain version at full width
      (ragged n in fp32 and bf16, the train step's coarse and fine shapes
      and a ragged n past one chunk in bf16), per leaf relative to the
@@ -62,6 +69,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -151,36 +159,117 @@ def inputs(n: int, gen: torch.Generator, scale: float = 2.0):
     return pts.contiguous(), dirs.contiguous()
 
 
+def ptxas_report(fm, library: Path, kernel: str) -> list[dict]:
+    """Registers and spills of every instantiation of ``kernel`` in the
+    ptxas report of a verbose build, and the wgmma warnings ptxas gave it."""
+    log = fm.ptxas_log(library)
+    if not log.exists():
+        fail(f"no ptxas report beside {library.name}: delete "
+             f"{library.parent} and rerun")
+    found, name = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\S+?)'?(?: for|$)", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or kernel not in name:
+            continue
+        k = found.setdefault(name, {"kernel": name, "warnings": []})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            k["spill_stores"], k["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            k["registers"] = int(m.group(1))
+    for line in log.read_text().splitlines():
+        m = re.search(r"\((C75\d\d)\).*function '(\S+)'", line)
+        if m and m.group(2) in found:
+            found[m.group(2)]["warnings"].append(m.group(1))
+    return list(found.values())
+
+
+def gemm_chain_ms(cfg, n: int) -> tuple[float, float]:
+    """The forward's products alone, unfused, through ``torch.matmul`` in
+    bf16 at the kernel's padded widths: l1 and l6b (n x KX x W), eight
+    W x W layers, l10a (n x W x H) and l10b (n x KD x H). Returns the
+    median ms and the FLOP it does."""
+    w, h = cfg.trunk_width, cfg.head_width
+    kx, kd = -(-cfg.xyz_dim // 16) * 16, -(-cfg.dir_dim // 16) * 16
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    x, xe, de = (torch.randn(n, k, **bf) for k in (w, kx, kd))
+    wx, ww, wh, wd = (torch.randn(a, b, **bf) * 0.05
+                      for a, b in ((kx, w), (w, w), (w, h), (kd, h)))
+    o, oh = torch.empty(n, w, **bf), torch.empty(n, h, **bf)
+
+    def chain():
+        torch.matmul(xe, wx, out=o)
+        for _ in range(8):
+            torch.matmul(x, ww, out=o)
+        torch.matmul(xe, wx, out=o)
+        torch.matmul(x, wh, out=oh)
+        torch.matmul(de, wd, out=oh)
+    flops = 2 * n * (2 * kx * w + 8 * w * w + w * h + kd * h)
+    return time_ms(chain), flops
+
+
 def phase_kernels(fm, cfg, params):
     """Build every kernel, then check and time the forward kernel; returns
     its per-shape rows (without ``launches``)."""
     t0 = time.time()
     with ThreadPoolExecutor() as pool:   # one nvcc per kernel source
-        libs = list(pool.map(lambda name: fm.build_library(name, verbose=True),
-                             fm.SOURCES))
-    print(f"built {[str(p.name) for p in libs]} in {time.time() - t0:.1f} s",
-          flush=True)
+        libs = dict(zip(fm.SOURCES, pool.map(
+            lambda name: fm.build_library(name, verbose=True), fm.SOURCES)))
+    print(f"built {[str(p.name) for p in libs.values()]} in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    report = ptxas_report(fm, libs["fused_mlp"], "fused_nerf_wgmma")
+    if not report:
+        fail("no fused_nerf_wgmma kernel in the ptxas report")
+    for k in report:
+        print(f"ptxas: {k['kernel']}: {k.get('registers')} registers, spill "
+              f"stores {k.get('spill_stores')} B, spill loads "
+              f"{k.get('spill_loads')} B, wgmma warnings "
+              f"{sorted(set(k['warnings']))}", flush=True)
+        if k.get("spill_stores") != 0 or k.get("spill_loads") != 0:
+            fail(f"the bf16 forward kernel spills ({k['kernel']})")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(SEED + 1)
     rows = []
-    # Ragged size (not a tile multiple) in both dtypes, the serving shapes
-    # (a coarse chunk of 8192 rays x 64, a fine chunk x 192) and a train
-    # step's (1024 rays x 64 coarse, x 192 fine).
-    cases = [(2 ** 16 + 37, torch.float32), (2 ** 16 + 37, torch.bfloat16),
-             (CHUNK * 64, torch.bfloat16), (CHUNK * 192, torch.bfloat16),
-             (1024 * 64, torch.bfloat16), (1024 * 192, torch.bfloat16)]
+    # fp32 at a ragged size; bf16 at ragged sizes around the 128-point tiles
+    # and the one-block-per-SM grid, the serving shapes (a coarse chunk of
+    # 8192 rays x 64, a fine chunk x 192) and a train step's (1024 rays x 64
+    # coarse, x 192 fine).
+    ragged = [1, 127, 129, sms * 128 + 1, 2 ** 16 + 37]
+    cases = ([(2 ** 16 + 37, torch.float32)]
+             + [(n, torch.bfloat16) for n in ragged]
+             + [(n, torch.bfloat16) for n in (CHUNK * 64, CHUNK * 192,
+                                              1024 * 64, 1024 * 192)])
     for n, dt in cases:
         w = fm.FusedNerfWeights(params, cfg, dt)
         pts, dirs = inputs(n, gen)
         got = fm.fused_nerf_apply(w, pts, dirs)
+        again = fm.fused_nerf_apply(w, pts, dirs)
         torch.cuda.synchronize()
         want = fm.fused_nerf_plain(params, pts, dirs, cfg, dt)
         err = (got - want).abs().max().item()
         tol = TOL_FP32 if dt == torch.float32 else TOL_BF16
         ok = bool(torch.isfinite(got).all()) and got.shape == (n, 4)
+        same = torch.equal(got, again)
+        plan = ""
+        if dt == torch.bfloat16:
+            plan = fm.kernel_bf16_plan(cfg, n)
+            if plan != fm.bf16_launch_plan(cfg, n, sms):
+                fail(f"the kernel's launch plan {plan} is not the host's "
+                     f"{fm.bf16_launch_plan(cfg, n, sms)} (n={n})")
         print(f"fused_nerf_apply n={n} {str(dt)[6:]}: max_abs_err={err:.3e} "
-              f"(tol {tol:g}) finite_and_shaped={ok}", flush=True)
+              f"(tol {tol:g}) finite_and_shaped={ok} two launches bitwise "
+              f"equal: {same} {plan}", flush=True)
         if not ok or not err <= tol:
             fail(f"kernel disagrees with its plain version (n={n}, {dt})")
+        if dt == torch.bfloat16 and not same:
+            fail(f"two bf16 launches differ (n={n})")
+        del again
         kernel_ms = time_ms(lambda: fm.fused_nerf_apply(w, pts, dirs))
         plain_ms = time_ms(lambda: fm.fused_nerf_plain(params, pts, dirs,
                                                        cfg, dt), reps=5)
@@ -199,6 +288,14 @@ def phase_kernels(fm, cfg, params):
                      "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes"})
         del pts, dirs, got, want
+        if n == CHUNK * 192:
+            chain_ms, chain_flops = gemm_chain_ms(cfg, n)
+            rows[-1]["gemm_chain_ms"] = chain_ms
+            print(f"  gemm_chain_ms={chain_ms:.4f} (the same bf16 products "
+                  f"unfused through torch.matmul, "
+                  f"{chain_flops / chain_ms / 1e9:.2f} TFLOP/s; a yardstick, "
+                  "not library_ms)", flush=True)
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -499,7 +596,7 @@ def profile_steps(tr, start: int, n: int, step_ms: float) -> dict:
             us["bwd_pass1"] += t
         elif "wgrad_gemm" in e.key or "reduce_slabs" in e.key:
             us["bwd_wgrad"] += t
-        elif "fused_nerf_kernel" in e.key:
+        elif "fused_nerf_wgmma" in e.key or "fused_nerf_kernel" in e.key:
             us["fwd_kernels"] += t
         else:
             us["other_device"] += t

@@ -6,97 +6,549 @@
 // the per-point view direction (L=4 -> 27) in fp32, then the 12-layer graph
 //   l1..l5 ReLU; l6 on [xyz_enc | h5] ReLU; l7, l8 ReLU; sigma = h8 . wa + ba;
 //   feat = l9(h8) with NO ReLU; l10 on [feat | dir_enc] ReLU; rgb = l11(h10)
-// and writes out[n, 4] = (r, g, b, sigma) in fp32.
+// and writes out[n, 4] = (r, g, b, sigma) in fp32, with the JAX cast points:
+// encodings in fp32 rounded to bf16, bias + ReLU in fp32 and a cast to bf16
+// between layers, sigma and rgb in fp32 from the rounded h8 and h10.
 //
-// Bound on this card: operations. The full-width net does 1,186,816 FLOP per
-// point against 32 bytes of device-memory traffic (12 B xyz + 12 B dir in,
-// 16 B out), ~37,000 FLOP/byte, so the tensor cores (989 TFLOP/s dense bf16)
-// or, for the fp32 instantiation, the CUDA cores (67 TFLOP/s FFMA) bound it.
-// Design against that bound, kept simple in this first version:
-//   * one block = a tile of TILE points; the encodings and every activation
-//     stay in shared memory (ping-pong buffers), so nothing but the 32 B per
-//     point touches device memory;
-//   * weights (1.19 MB per net in bf16, 2.37 MB in fp32) are read straight
-//     from global memory and stay resident in the 50 MB L2 across blocks;
-//   * bf16: nvcuda::wmma 16x16x16 bf16 products with fp32 accumulators, the
-//     bias + ReLU applied in fp32 before the cast to bf16 (the JAX cast points);
-//   * fp32: true FFMA on CUDA cores, never TF32 (the JAX kernel demands
-//     Precision.HIGHEST);
-//   * the l6 skip and the l10 concat are split products accumulated into one
-//     accumulator, so no concatenation is materialised;
-//   * the encoding uses accurate sinf/cosf: 2^k * x is exact in fp32, but the
-//     phases reach 2^9 * |x| (~3,000 rad at far = 6), where __sinf is wrong.
+// What bounds it on this card: operations. The full-width net does 1,186,816
+// FLOP per point against 24 B in and 16 B out of device memory, so the
+// tensor cores (989 TFLOP/s dense bf16) bound it: 1.887 ms for a fine chunk
+// of 1,572,864 points. The cost that stands between a kernel and that bound
+// is the weights: all 1.19 MB of them (bf16) pass through every tile of
+// points, so a tile of M points reads each weight byte once per M FLOP. At
+// M = 64 with each warp fetching its own fragments from L2 (the first
+// version: nvcuda::wmma 16x16x16, weights re-read per 16x16 output tile,
+// ~74 KB of L2 reads a point) the kernel sat at ~4.5% of the bound, limited
+// by the latency of those unstaged loads.
+//
+// bf16 design (fused_nerf_wgmma):
+//   * one persistent block per SM walks tiles of 128 points: one producer
+//     warpgroup and two consumer warpgroups of 64 points each;
+//   * the producer's one thread streams every layer's weights, tile after
+//     tile, in the fixed order matrix -> 64-column k chunk, by TMA (one
+//     tensor map per packed matrix, box [fan-out, 64], 128-byte swizzle)
+//     into a ring of 2-8 shared-memory stages with full/empty mbarriers;
+//     both consumer warpgroups read each staged chunk, so each weight byte
+//     leaves L2 once per 128 points (1.19 MB a tile, 9.3 KB a point, 8x
+//     less than the first version) and the loads run ahead of the products;
+//   * products are wgmma.mma_async m64n64k16 bf16 -> fp32 across the
+//     fan-out (staged padded to a multiple of 64 with zero rows by TMA;
+//     one m64n256k16 a k16 step measured no faster), the weights the
+//     K-major B operand straight from the staged chunk, the accumulator
+//     of a whole layer (up to 64 x 256 fp32, 128 registers a thread) in
+//     registers; the lego widths are compile-time constants, other widths
+//     run-time values, behind whose tests ptxas serialises the wgmmas;
+//   * activations stay in registers: a layer's accumulator fragment, after
+//     bias + ReLU in fp32 and the cast to bf16, is the register A fragment
+//     of the next layer's wgmma (the FlashAttention-3 trick), so h1..h10
+//     never touch shared memory; setmaxnreg gives the consumers 240
+//     registers and the producer 24;
+//   * the encodings of a warpgroup's 64 points (accurate sinf/cosf: 2^k x
+//     is exact in fp32, but the phases reach 2^9 |x|, where __sinf is
+//     wrong) go to a small padded shared-memory buffer once per tile and
+//     are read as A fragments by l1, l6 and l10; the l6 skip and the l10
+//     concat are split products into one accumulator. The raw inputs are
+//     staged first by coalesced loads: read value by value (as
+//     encode_tile does for the other kernels) their latency, unhidden by
+//     2 warpgroups an SM, took half the kernel's time;
+//   * sigma and rgb are per-thread partial dots over the thread's columns
+//     of the rounded h8 / h10, summed over the 4 threads of a row with
+//     __shfl_xor_sync; rows past n compute on the encoded origin and are
+//     never written; no atomics, a fixed tile -> block map: two launches on the
+//     same inputs are bitwise equal.
+// fp32 (no main path runs it): the first version's FFMA walk, never TF32
+// (the JAX kernel demands Precision.HIGHEST), through nerf_common.cuh's
+// forward_tile with activations ping-ponging in shared memory.
 // What the TPU kernel did for its matrix unit (mantissa-split phase matmul,
 // the [id|sin|cos] row permutation, the transposed [channels, T] layout, the
 // 8-row output padding) has no counterpart here: the encoding keeps
 // freq_encode's own layout [x | sin_0 cos_0 | ...], zero-padded to 16.
 //
-// Operand layout, encoding and the layer walk: nerf_common.cuh (shared with
-// the backward kernel, fused_mlp_bwd.cu).
+// Operand layout and encoding: nerf_common.cuh (shared with the backward and
+// int8 kernels). wgmma, TMA and mbarrier helpers: hopper.cuh.
 
+#include "hopper.cuh"
 #include "nerf_common.cuh"
 
 namespace {
 
 using namespace cvnerf;
+using namespace hopper;
+
+// ------------------------------------------------------------ bf16: wgmma
+
+constexpr int WG = 128;                      // threads in a warpgroup
+constexpr int WG_ROWS = 64;                  // points per consumer warpgroup
+constexpr int CONSUMERS = 2;
+constexpr int TILE_BF16 = WG_ROWS * CONSUMERS;
+constexpr int BF16_THREADS = WG * (CONSUMERS + 1);
+constexpr int KCHUNK = 64;                   // k columns a stage holds: one 128 B row
+constexpr int MATS = 12;
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_LIMIT = 232448;           // a block's shared memory on sm_90
+constexpr int ENC_PAD = 8;                   // encoding row padding (bank spread)
+// setmaxnreg moves registers only within the block's own allocation (168 a
+// thread at launch, the most 384 threads get): the consumers' gain must
+// not exceed what the producer gives up, or setmaxnreg.inc waits forever.
+constexpr int LAUNCH_REGS = 168, CONSUMER_REGS = 240, PRODUCER_REGS = 24;
+static_assert(CONSUMERS * WG * CONSUMER_REGS + WG * PRODUCER_REGS <= BF16_THREADS * LAUNCH_REGS,
+              "register budget exceeds the block's allocation");
+constexpr int NB = 64;                       // columns of one wgmma (m64n64k16)
+
+struct Maps {
+  CUtensorMap m[MATS];  // w1, w2..w5, w6a, w6b, w7, w8, w9, w10a, w10b
+};
+
+// Fan-in K and fan-out N of packed matrix m (the order of Offsets).
+__host__ __device__ inline void mat_shape(int m, const Dims& d, int* K, int* N) {
+  *K = (m == 0 || m == 6) ? d.KX : (m == 11 ? d.KD : d.W);
+  *N = m >= 10 ? d.H : d.W;
+}
+
+// Rows of a staged chunk: the fan-out rounded up to whole wgmmas; TMA fills
+// the rows past the matrix (and the columns past its fan-in) with zeros.
+__host__ __device__ inline int stage_rows(int N) { return (N + NB - 1) / NB * NB; }
+
+// Shared-memory plan (bytes from a 1024-aligned base; `total` includes the
+// alignment slack): the weight stages [S][stage_rows(W) x 128 B], then each
+// consumer warpgroup's encodings enc_x [64, KX+8] and enc_d [64, KD+8]
+// (bf16) and raw inputs [2][64 x 3] (fp32), then S full and S empty
+// mbarriers. As many stages as fit, at most MAX_STAGES.
+constexpr int RAW_BYTES = 2 * WG_ROWS * 3 * 4;
+struct Bf16Plan {
+  int stages, ldx, ldd;
+  size_t stage_bytes, enc_at, bars_at, total;
+};
+
+__host__ __device__ inline Bf16Plan bf16_plan(const Dims& d) {
+  Bf16Plan p;
+  p.ldx = d.KX + ENC_PAD;
+  p.ldd = d.KD + ENC_PAD;
+  p.stage_bytes = (size_t)stage_rows(d.W) * KCHUNK * 2;
+  const size_t enc = (size_t)CONSUMERS * (WG_ROWS * (p.ldx + p.ldd) * 2 + RAW_BYTES);
+  const size_t room = SMEM_LIMIT - 1024 - enc - 2 * MAX_STAGES * 8;
+  p.stages = (int)(room / p.stage_bytes);
+  if (p.stages > MAX_STAGES) p.stages = MAX_STAGES;
+  p.enc_at = p.stages * p.stage_bytes;
+  p.bars_at = p.enc_at + enc;
+  p.total = 1024 + p.bars_at + 2 * p.stages * 8;
+  return p;
+}
+
+// A walk through the ring of stages (shared-space addresses): the
+// producer's and each consumer thread's own, in the same order.
+struct Ring {
+  uint32_t base, full, empty;  // stage 0, its full and its empty mbarrier
+  uint32_t stage_bytes;
+  int stages, stage;
+  uint32_t phase;
+  __device__ __forceinline__ uint32_t tile() const { return base + stage * stage_bytes; }
+  __device__ __forceinline__ uint32_t full_bar() const { return full + 8 * stage; }
+  __device__ __forceinline__ uint32_t empty_bar(int s) const { return empty + 8 * s; }
+  __device__ __forceinline__ void advance() {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// acc[64, N] (+)= A[64, K] W^T for the next ceil(K/64) staged chunks of
+// packed matrix W [N, K]; A is this warpgroup's register fragment a[k16]
+// (k16 < K/16). first: the product overwrites acc (else adds to it).
+// Each chunk's stage is released once the wgmmas reading it are done (one
+// commit group in flight behind the newest).
+__device__ __forceinline__ void product(float (&acc)[128], uint32_t (&a)[16][4], int K, int N,
+                                        bool first, Ring& r) {
+  const int lane = threadIdx.x % 32;
+  // Every write of acc and a happens before the fence, in program order.
+#pragma unroll
+  for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) fence_operand(a[i][j]);
+  wgmma_fence();
+  int prev = -1;
+#pragma unroll
+  for (int kc = 0; kc < 256 / KCHUNK; ++kc) {
+    if (kc * KCHUNK < K) {
+      mbar_wait(r.full_bar(), r.phase);
+      const uint64_t desc = desc_sw128(r.tile());
+#pragma unroll
+      for (int kk = 0; kk < KCHUNK / 16; ++kk) {
+        const int k16 = kc * (KCHUNK / 16) + kk;
+        if (k16 * 16 < K) {
+          const int scale_d = (first && k16 == 0) ? 0 : 1;
+#pragma unroll
+          for (int nb = 0; nb < 256 / NB; ++nb) {
+            // B rows nb*NB..: 8-row atoms of 1024 B, i.e. 64 descriptor
+            // units each; the k16 step: 32 B, i.e. 2.
+            if (nb * NB < N)
+              wgmma_m64n64k16_rs(&acc[nb * NB / 2], a[k16], desc + 2 * kk + nb * NB * 8, scale_d);
+          }
+        }
+      }
+      wgmma_commit();
+      if (prev >= 0) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(r.empty_bar(prev));
+      }
+      prev = r.stage;
+      r.advance();
+    }
+  }
+  wgmma_wait<0>();
+  if (lane == 0) mbar_arrive(r.empty_bar(prev));
+#pragma unroll
+  for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
+}
+
+// a[k16] <- A fragments of this warp's rows of E [64, ld] (bf16, shared),
+// k < K: a[k16] = {(r, k0..k0+1), (r+8, k0..), (r, k0+8..), (r+8, k0+8..)}
+// with r = 16 warp + lane/4 and k0 = 16 k16 + 2 (lane%4).
+__device__ __forceinline__ void load_frags(uint32_t (&a)[16][4], const __nv_bfloat16* E, int ld,
+                                           int K) {
+  const int warp = (threadIdx.x % WG) / 32, lane = threadIdx.x % 32;
+  const __nv_bfloat16* r0 = E + (warp * 16 + lane / 4) * ld + 2 * (lane % 4);
+  const __nv_bfloat16* r8 = r0 + 8 * ld;
+#pragma unroll
+  for (int k16 = 0; k16 < 16; ++k16) {
+    if (k16 * 16 < K) {
+      a[k16][0] = *reinterpret_cast<const uint32_t*>(r0 + k16 * 16);
+      a[k16][1] = *reinterpret_cast<const uint32_t*>(r8 + k16 * 16);
+      a[k16][2] = *reinterpret_cast<const uint32_t*>(r0 + k16 * 16 + 8);
+      a[k16][3] = *reinterpret_cast<const uint32_t*>(r8 + k16 * 16 + 8);
+    }
+  }
+}
+
+// Encode this warpgroup's 64 points, p0.., into ex [64, ldx] and ed
+// [64, ldd] (bf16, freq_encode's layout, zero pad columns), the values
+// nerf_common.cuh's encode_tile gives (rows past n encode the origin; they
+// are never written). The 64 x 6 raw inputs are staged in `raw` by
+// coalesced loads; then each thread walks the bands of three (row, input)
+// pairs, so the sine and cosine of a phase share one argument.
+__device__ __forceinline__ void encode_wg(const float* __restrict__ pts,
+                                          const float* __restrict__ dirs, int p0, int n,
+                                          const Dims& d, int KX, int KD, __nv_bfloat16* ex,
+                                          int ldx, __nv_bfloat16* ed, int ldd, float* raw,
+                                          int bar) {
+  constexpr int PAIRS = WG_ROWS * 3;
+  const int tid = threadIdx.x % WG;
+  for (int i = tid; i < 2 * PAIRS; i += WG) {
+    const long g = 3L * p0 + i % PAIRS;
+    raw[i] = g < 3L * n ? (i < PAIRS ? pts : dirs)[g] : 0.f;
+  }
+  named_sync(bar, WG);
+  for (int i = tid; i < 2 * PAIRS; i += WG) {
+    const bool dir = i >= PAIRS;
+    const int r = (i % PAIRS) / 3, c = i % 3, L = dir ? d.Ld : d.Lx;
+    __nv_bfloat16* row = dir ? ed + r * ldd : ex + r * ldx;
+    const float x = raw[i];
+    row[c] = __float2bfloat16(x);
+    for (int k = 0; k < L; ++k) {
+      const float ph = x * (float)(1 << k);  // exact
+      row[3 + 6 * k + c] = __float2bfloat16(sinf(ph));
+      row[6 + 6 * k + c] = __float2bfloat16(cosf(ph));
+    }
+  }
+  // The pad columns lie in the last 16 of each row.
+  for (int i = tid; i < WG_ROWS * 16; i += WG) {
+    const int r = i / 16, c = i % 16;
+    if (KX - 16 + c >= 3 + 6 * d.Lx) ex[r * ldx + KX - 16 + c] = __float2bfloat16(0.f);
+    if (KD - 16 + c >= 3 + 6 * d.Ld) ed[r * ldd + KD - 16 + c] = __float2bfloat16(0.f);
+  }
+}
+
+// a <- bf16(act(acc + bias)) over N columns: the accumulator fragment of one
+// layer is the A fragment of the next (column group 2 c16 + h of the
+// accumulator is k group h of k16 step c16).
+__device__ __forceinline__ void epilogue(const float (&acc)[128], uint32_t (&a)[16][4],
+                                         const float* __restrict__ bias, int N, bool relu) {
+  const int q = threadIdx.x % 4;
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    if (c * 16 < N) {
+      const float2 b0 = __ldg(reinterpret_cast<const float2*>(bias + c * 16 + 2 * q));
+      const float2 b1 = __ldg(reinterpret_cast<const float2*>(bias + c * 16 + 8 + 2 * q));
+      float v[8] = {acc[8 * c + 0] + b0.x, acc[8 * c + 1] + b0.y, acc[8 * c + 2] + b0.x,
+                    acc[8 * c + 3] + b0.y, acc[8 * c + 4] + b1.x, acc[8 * c + 5] + b1.y,
+                    acc[8 * c + 6] + b1.x, acc[8 * c + 7] + b1.y};
+      if (relu) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = fmaxf(v[i], 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[c][i] = pack_bf16(v[2 * i], v[2 * i + 1]);
+    }
+  }
+}
+
+// Sum of a value over the 4 threads that share a row.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// The consumer warpgroups' walk over their tiles. FW, FH, FKX, FKD fix the
+// widths at compile time (0: read them from d), so that every wgmma of a
+// product is issued unconditionally.
+template <int FW, int FH, int FKX, int FKD>
+__device__ __forceinline__ void consumer(const float* __restrict__ pts,
+                                         const float* __restrict__ dirs,
+                                         const float* __restrict__ wvec, float* __restrict__ out,
+                                         int n, const Dims& d, int tiles, const Bf16Plan& pl,
+                                         unsigned char* smem, Ring& ring) {
+  const int wg = threadIdx.x / WG, tid = threadIdx.x % WG;
+  const int lane = threadIdx.x % 32, q = lane % 4;
+  const int row = (tid / 32) * 16 + lane / 4;  // this thread's rows: row, row + 8
+  unsigned char* mine = smem + pl.enc_at + wg * (WG_ROWS * (pl.ldx + pl.ldd) * 2 + RAW_BYTES);
+  __nv_bfloat16* ex = reinterpret_cast<__nv_bfloat16*>(mine);
+  __nv_bfloat16* ed = ex + WG_ROWS * pl.ldx;
+  float* raw = reinterpret_cast<float*>(ed + WG_ROWS * pl.ldd);
+  const Offsets o = offsets(d);
+  const int W = FW ? FW : d.W, H = FH ? FH : d.H;
+  const int KX = FKX ? FKX : d.KX, KD = FKD ? FKD : d.KD;
+  float acc[128];
+  uint32_t a[16][4];
+
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int p0 = t * TILE_BF16 + wg * WG_ROWS;
+    named_sync(1 + wg, WG);  // the last tile's reads of ex / ed / raw are done
+    encode_wg(pts, dirs, p0, n, d, KX, KD, ex, pl.ldx, ed, pl.ldd, raw, 1 + wg);
+    named_sync(1 + wg, WG);
+    // Define acc and a afresh (the wgmmas read both as operands), so that
+    // the last tile's values are dead while the encoding runs.
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[i][j] = 0u;
+
+    // l1: enc_x
+    load_frags(a, ex, pl.ldx, KX);
+    product(acc, a, KX, W, true, ring);
+    epilogue(acc, a, wvec + o.b[0], W, true);
+    // l2..l5 (bias l at wvec + l W)
+#pragma unroll 1
+    for (int l = 1; l < 5; ++l) {
+      product(acc, a, W, W, true, ring);
+      epilogue(acc, a, wvec + l * W, W, true);
+    }
+    // l6 on [xyz_enc | h5]: h5 with w6a, then enc_x with w6b, one accumulator.
+    product(acc, a, W, W, true, ring);
+    load_frags(a, ex, pl.ldx, KX);
+    product(acc, a, KX, W, false, ring);
+    epilogue(acc, a, wvec + o.b[5], W, true);
+    // l7, l8
+#pragma unroll 1
+    for (int l = 6; l < 8; ++l) {
+      product(acc, a, W, W, true, ring);
+      epilogue(acc, a, wvec + l * W, W, true);
+    }
+    // sigma = h8 . wa + ba, fp32, from the rounded h8.
+    float s0 = 0.f, s8 = 0.f;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      if (c * 16 < W) {
+        const float2 w0 = __ldg(reinterpret_cast<const float2*>(wvec + o.wa + c * 16 + 2 * q));
+        const float2 w1 =
+            __ldg(reinterpret_cast<const float2*>(wvec + o.wa + c * 16 + 8 + 2 * q));
+        float2 h = unpack_bf16(a[c][0]);
+        s0 = fmaf(h.x, w0.x, fmaf(h.y, w0.y, s0));
+        h = unpack_bf16(a[c][2]);
+        s0 = fmaf(h.x, w1.x, fmaf(h.y, w1.y, s0));
+        h = unpack_bf16(a[c][1]);
+        s8 = fmaf(h.x, w0.x, fmaf(h.y, w0.y, s8));
+        h = unpack_bf16(a[c][3]);
+        s8 = fmaf(h.x, w1.x, fmaf(h.y, w1.y, s8));
+      }
+    }
+    const float ba = __ldg(wvec + o.ba);
+    s0 = quad_sum(s0) + ba;
+    s8 = quad_sum(s8) + ba;
+    // feat = l9(h8), cast without ReLU.
+    product(acc, a, W, W, true, ring);
+    epilogue(acc, a, wvec + o.b[8], W, false);
+    // l10 on [feat | dir_enc] (H wide): feat with w10a, enc_d with w10b.
+    product(acc, a, W, H, true, ring);
+    load_frags(a, ed, pl.ldd, KD);
+    product(acc, a, KD, H, false, ring);
+    // rgb = l11(h10), fp32, from h10 = bf16(ReLU(acc + b10)).
+    float c0[3] = {0.f, 0.f, 0.f}, c8[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      if (c * 16 < H) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // column pair c*16 + 8h + 2q + {0, 1}
+          const int col = c * 16 + 8 * h + 2 * q;
+          const float2 b = __ldg(reinterpret_cast<const float2*>(wvec + o.b10 + col));
+          const float2 v0 = unpack_bf16(pack_bf16(fmaxf(acc[8 * c + 4 * h] + b.x, 0.f),
+                                                  fmaxf(acc[8 * c + 4 * h + 1] + b.y, 0.f)));
+          const float2 v8 = unpack_bf16(pack_bf16(fmaxf(acc[8 * c + 4 * h + 2] + b.x, 0.f),
+                                                  fmaxf(acc[8 * c + 4 * h + 3] + b.y, 0.f)));
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            const float2 w = __ldg(reinterpret_cast<const float2*>(wvec + o.w11 + ch * H + col));
+            c0[ch] = fmaf(v0.x, w.x, fmaf(v0.y, w.y, c0[ch]));
+            c8[ch] = fmaf(v8.x, w.x, fmaf(v8.y, w.y, c8[ch]));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float b = __ldg(wvec + o.b11 + ch);
+      c0[ch] = quad_sum(c0[ch]) + b;
+      c8[ch] = quad_sum(c8[ch]) + b;
+    }
+    if (q == 0) {
+      const int pa = p0 + row, pb = pa + 8;
+      if (pa < n) reinterpret_cast<float4*>(out)[pa] = make_float4(c0[0], c0[1], c0[2], s0);
+      if (pb < n) reinterpret_cast<float4*>(out)[pb] = make_float4(c8[0], c8[1], c8[2], s8);
+    }
+  }
+}
+
+template <int FW, int FH, int FKX, int FKD>
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+fused_nerf_wgmma(const __grid_constant__ Maps maps, const float* __restrict__ pts,
+                 const float* __restrict__ dirs, const float* __restrict__ wvec,
+                 float* __restrict__ out, int n, Dims d, int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const Bf16Plan pl = bf16_plan(d);
+  const uint32_t base = smem_addr(smem);
+  Ring ring{base, base + (uint32_t)pl.bars_at, base + (uint32_t)pl.bars_at + 8 * pl.stages,
+            (uint32_t)pl.stage_bytes, pl.stages, 0, 0};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < pl.stages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty_bar(s), CONSUMERS * WG / 32);  // one arrival per consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x / WG == CONSUMERS) {  // producer warpgroup
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x % WG == 0) {
+      for (int m = 0; m < MATS; ++m) prefetch_tmap(&maps.m[m]);
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        for (int m = 0; m < MATS; ++m) {
+          int K, N;
+          mat_shape(m, d, &K, &N);
+          for (int k0 = 0; k0 < K; k0 += KCHUNK) {
+            mbar_wait(ring.empty_bar(ring.stage), ring.phase ^ 1);
+            mbar_arrive_expect_tx(ring.full_bar(), (uint32_t)stage_rows(N) * KCHUNK * 2);
+            tma_load_2d(ring.tile(), &maps.m[m], ring.full_bar(), k0, 0);
+            ring.advance();
+          }
+        }
+      }
+    }
+  } else {
+    reg_alloc<CONSUMER_REGS>();
+    consumer<FW, FH, FKX, FKD>(pts, dirs, wvec, out, n, d, tiles, pl, smem, ring);
+  }
+}
+
+// Blocks of the persistent grid: one per SM, at most one per tile.
+inline int bf16_grid(int n, int sms) {
+  const int tiles = (n + TILE_BF16 - 1) / TILE_BF16;
+  return tiles < sms ? tiles : sms;
+}
+
+inline int sm_count(int* sms) {
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
+}
+
+template <int FW = 0, int FH = 0, int FKX = 0, int FKD = 0>
+int launch_bf16(const float* pts, const float* dirs, const void* wmat, const float* wvec,
+                float* out, int n, Dims d, cudaStream_t stream) {
+  const Bf16Plan pl = bf16_plan(d);
+  if (pl.stages < 2) return (int)cudaErrorInvalidConfiguration;
+  const Offsets o = offsets(d);
+  const long at[MATS] = {o.w1, o.w2, o.w3, o.w4, o.w5, o.w6a, o.w6b, o.w7, o.w8, o.w9,
+                         o.w10a, o.w10b};
+  Maps maps;
+  for (int m = 0; m < MATS; ++m) {
+    int K, N;
+    mat_shape(m, d, &K, &N);
+    const int err = make_tmap_bf16(&maps.m[m], static_cast<const __nv_bfloat16*>(wmat) + at[m],
+                                   N, K, stage_rows(N), KCHUNK);
+    if (err != 0) return err;
+  }
+  int sms;
+  int err = sm_count(&sms);
+  if (err != 0) return err;
+  err = (int)cudaFuncSetAttribute(fused_nerf_wgmma<FW, FH, FKX, FKD>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.total);
+  if (err != 0) return err;
+  const int tiles = (n + TILE_BF16 - 1) / TILE_BF16;
+  fused_nerf_wgmma<FW, FH, FKX, FKD><<<bf16_grid(n, sms), BF16_THREADS, pl.total, stream>>>(
+      maps, pts, dirs, wvec, out, n, d, tiles);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ fp32: FFMA
 
 constexpr int TILE = 64;  // points per block
 
 // Dynamic shared-memory plan, in bytes: two activation buffers [TILE, W+PAD],
-// enc_x [TILE, KX+PAD], enc_d [TILE, KD+PAD], sigma [TILE], and (bf16 only)
-// one 16x16 fp32 scratch per warp.
-template <typename T>
+// enc_x [TILE, KX+PAD], enc_d [TILE, KD+PAD] and sigma [TILE].
 __host__ __device__ inline void smem_plan(const Dims& d, size_t* off_b, size_t* off_ex,
-                                          size_t* off_ed, size_t* off_sig,
-                                          size_t* off_sc, size_t* total) {
+                                          size_t* off_ed, size_t* off_sig, size_t* total) {
   size_t p = 0;
-  const size_t act = align128((size_t)TILE * (d.W + PAD) * sizeof(T));
+  const size_t act = align128((size_t)TILE * (d.W + PAD) * sizeof(float));
   *off_b = p + act;
   p += 2 * act;
   *off_ex = p;
-  p += align128((size_t)TILE * (d.KX + PAD) * sizeof(T));
+  p += align128((size_t)TILE * (d.KX + PAD) * sizeof(float));
   *off_ed = p;
-  p += align128((size_t)TILE * (d.KD + PAD) * sizeof(T));
+  p += align128((size_t)TILE * (d.KD + PAD) * sizeof(float));
   *off_sig = p;
   p += align128(TILE * sizeof(float));
-  *off_sc = p;
-  if (sizeof(T) == 2) p += WARPS * 256 * sizeof(float);
   *total = p;
 }
 
-// fp32 fits one block per SM in shared memory, so its registers need not
-// leave room for a second; bf16 fits two.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 1 : 2)
+// One block per SM fits in shared memory, so its registers need not leave
+// room for a second.
+__global__ void __launch_bounds__(THREADS, 1)
 fused_nerf_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
-                  const T* __restrict__ wmat, const float* __restrict__ wvec,
+                  const float* __restrict__ wmat, const float* __restrict__ wvec,
                   float* __restrict__ out, int n, Dims d) {
   extern __shared__ __align__(128) unsigned char smem[];
-  size_t off_b, off_ex, off_ed, off_sig, off_sc, total;
-  smem_plan<T>(d, &off_b, &off_ex, &off_ed, &off_sig, &off_sc, &total);
-  T* bufA = reinterpret_cast<T*>(smem);
-  T* bufB = reinterpret_cast<T*>(smem + off_b);
-  T* enc_x = reinterpret_cast<T*>(smem + off_ex);
-  T* enc_d = reinterpret_cast<T*>(smem + off_ed);
+  size_t off_b, off_ex, off_ed, off_sig, total;
+  smem_plan(d, &off_b, &off_ex, &off_ed, &off_sig, &total);
+  float* bufA = reinterpret_cast<float*>(smem);
+  float* bufB = reinterpret_cast<float*>(smem + off_b);
+  float* enc_x = reinterpret_cast<float*>(smem + off_ex);
+  float* enc_d = reinterpret_cast<float*>(smem + off_ed);
   float* sig = reinterpret_cast<float*>(smem + off_sig);
-  float* scratch = reinterpret_cast<float*>(smem + off_sc);
   const int ld = d.W + PAD, ldx = d.KX + PAD, ldd = d.KD + PAD;
   const Offsets o = offsets(d);
   const int p0 = blockIdx.x * TILE;
 
-  encode_tile<T, TILE>(pts, dirs, p0, n, d, enc_x, ldx, enc_d, ldd);
+  encode_tile<float, TILE>(pts, dirs, p0, n, d, enc_x, ldx, enc_d, ldd);
   __syncthreads();
   // Activations ping-pong: h1 A, h2 B, ..., h8 B, feat A, h10 B.
-  T* const h[10] = {bufA, bufB, bufA, bufB, bufA, bufB, bufA, bufB, bufA, bufB};
-  forward_tile<T, TILE>(enc_x, ldx, enc_d, ldd, wmat, wvec, d, o, h, ld, sig, scratch);
+  float* const h[10] = {bufA, bufB, bufA, bufB, bufA, bufB, bufA, bufB, bufA, bufB};
+  forward_tile<float, TILE>(enc_x, ldx, enc_d, ldd, wmat, wvec, d, o, h, ld, sig, nullptr);
   // rgb = l11(h10), fp32; write (r, g, b, sigma) for the points that exist.
   for (int idx = threadIdx.x; idx < TILE * 3; idx += THREADS) {
     const int r = idx / 3, c = idx % 3;
     const int p = p0 + r;
     if (p >= n) continue;
     float s = 0.f;
-    for (int k = 0; k < d.H; ++k)
-      s = fmaf(to_float(bufB[r * ld + k]), wvec[o.w11 + (long)c * d.H + k], s);
+    for (int k = 0; k < d.H; ++k) s = fmaf(bufB[r * ld + k], wvec[o.w11 + (long)c * d.H + k], s);
     out[4L * p + c] = s + wvec[o.b11 + c];
   }
   for (int r = threadIdx.x; r < TILE; r += THREADS) {
@@ -105,18 +557,24 @@ fused_nerf_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
   }
 }
 
-template <typename T>
-int launch(const float* pts, const float* dirs, const void* wmat, const float* wvec,
-           float* out, int n, Dims d, cudaStream_t stream) {
-  size_t off_b, off_ex, off_ed, off_sig, off_sc, total;
-  smem_plan<T>(d, &off_b, &off_ex, &off_ed, &off_sig, &off_sc, &total);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_nerf_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)total);
+int launch_fp32(const float* pts, const float* dirs, const void* wmat, const float* wvec,
+                float* out, int n, Dims d, cudaStream_t stream) {
+  size_t off_b, off_ex, off_ed, off_sig, total;
+  smem_plan(d, &off_b, &off_ex, &off_ed, &off_sig, &total);
+  cudaError_t err = cudaFuncSetAttribute(fused_nerf_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)total);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n + TILE - 1) / TILE;
-  fused_nerf_kernel<T><<<blocks, THREADS, total, stream>>>(
-      pts, dirs, static_cast<const T*>(wmat), wvec, out, n, d);
+  fused_nerf_kernel<<<blocks, THREADS, total, stream>>>(
+      pts, dirs, static_cast<const float*>(wmat), wvec, out, n, d);
   return (int)cudaGetLastError();
+}
+
+// The lego net (trunk 256, head 128, L = 10 / 4: KX = 64, KD = 32) gets its
+// widths at compile time; other widths read them at run time, where ptxas
+// serialises the wgmmas of a product behind the width tests.
+inline bool bf16_fixed(const Dims& d) {
+  return d.W == 256 && d.H == 128 && d.KX == 64 && d.KD == 32;
 }
 
 }  // namespace
@@ -132,8 +590,26 @@ long cvnerf_fused_nerf_vec_elems(int W, int H, int Lx, int Ld) {
   return offsets(make_dims(W, H, Lx, Ld)).vec_total;
 }
 
+// The bf16 launch for n points on the current device, so the host can check
+// its own arithmetic (ops/fused_mlp.py::bf16_launch_plan): plan[0..4] =
+// blocks, threads, dynamic shared-memory bytes, weight stages, widths fixed
+// at compile time (1) or not (0). Returns a cudaError_t value.
+int cvnerf_fused_nerf_bf16_plan(int n, int W, int H, int Lx, int Ld, int* plan) {
+  const Dims d = make_dims(W, H, Lx, Ld);
+  const Bf16Plan pl = bf16_plan(d);
+  int sms;
+  const int err = sm_count(&sms);
+  if (err != 0) return err;
+  plan[0] = bf16_grid(n, sms);
+  plan[1] = BF16_THREADS;
+  plan[2] = (int)pl.total;
+  plan[3] = pl.stages;
+  plan[4] = bf16_fixed(d) ? 1 : 0;
+  return 0;
+}
+
 // out[n, 4] = fused encode -> MLP of (pts[n, 3], dirs[n, 3]). bf16 != 0
-// selects the bf16 instantiation. Launches on `stream` and returns
+// selects the bf16 (wgmma) kernel. Launches on `stream` and returns
 // cudaGetLastError() of the launch (0 on success); does not synchronise.
 int cvnerf_fused_nerf_forward(const float* pts, const float* dirs, const void* wmat,
                               const float* wvec, float* out, int n, int W, int H, int Lx,
@@ -141,8 +617,9 @@ int cvnerf_fused_nerf_forward(const float* pts, const float* dirs, const void* w
   if (n <= 0) return 0;
   const Dims d = make_dims(W, H, Lx, Ld);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<__nv_bfloat16>(pts, dirs, wmat, wvec, out, n, d, s);
-  return launch<float>(pts, dirs, wmat, wvec, out, n, d, s);
+  if (!bf16) return launch_fp32(pts, dirs, wmat, wvec, out, n, d, s);
+  if (bf16_fixed(d)) return launch_bf16<256, 128, 64, 32>(pts, dirs, wmat, wvec, out, n, d, s);
+  return launch_bf16<>(pts, dirs, wmat, wvec, out, n, d, s);
 }
 
 }  // extern "C"

@@ -1,14 +1,18 @@
 // Device code shared by the fused NeRF MLP kernels (fused_mlp.cu forward,
-// fused_mlp_bwd.cu backward): the packed-operand layout, the frequency
-// encoding of a tile of points, the warp-tiled products and the forward
-// layer walk. The backward kernel recomputes the forward through the same
-// functions as the forward kernel, so its ReLU masks and cast points match
-// the forward's bit for bit (as the JAX kernels share _forward_body).
+// fused_mlp_bwd.cu backward, fused_mlp_int8.cu): the packed-operand layout,
+// the frequency encoding of a tile of points, the warp-tiled products and
+// the forward layer walk. The backward kernel recomputes the forward
+// through forward_tile (wmma bf16 / FFMA fp32), as does the fp32 forward;
+// the bf16 forward is the wgmma kernel of fused_mlp.cu, which keeps the
+// same cast points but sums in another order, so a ReLU within rounding of
+// zero may flip between the two (bounded like any kernel vs plain gap).
 //
 // Operand layout (packed on the host by cvnerf_torch/ops/fused_mlp.py):
 //   wmat (compute dtype): w1 [W,KX], w2..w5 [W,W], w6a [W,W], w6b [W,KX],
 //     w7, w8, w9 [W,W], w10a [H,W], w10b [H,KD]; each [out, in] row-major for
-//     bf16 (wmma's column-major B) and [in, out] row-major for fp32.
+//     bf16 (wmma's column-major B; wgmma's K-major B, each block read by
+//     TMA, so it starts 16-byte aligned with rows of 16-byte multiples)
+//     and [in, out] row-major for fp32.
 //   wvec (fp32): b1..b9 [W] each, b10 [H], wa [W], w11 [3, H], ba [4], b11 [4]
 //     (wa and w11 already rounded to the compute dtype).
 // KX = round_up(3 + 6 Lx, 16), KD = round_up(3 + 6 Ld, 16); pad columns and

@@ -35,8 +35,8 @@ from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, apply_nerf
 from cvnerf_torch.ops.encoding import freq_encode
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-# One shared library per kernel source; every source includes the headers
-# in csrc/ (nerf_common.cuh), so they are part of each build's hash.
+# One shared library per kernel source; every source includes headers in
+# csrc/ (nerf_common.cuh, hopper.cuh), so they are part of each build's hash.
 SOURCES = {"fused_mlp": _CSRC / "fused_mlp.cu",
            "fused_mlp_bwd": _CSRC / "fused_mlp_bwd.cu",
            "fused_mlp_int8": _CSRC / "fused_mlp_int8.cu"}
@@ -71,7 +71,9 @@ def build_library(name: str = "fused_mlp", verbose: bool = False) -> Path:
     """Compile the kernel source ``SOURCES[name]`` into a shared library (if
     this source and header hash has not been built yet) and return its
     path. Safe to call from several processes and threads: each compiles
-    to a temporary file and renames it."""
+    to a temporary file and renames it. ``verbose`` builds with
+    ``-Xptxas -v``, prints the report (registers, stack, spills per kernel)
+    and keeps it beside the library (:func:`ptxas_log`)."""
     source = SOURCES[name]
     blob = source.read_bytes() + b"".join(
         p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
@@ -90,10 +92,17 @@ def build_library(name: str = "fused_mlp", verbose: bool = False) -> Path:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed on {source.name} ({res.returncode}):"
                            f"\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr, flush=True)
+    if verbose:
+        if res.stderr:
+            print(res.stderr, flush=True)
+        ptxas_log(out).write_text(res.stderr)
     os.replace(tmp, out)
     return out
+
+
+def ptxas_log(library: Path) -> Path:
+    """Where a verbose build keeps the ptxas report of ``library``."""
+    return library.with_suffix(".ptxas.txt")
 
 
 def load_library(name: str, bind) -> ctypes.CDLL:
@@ -111,6 +120,9 @@ def _bind_forward(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cvnerf_fused_nerf_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.cvnerf_fused_nerf_forward.restype = ctypes.c_int
+    lib.cvnerf_fused_nerf_bf16_plan.argtypes = [i, i, i, i, i,
+                                                ctypes.POINTER(ctypes.c_int)]
+    lib.cvnerf_fused_nerf_bf16_plan.restype = ctypes.c_int
     for fn in (lib.cvnerf_fused_nerf_mat_elems, lib.cvnerf_fused_nerf_vec_elems):
         fn.argtypes = [i, i, i, i]
         fn.restype = ctypes.c_long
@@ -130,6 +142,49 @@ def check_kernel_config(cfg: NerfMLPConfig) -> None:
             f"16 with head <= trunk <= 256, got {w}/{h}; use kernels='off'")
     if not 0 <= cfg.xyz_freqs <= 20 or not 0 <= cfg.dir_freqs <= 20:
         raise ValueError("the fused kernel takes at most 20 frequency bands")
+
+
+# The bf16 kernel (csrc/fused_mlp.cu, fused_nerf_wgmma): two consumer
+# warpgroups of 64 points and one TMA producer warpgroup a block, a
+# persistent grid of one block per SM, weights staged in 64-column chunks
+# (the trunk width rounded up to 64 rows x 128 B each) in a ring of at most
+# 8 stages beside each warpgroup's bf16 encodings [64, KX + 8] and
+# [64, KD + 8] and fp32 raw inputs [2, 64 x 3].
+BF16_TILE = 128
+BF16_THREADS = 384
+SMEM_LIMIT = 232_448          # a block's dynamic shared memory on sm_90
+_MAX_STAGES = 8
+
+
+def bf16_launch_plan(cfg: NerfMLPConfig, n: int, sm_count: int) -> dict:
+    """The bf16 kernel's launch for ``n`` points on a card of ``sm_count``
+    SMs, as ``cvnerf_fused_nerf_bf16_plan`` computes it: blocks, threads,
+    dynamic shared-memory bytes, weight stages, and whether the kernel has
+    the widths at compile time (the lego net's: trunk 256, head 128,
+    KX 64, KD 32)."""
+    w, h = cfg.trunk_width, cfg.head_width
+    kx, kd = _round_up(cfg.xyz_dim, 16), _round_up(cfg.dir_dim, 16)
+    stage = _round_up(w, 64) * 64 * 2
+    enc = 2 * (64 * (kx + 8 + kd + 8) * 2 + 2 * 64 * 3 * 4)
+    stages = min(_MAX_STAGES,
+                 (SMEM_LIMIT - 1024 - enc - 2 * _MAX_STAGES * 8) // stage)
+    return {"blocks": min(-(-n // BF16_TILE), sm_count),
+            "threads": BF16_THREADS,
+            "smem_bytes": 1024 + stages * stage + enc + 2 * stages * 8,
+            "stages": stages,
+            "fixed": int((w, h, kx, kd) == (256, 128, 64, 32))}
+
+
+def kernel_bf16_plan(cfg: NerfMLPConfig, n: int) -> dict:
+    """The same plan as the built kernel computes it on the current card."""
+    lib = load_library("fused_mlp", _bind_forward)
+    plan = (ctypes.c_int * 5)()
+    err = lib.cvnerf_fused_nerf_bf16_plan(n, cfg.trunk_width, cfg.head_width,
+                                          cfg.xyz_freqs, cfg.dir_freqs, plan)
+    if err != 0:
+        raise RuntimeError(f"cvnerf_fused_nerf_bf16_plan: CUDA error {err}")
+    return dict(zip(("blocks", "threads", "smem_bytes", "stages", "fixed"),
+                    plan))
 
 
 def mat_blocks(cfg: NerfMLPConfig) -> list[tuple[str, int, int]]:
@@ -154,8 +209,9 @@ def packed_size(cfg: NerfMLPConfig) -> int:
 def pack_params(params: dict, cfg: NerfMLPConfig,
                 compute_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
     """One net's params → ``(wmat, wvec)`` in the kernel's operand layout,
-    on the params' device. Matrices are ``[out, in]`` for bf16 (the wmma B
-    operand) and ``[in, out]`` for fp32."""
+    on the params' device. Matrices are ``[out, in]`` for bf16 (the wgmma
+    K-major B operand, each block a TMA tensor: 16-byte aligned, rows of
+    16-byte multiples) and ``[in, out]`` for fp32."""
     check_kernel_config(cfg)
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
@@ -269,6 +325,8 @@ def fused_nerf_apply(weights: FusedNerfWeights, points: torch.Tensor,
                                 weights.compute_dtype)
     check_kernel_inputs(points, viewdirs, weights.device,
                         weights.wmat is not None)
+    if weights.wmat.data_ptr() % 16:
+        raise ValueError("packed weights must start 16-byte aligned (TMA)")
     cfg = weights.cfg
     lib = load_library("fused_mlp", _bind_forward)
     n = points.shape[0]

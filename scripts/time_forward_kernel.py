@@ -1,0 +1,86 @@
+"""Time the port's bf16 forward kernel (``cvnerf_torch.ops.fused_mlp.
+fused_nerf_apply``) of one or more checkouts of this repo on one NVIDIA card,
+in turns, at the four shapes of the main paths: a serving coarse chunk
+(8192 rays x 64 = 524,288 points), a serving fine chunk (x 192 =
+1,572,864), a train step's coarse pass (1024 x 64 = 65,536) and fine pass
+(1024 x 192 = 196,608). The lego-shaped net (trunk 256, head 128, L = 10/4)
+with seeded random weights.
+
+    python3 scripts/time_forward_kernel.py ROOT [ROOT ...]
+
+Each ROOT is a checkout (for example a parent commit unpacked with
+``git archive``); each runs in its own process, in the order given, so
+``parent change change parent`` compares two versions on one card. Prints
+the card's name and power limit, then one JSON line per ROOT with the
+median milliseconds of 7 launches (CUDA events, after 2 warm-up launches)
+at each shape. Exits non-zero when there is no card.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+SHAPES = {"serve_coarse": 8192 * 64, "serve_fine": 8192 * 192,
+          "train_coarse": 1024 * 64, "train_fine": 1024 * 192}
+
+
+def time_one(root: str) -> dict:
+    sys.path.insert(0, str(Path(root).resolve()))
+    import numpy as np
+    import torch
+    from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
+    from cvnerf_torch.ops import fused_mlp as fm
+    if not Path(fm.__file__).resolve().is_relative_to(Path(root).resolve()):
+        raise SystemExit(f"imported {fm.__file__}, not the checkout {root}")
+    cfg = NerfMLPConfig()
+    params = init_nerf_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    w = fm.FusedNerfWeights(params, cfg, torch.bfloat16)
+    gen = torch.Generator().manual_seed(1)
+    out = {}
+    for name, n in SHAPES.items():
+        pts = (torch.randn(n, 3, generator=gen) * 2).cuda()
+        dirs = torch.nn.functional.normalize(
+            torch.randn(n, 3, generator=gen), dim=-1).cuda()
+        for _ in range(2):
+            fm.fused_nerf_apply(w, pts, dirs)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(7):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fm.fused_nerf_apply(w, pts, dirs)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = float(np.median(times))
+    return {"root": root, "ms": out}
+
+
+def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--one":
+        import torch
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA card")
+        print(json.dumps(time_one(sys.argv[2])), flush=True)
+        return 0
+    if len(sys.argv) < 2:
+        raise SystemExit(__doc__)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    for root in sys.argv[1:]:
+        res = subprocess.run([sys.executable, __file__, "--one", root],
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise SystemExit(f"{root}: {res.stderr[-3000:]}")
+        print(res.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -149,6 +149,65 @@ def test_kernel_refuses_architectures_it_does_not_take(kw):
         fm.pack_params(params, cfg, torch.bfloat16)
 
 
+# Every width check_kernel_config accepts: trunk/head multiples of 16 with
+# head <= trunk <= 256, at most 20 bands (the encodings' padded widths go in
+# steps of 16 with the bands, so the extremes and a middle cover them).
+_WIDTHS = [(w, h) for w in range(16, 257, 16) for h in range(16, w + 1, 16)]
+_BANDS = [(lx, ld) for lx in (0, 4, 10, 20) for ld in (0, 2, 4, 20)]
+
+
+@pytest.mark.parametrize("trunk", range(16, 257, 16))
+def test_packed_blocks_are_tma_tensors(trunk):
+    """Each packed bf16 matrix is read by TMA as a [fan-out, fan-in] tensor:
+    it must start 16-byte aligned and its rows must be 16-byte multiples."""
+    for w, h in (wh for wh in _WIDTHS if wh[0] == trunk):
+        for lx, ld in _BANDS:
+            cfg = NerfMLPConfig(xyz_freqs=lx, dir_freqs=ld, trunk_width=w,
+                                head_width=h)
+            fm.check_kernel_config(cfg)
+            start = 0
+            for name, fan_in, fan_out in fm.mat_blocks(cfg):
+                assert (start * 2) % 16 == 0, (cfg, name)
+                assert (fan_in * 2) % 16 == 0, (cfg, name)
+                assert fan_out <= 256, (cfg, name)   # one TMA box of rows
+                start += fan_in * fan_out
+
+
+@pytest.mark.parametrize("trunk", range(16, 257, 16))
+def test_bf16_launch_plan_fits_every_accepted_width(trunk):
+    """The wgmma kernel's shared memory (weight stages + encodings +
+    barriers) fits a block on sm_90 with at least two stages, for every
+    width the kernel accepts."""
+    for w, h in (wh for wh in _WIDTHS if wh[0] == trunk):
+        for lx, ld in _BANDS:
+            cfg = NerfMLPConfig(xyz_freqs=lx, dir_freqs=ld, trunk_width=w,
+                                head_width=h)
+            plan = fm.bf16_launch_plan(cfg, 1000, 132)
+            assert 2 <= plan["stages"] <= 8, (cfg, plan)
+            assert plan["smem_bytes"] <= fm.SMEM_LIMIT, (cfg, plan)
+            assert plan["threads"] == 384
+
+
+def test_bf16_launch_plan_full_width_and_grid():
+    cfg = NerfMLPConfig()
+    plan = fm.bf16_launch_plan(cfg, 8192 * 192, 132)
+    # 6 stages of 256 rows x 128 B, encodings of 128 points (64 + 32 wide,
+    # each row padded by 8) and their raw inputs (fp32, 6 a point), 12
+    # barriers, 1024 B of alignment slack.
+    assert plan == {"blocks": 132, "threads": 384, "stages": 6, "fixed": 1,
+                    "smem_bytes": 1024 + 6 * 32768 + 2 * 64 * (72 + 40) * 2
+                    + 128 * 6 * 4 + 12 * 8}
+    # Other bands or widths read their widths at run time.
+    for kw in (dict(xyz_freqs=12), dict(head_width=256), TINY):
+        assert fm.bf16_launch_plan(NerfMLPConfig(**kw), 1, 132)["fixed"] == 0
+    # One block per 128-point tile, at most one per SM (persistent grid).
+    for n, blocks in ((1, 1), (127, 1), (128, 1), (129, 2),
+                      (132 * 128, 132), (132 * 128 + 1, 132), (65_573, 132),
+                      (1000 * 128, 132)):
+        assert fm.bf16_launch_plan(cfg, n, 132)["blocks"] == blocks, n
+    assert fm.bf16_launch_plan(cfg, 10_000, 114)["blocks"] == 79
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -159,15 +218,27 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version_on_card(cuda_device, dtype):
-    cfg = NerfMLPConfig(**TINY)
-    params = init_nerf_params(torch.Generator().manual_seed(0), cfg,
-                              cuda_device)
-    pts, dirs = (torch.from_numpy(a).to(cuda_device) for a in _inputs(300))
-    w = fm.FusedNerfWeights(params, cfg, dtype)
-    before = fm.fused_nerf_apply.launches
-    got = fm.fused_nerf_apply(w, pts, dirs)
-    torch.cuda.synchronize()
-    assert fm.fused_nerf_apply.launches == before + 1
-    want = fm.fused_nerf_plain(params, pts, dirs, cfg, dtype)
-    tol = 2e-4 if dtype == torch.float32 else 2e-2
-    assert (got - want).abs().max().item() < tol
+    """TINY and full width, at ragged sizes around the bf16 kernel's
+    128-point tiles and its one-block-per-SM grid; bf16 launches twice and
+    must be bitwise equal, and the kernel's launch plan is the host's."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for kw in (TINY, {}):
+        cfg = NerfMLPConfig(**kw)
+        params = init_nerf_params(torch.Generator().manual_seed(0), cfg,
+                                  cuda_device)
+        w = fm.FusedNerfWeights(params, cfg, dtype)
+        for n in (1, 127, 129, 300, sms * 128 + 1, 65_573):
+            pts, dirs = (torch.from_numpy(a).to(cuda_device)
+                         for a in _inputs(n))
+            before = fm.fused_nerf_apply.launches
+            got = fm.fused_nerf_apply(w, pts, dirs)
+            again = fm.fused_nerf_apply(w, pts, dirs)
+            torch.cuda.synchronize()
+            assert fm.fused_nerf_apply.launches == before + 2
+            want = fm.fused_nerf_plain(params, pts, dirs, cfg, dtype)
+            tol = 2e-4 if dtype == torch.float32 else 2e-2
+            assert (got - want).abs().max().item() < tol, (kw, n)
+            if dtype == torch.bfloat16:
+                assert torch.equal(got, again), (kw, n)
+                assert fm.kernel_bf16_plan(cfg, n) == fm.bf16_launch_plan(
+                    cfg, n, sms)
