@@ -5,7 +5,7 @@
 Phases (any failure exits non-zero; no phase is caught and passed over):
   1. build every kernel from the checkout's sources (``nvcc``, one process
      per source, all started together), print ptxas' registers and spills
-     of the bf16 forward kernel (a spill fails), and hold the forward
+     of the bf16 and int8 forward kernels (a spill fails), and hold the forward
      kernel against its plain PyTorch version on the card at full width:
      fp32 at a ragged n; bf16 at ragged sizes around its 128-point tiles and
      one-block-per-SM grid (1, 127, 129, a full wave of tiles + 1, 65,573),
@@ -24,10 +24,12 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      ragged tail's points alone;
   1c. hold the int8 kernel against its plain version at full width: the
      phase-1 net quantized on the card from ``calibration_samples``, at the
-     ragged n and the serving chunks (coarse 8192 x 64, fine 8192 x 192);
-     bitwise with power-of-two head scales and zero head biases, within
-     TOL_INT8 with the real scales, and bitwise over two launches; time
-     both;
+     ragged n of phase 1 and the serving chunks (coarse 8192 x 64, fine
+     8192 x 192); bitwise with power-of-two head scales and zero head
+     biases, within TOL_INT8 with the real scales, bitwise over two
+     launches, its launch plan the host's; time both, and beside the fine
+     chunk the same int8 products unfused through ``torch._int_mm``
+     (``int8_gemm_chain_ms``, a yardstick of cuBLASLt on these shapes);
   2. serve: write a run directory for the lego serving shape (400x400,
      focal 555, near 2, far 6, white background, 64 + 128 samples, bf16,
      the full-width MLP) with seeded random weights and a few camera poses
@@ -159,6 +161,21 @@ def inputs(n: int, gen: torch.Generator, scale: float = 2.0):
     return pts.contiguous(), dirs.contiguous()
 
 
+def check_ptxas(fm, library: Path, kernel: str) -> None:
+    """Print ptxas' registers and spills of every instantiation of
+    ``kernel``; fail if there is none or one spills."""
+    report = ptxas_report(fm, library, kernel)
+    if not report:
+        fail(f"no {kernel} kernel in the ptxas report")
+    for k in report:
+        print(f"ptxas: {k['kernel']}: {k.get('registers')} registers, spill "
+              f"stores {k.get('spill_stores')} B, spill loads "
+              f"{k.get('spill_loads')} B, wgmma warnings "
+              f"{sorted(set(k['warnings']))}", flush=True)
+        if k.get("spill_stores") != 0 or k.get("spill_loads") != 0:
+            fail(f"{kernel} spills ({k['kernel']})")
+
+
 def ptxas_report(fm, library: Path, kernel: str) -> list[dict]:
     """Registers and spills of every instantiation of ``kernel`` in the
     ptxas report of a verbose build, and the wgmma warnings ptxas gave it."""
@@ -214,6 +231,31 @@ def gemm_chain_ms(cfg, n: int) -> tuple[float, float]:
     return time_ms(chain), flops
 
 
+def int8_gemm_chain_ms(cfg, n: int) -> tuple[float, float]:
+    """The int8 kernel's products alone, unfused, through ``torch._int_mm``
+    (s8 x s8 -> s32) at the kernel's padded widths, as ``gemm_chain_ms``
+    for bf16. Timed only; the port never calls it. Returns the median ms
+    and the operations it does."""
+    w, h = cfg.trunk_width, cfg.head_width
+    kx, kd = -(-cfg.xyz_dim // 16) * 16, -(-cfg.dir_dim // 16) * 16
+    i8 = dict(device="cuda", dtype=torch.int8)
+    x, xe, de = (torch.randint(-127, 128, (n, k), **i8) for k in (w, kx, kd))
+    # [in, out] views of [out, in] matrices: the column-major B cuBLASLt's
+    # int8 product takes.
+    wx, ww, wh, wd = (torch.randint(-127, 128, (b, a), **i8).t()
+                      for a, b in ((kx, w), (w, w), (w, h), (kd, h)))
+
+    def chain():
+        torch._int_mm(xe, wx)
+        for _ in range(8):
+            torch._int_mm(x, ww)
+        torch._int_mm(xe, wx)
+        torch._int_mm(x, wh)
+        torch._int_mm(de, wd)
+    ops = 2 * n * (2 * kx * w + 8 * w * w + w * h + kd * h)
+    return time_ms(chain), ops
+
+
 def phase_kernels(fm, cfg, params):
     """Build every kernel, then check and time the forward kernel; returns
     its per-shape rows (without ``launches``)."""
@@ -223,16 +265,8 @@ def phase_kernels(fm, cfg, params):
             lambda name: fm.build_library(name, verbose=True), fm.SOURCES)))
     print(f"built {[str(p.name) for p in libs.values()]} in "
           f"{time.time() - t0:.1f} s", flush=True)
-    report = ptxas_report(fm, libs["fused_mlp"], "fused_nerf_wgmma")
-    if not report:
-        fail("no fused_nerf_wgmma kernel in the ptxas report")
-    for k in report:
-        print(f"ptxas: {k['kernel']}: {k.get('registers')} registers, spill "
-              f"stores {k.get('spill_stores')} B, spill loads "
-              f"{k.get('spill_loads')} B, wgmma warnings "
-              f"{sorted(set(k['warnings']))}", flush=True)
-        if k.get("spill_stores") != 0 or k.get("spill_loads") != 0:
-            fail(f"the bf16 forward kernel spills ({k['kernel']})")
+    check_ptxas(fm, libs["fused_mlp"], "fused_nerf_wgmma")
+    check_ptxas(fm, libs["fused_mlp_int8"], "fused_nerf_int8_wgmma")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(SEED + 1)
     rows = []
@@ -314,15 +348,20 @@ def pow2_heads(tq, qp):
 def phase_int8(fm, fq, tq, rng, cfg, params):
     """Quantize the full-width net on the card, check the int8 kernel
     against its plain version (bitwise with power-of-two heads, TOL_INT8
-    with the real scales, bitwise over two launches) and time both."""
+    with the real scales, bitwise over two launches, the launch plan the
+    host's) and time both."""
     cpts, cdirs = tq.calibration_samples(rng.PRNGKey(SEED + 6), 1 << 17,
                                          (-6.0,) * 3, (6.0,) * 3, "cuda")
     qp = tq.quantize_nerf(params, cfg, cpts, cdirs)
     real, exact = fq.QuantizedNerfWeights(qp, cfg), pow2_heads(tq, qp)
     exact_w = fq.QuantizedNerfWeights(exact, cfg)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(SEED + 7)
     rows = []
-    for n in (2 ** 16 + 37, CHUNK * 64, CHUNK * 192):
+    # Ragged sizes around the 128-point tiles and the one-block-per-SM
+    # grid, then the serving chunks.
+    for n in (1, 127, 129, sms * 128 + 1, 2 ** 16 + 37, CHUNK * 64,
+              CHUNK * 192):
         pts, dirs = inputs(n, gen)
         first = fq.fused_nerf_apply_int8(real, pts, dirs)
         second = fq.fused_nerf_apply_int8(real, pts, dirs)
@@ -334,12 +373,16 @@ def phase_int8(fm, fq, tq, rng, cfg, params):
                               fq.fused_nerf_int8_plain(exact, pts, dirs, cfg))
         same = torch.equal(first, second)
         ok = bool(torch.isfinite(first).all()) and first.shape == (n, 4)
+        plan = fq.kernel_int8_plan(cfg, n)
         print(f"fused_nerf_apply_int8 n={n}: power-of-two heads bitwise "
               f"equal to plain: {bitwise}; real scales max_abs_err={err:.3e} "
               f"(tol {TOL_INT8:g}); two launches bitwise equal: {same}; "
-              f"finite_and_shaped={ok}", flush=True)
+              f"finite_and_shaped={ok} {plan}", flush=True)
         if not (bitwise and same and ok and err <= TOL_INT8):
             fail(f"int8 kernel disagrees with its plain version (n={n})")
+        if plan != fq.int8_launch_plan(cfg, n, sms):
+            fail(f"the int8 kernel's launch plan {plan} is not the host's "
+                 f"{fq.int8_launch_plan(cfg, n, sms)} (n={n})")
         del want, got_exact, second
         kernel_ms = time_ms(lambda: fq.fused_nerf_apply_int8(real, pts, dirs))
         plain_ms = time_ms(lambda: fq.fused_nerf_int8_plain(qp, pts, dirs,
@@ -358,6 +401,13 @@ def phase_int8(fm, fq, tq, rng, cfg, params):
                      "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes"})
         del pts, dirs, first
+        if n == CHUNK * 192:
+            chain_ms, chain_ops = int8_gemm_chain_ms(cfg, n)
+            rows[-1]["int8_gemm_chain_ms"] = chain_ms
+            print(f"  int8_gemm_chain_ms={chain_ms:.4f} (the same int8 "
+                  f"products unfused through torch._int_mm, "
+                  f"{chain_ops / chain_ms / 1e9:.2f} TOPS; a yardstick, not "
+                  "library_ms)", flush=True)
         torch.cuda.empty_cache()
     return rows
 
@@ -1065,7 +1115,9 @@ def main() -> int:
         "note": f"ms/plain_ms/bound_ms at the fine-pass chunk (n={CHUNK * 192}"
                 "), real head scales; the bound counts 1,186,816 int8 "
                 "operations a point at 1,979 TOPS; no single PyTorch call "
-                "computes this function, so library_ms is null",
+                "computes this function, so library_ms is null; yardstick "
+                "int8_gemm_chain_ms (the products unfused through "
+                f"torch._int_mm) {int8_rows[-1]['int8_gemm_chain_ms']:.4f}",
     }]}
     print(json.dumps(report), flush=True)
     print(f"card: {card}", flush=True)

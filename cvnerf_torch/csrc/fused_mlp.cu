@@ -65,10 +65,11 @@
 // freq_encode's own layout [x | sin_0 cos_0 | ...], zero-padded to 16.
 //
 // Operand layout and encoding: nerf_common.cuh (shared with the backward and
-// int8 kernels). wgmma, TMA and mbarrier helpers: hopper.cuh.
+// int8 kernels). The warp-specialised block, its register budget and the
+// staged encoding: nerf_wgmma.cuh (shared with the int8 kernel). wgmma, TMA,
+// mbarrier helpers and the ring of weight stages: hopper.cuh.
 
-#include "hopper.cuh"
-#include "nerf_common.cuh"
+#include "nerf_wgmma.cuh"
 
 namespace {
 
@@ -77,44 +78,16 @@ using namespace hopper;
 
 // ------------------------------------------------------------ bf16: wgmma
 
-constexpr int WG = 128;                      // threads in a warpgroup
-constexpr int WG_ROWS = 64;                  // points per consumer warpgroup
-constexpr int CONSUMERS = 2;
-constexpr int TILE_BF16 = WG_ROWS * CONSUMERS;
-constexpr int BF16_THREADS = WG * (CONSUMERS + 1);
 constexpr int KCHUNK = 64;                   // k columns a stage holds: one 128 B row
-constexpr int MATS = 12;
 constexpr int MAX_STAGES = 8;
-constexpr int SMEM_LIMIT = 232448;           // a block's shared memory on sm_90
 constexpr int ENC_PAD = 8;                   // encoding row padding (bank spread)
-// setmaxnreg moves registers only within the block's own allocation (168 a
-// thread at launch, the most 384 threads get): the consumers' gain must
-// not exceed what the producer gives up, or setmaxnreg.inc waits forever.
-constexpr int LAUNCH_REGS = 168, CONSUMER_REGS = 240, PRODUCER_REGS = 24;
-static_assert(CONSUMERS * WG * CONSUMER_REGS + WG * PRODUCER_REGS <= BF16_THREADS * LAUNCH_REGS,
-              "register budget exceeds the block's allocation");
-constexpr int NB = 64;                       // columns of one wgmma (m64n64k16)
-
-struct Maps {
-  CUtensorMap m[MATS];  // w1, w2..w5, w6a, w6b, w7, w8, w9, w10a, w10b
-};
-
-// Fan-in K and fan-out N of packed matrix m (the order of Offsets).
-__host__ __device__ inline void mat_shape(int m, const Dims& d, int* K, int* N) {
-  *K = (m == 0 || m == 6) ? d.KX : (m == 11 ? d.KD : d.W);
-  *N = m >= 10 ? d.H : d.W;
-}
-
-// Rows of a staged chunk: the fan-out rounded up to whole wgmmas; TMA fills
-// the rows past the matrix (and the columns past its fan-in) with zeros.
-__host__ __device__ inline int stage_rows(int N) { return (N + NB - 1) / NB * NB; }
+constexpr int NB = WGMMA_N;                  // columns of one wgmma (m64n64k16)
 
 // Shared-memory plan (bytes from a 1024-aligned base; `total` includes the
-// alignment slack): the weight stages [S][stage_rows(W) x 128 B], then each
+// alignment slack): the weight stages [S][wgmma_rows(W) x 128 B], then each
 // consumer warpgroup's encodings enc_x [64, KX+8] and enc_d [64, KD+8]
 // (bf16) and raw inputs [2][64 x 3] (fp32), then S full and S empty
 // mbarriers. As many stages as fit, at most MAX_STAGES.
-constexpr int RAW_BYTES = 2 * WG_ROWS * 3 * 4;
 struct Bf16Plan {
   int stages, ldx, ldd;
   size_t stage_bytes, enc_at, bars_at, total;
@@ -124,7 +97,7 @@ __host__ __device__ inline Bf16Plan bf16_plan(const Dims& d) {
   Bf16Plan p;
   p.ldx = d.KX + ENC_PAD;
   p.ldd = d.KD + ENC_PAD;
-  p.stage_bytes = (size_t)stage_rows(d.W) * KCHUNK * 2;
+  p.stage_bytes = (size_t)wgmma_rows(d.W) * KCHUNK * 2;
   const size_t enc = (size_t)CONSUMERS * (WG_ROWS * (p.ldx + p.ldd) * 2 + RAW_BYTES);
   const size_t room = SMEM_LIMIT - 1024 - enc - 2 * MAX_STAGES * 8;
   p.stages = (int)(room / p.stage_bytes);
@@ -135,32 +108,11 @@ __host__ __device__ inline Bf16Plan bf16_plan(const Dims& d) {
   return p;
 }
 
-// A walk through the ring of stages (shared-space addresses): the
-// producer's and each consumer thread's own, in the same order.
-struct Ring {
-  uint32_t base, full, empty;  // stage 0, its full and its empty mbarrier
-  uint32_t stage_bytes;
-  int stages, stage;
-  uint32_t phase;
-  __device__ __forceinline__ uint32_t tile() const { return base + stage * stage_bytes; }
-  __device__ __forceinline__ uint32_t full_bar() const { return full + 8 * stage; }
-  __device__ __forceinline__ uint32_t empty_bar(int s) const { return empty + 8 * s; }
-  __device__ __forceinline__ void advance() {
-    if (++stage == stages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
-
 // acc[64, N] (+)= A[64, K] W^T for the next ceil(K/64) staged chunks of
 // packed matrix W [N, K]; A is this warpgroup's register fragment a[k16]
 // (k16 < K/16). first: the product overwrites acc (else adds to it).
-// Each chunk's stage is released once the wgmmas reading it are done (one
-// commit group in flight behind the newest).
 __device__ __forceinline__ void product(float (&acc)[128], uint32_t (&a)[16][4], int K, int N,
                                         bool first, Ring& r) {
-  const int lane = threadIdx.x % 32;
   // Every write of acc and a happens before the fence, in program order.
 #pragma unroll
   for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
@@ -169,37 +121,22 @@ __device__ __forceinline__ void product(float (&acc)[128], uint32_t (&a)[16][4],
 #pragma unroll
     for (int j = 0; j < 4; ++j) fence_operand(a[i][j]);
   wgmma_fence();
-  int prev = -1;
+  ring_consume<256 / KCHUNK>(r, (K + KCHUNK - 1) / KCHUNK, [&](int kc, uint64_t desc) {
 #pragma unroll
-  for (int kc = 0; kc < 256 / KCHUNK; ++kc) {
-    if (kc * KCHUNK < K) {
-      mbar_wait(r.full_bar(), r.phase);
-      const uint64_t desc = desc_sw128(r.tile());
+    for (int kk = 0; kk < KCHUNK / 16; ++kk) {
+      const int k16 = kc * (KCHUNK / 16) + kk;
+      if (k16 * 16 < K) {
+        const int scale_d = (first && k16 == 0) ? 0 : 1;
 #pragma unroll
-      for (int kk = 0; kk < KCHUNK / 16; ++kk) {
-        const int k16 = kc * (KCHUNK / 16) + kk;
-        if (k16 * 16 < K) {
-          const int scale_d = (first && k16 == 0) ? 0 : 1;
-#pragma unroll
-          for (int nb = 0; nb < 256 / NB; ++nb) {
-            // B rows nb*NB..: 8-row atoms of 1024 B, i.e. 64 descriptor
-            // units each; the k16 step: 32 B, i.e. 2.
-            if (nb * NB < N)
-              wgmma_m64n64k16_rs(&acc[nb * NB / 2], a[k16], desc + 2 * kk + nb * NB * 8, scale_d);
-          }
+        for (int nb = 0; nb < 256 / NB; ++nb) {
+          // B rows nb*NB..: 8-row atoms of 1024 B, i.e. 64 descriptor
+          // units each; the k16 step: 32 B, i.e. 2.
+          if (nb * NB < N)
+            wgmma_m64n64k16_rs(&acc[nb * NB / 2], a[k16], desc + 2 * kk + nb * NB * 8, scale_d);
         }
       }
-      wgmma_commit();
-      if (prev >= 0) {
-        wgmma_wait<1>();
-        if (lane == 0) mbar_arrive(r.empty_bar(prev));
-      }
-      prev = r.stage;
-      r.advance();
     }
-  }
-  wgmma_wait<0>();
-  if (lane == 0) mbar_arrive(r.empty_bar(prev));
+  });
 #pragma unroll
   for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
 }
@@ -224,35 +161,17 @@ __device__ __forceinline__ void load_frags(uint32_t (&a)[16][4], const __nv_bflo
 }
 
 // Encode this warpgroup's 64 points, p0.., into ex [64, ldx] and ed
-// [64, ldd] (bf16, freq_encode's layout, zero pad columns), the values
-// nerf_common.cuh's encode_tile gives (rows past n encode the origin; they
-// are never written). The 64 x 6 raw inputs are staged in `raw` by
-// coalesced loads; then each thread walks the bands of three (row, input)
-// pairs, so the sine and cosine of a phase share one argument.
+// [64, ldd] (bf16, freq_encode's layout, zero pad columns) by
+// nerf_wgmma.cuh's encode_staged.
 __device__ __forceinline__ void encode_wg(const float* __restrict__ pts,
                                           const float* __restrict__ dirs, int p0, int n,
                                           const Dims& d, int KX, int KD, __nv_bfloat16* ex,
                                           int ldx, __nv_bfloat16* ed, int ldd, float* raw,
                                           int bar) {
-  constexpr int PAIRS = WG_ROWS * 3;
   const int tid = threadIdx.x % WG;
-  for (int i = tid; i < 2 * PAIRS; i += WG) {
-    const long g = 3L * p0 + i % PAIRS;
-    raw[i] = g < 3L * n ? (i < PAIRS ? pts : dirs)[g] : 0.f;
-  }
-  named_sync(bar, WG);
-  for (int i = tid; i < 2 * PAIRS; i += WG) {
-    const bool dir = i >= PAIRS;
-    const int r = (i % PAIRS) / 3, c = i % 3, L = dir ? d.Ld : d.Lx;
-    __nv_bfloat16* row = dir ? ed + r * ldd : ex + r * ldx;
-    const float x = raw[i];
-    row[c] = __float2bfloat16(x);
-    for (int k = 0; k < L; ++k) {
-      const float ph = x * (float)(1 << k);  // exact
-      row[3 + 6 * k + c] = __float2bfloat16(sinf(ph));
-      row[6 + 6 * k + c] = __float2bfloat16(cosf(ph));
-    }
-  }
+  encode_staged(pts, dirs, p0, n, d, raw, bar, [&](bool dir, int r, int col, float v) {
+    (dir ? ed + r * ldd : ex + r * ldx)[col] = __float2bfloat16(v);
+  });
   // The pad columns lie in the last 16 of each row.
   for (int i = tid; i < WG_ROWS * 16; i += WG) {
     const int r = i / 16, c = i % 16;
@@ -285,13 +204,6 @@ __device__ __forceinline__ void epilogue(const float (&acc)[128], uint32_t (&a)[
   }
 }
 
-// Sum of a value over the 4 threads that share a row.
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v;
-}
-
 // The consumer warpgroups' walk over their tiles. FW, FH, FKX, FKD fix the
 // widths at compile time (0: read them from d), so that every wgmma of a
 // product is issued unconditionally.
@@ -315,7 +227,7 @@ __device__ __forceinline__ void consumer(const float* __restrict__ pts,
   uint32_t a[16][4];
 
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int p0 = t * TILE_BF16 + wg * WG_ROWS;
+    const int p0 = t * WS_TILE + wg * WG_ROWS;
     named_sync(1 + wg, WG);  // the last tile's reads of ex / ed / raw are done
     encode_wg(pts, dirs, p0, n, d, KX, KD, ex, pl.ldx, ed, pl.ldd, raw, 1 + wg);
     named_sync(1 + wg, WG);
@@ -414,7 +326,7 @@ __device__ __forceinline__ void consumer(const float* __restrict__ pts,
 }
 
 template <int FW, int FH, int FKX, int FKD>
-__global__ void __launch_bounds__(BF16_THREADS, 1)
+__global__ void __launch_bounds__(WS_THREADS, 1)
 fused_nerf_wgmma(const __grid_constant__ Maps maps, const float* __restrict__ pts,
                  const float* __restrict__ dirs, const float* __restrict__ wvec,
                  float* __restrict__ out, int n, Dims d, int tiles) {
@@ -442,12 +354,8 @@ fused_nerf_wgmma(const __grid_constant__ Maps maps, const float* __restrict__ pt
         for (int m = 0; m < MATS; ++m) {
           int K, N;
           mat_shape(m, d, &K, &N);
-          for (int k0 = 0; k0 < K; k0 += KCHUNK) {
-            mbar_wait(ring.empty_bar(ring.stage), ring.phase ^ 1);
-            mbar_arrive_expect_tx(ring.full_bar(), (uint32_t)stage_rows(N) * KCHUNK * 2);
-            tma_load_2d(ring.tile(), &maps.m[m], ring.full_bar(), k0, 0);
-            ring.advance();
-          }
+          for (int k0 = 0; k0 < K; k0 += KCHUNK)
+            ring_load(ring, &maps.m[m], k0, (uint32_t)wgmma_rows(N) * KCHUNK * 2);
         }
       }
     }
@@ -455,19 +363,6 @@ fused_nerf_wgmma(const __grid_constant__ Maps maps, const float* __restrict__ pt
     reg_alloc<CONSUMER_REGS>();
     consumer<FW, FH, FKX, FKD>(pts, dirs, wvec, out, n, d, tiles, pl, smem, ring);
   }
-}
-
-// Blocks of the persistent grid: one per SM, at most one per tile.
-inline int bf16_grid(int n, int sms) {
-  const int tiles = (n + TILE_BF16 - 1) / TILE_BF16;
-  return tiles < sms ? tiles : sms;
-}
-
-inline int sm_count(int* sms) {
-  int dev;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return (int)err;
 }
 
 template <int FW = 0, int FH = 0, int FKX = 0, int FKD = 0>
@@ -482,8 +377,8 @@ int launch_bf16(const float* pts, const float* dirs, const void* wmat, const flo
   for (int m = 0; m < MATS; ++m) {
     int K, N;
     mat_shape(m, d, &K, &N);
-    const int err = make_tmap_bf16(&maps.m[m], static_cast<const __nv_bfloat16*>(wmat) + at[m],
-                                   N, K, stage_rows(N), KCHUNK);
+    const int err = make_tmap_sw128(&maps.m[m], static_cast<const __nv_bfloat16*>(wmat) + at[m],
+                                    2, N, K, wgmma_rows(N), KCHUNK);
     if (err != 0) return err;
   }
   int sms;
@@ -492,8 +387,8 @@ int launch_bf16(const float* pts, const float* dirs, const void* wmat, const flo
   err = (int)cudaFuncSetAttribute(fused_nerf_wgmma<FW, FH, FKX, FKD>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.total);
   if (err != 0) return err;
-  const int tiles = (n + TILE_BF16 - 1) / TILE_BF16;
-  fused_nerf_wgmma<FW, FH, FKX, FKD><<<bf16_grid(n, sms), BF16_THREADS, pl.total, stream>>>(
+  const int tiles = (n + WS_TILE - 1) / WS_TILE;
+  fused_nerf_wgmma<FW, FH, FKX, FKD><<<ws_grid(n, sms), WS_THREADS, pl.total, stream>>>(
       maps, pts, dirs, wvec, out, n, d, tiles);
   return (int)cudaGetLastError();
 }
@@ -600,8 +495,8 @@ int cvnerf_fused_nerf_bf16_plan(int n, int W, int H, int Lx, int Ld, int* plan) 
   int sms;
   const int err = sm_count(&sms);
   if (err != 0) return err;
-  plan[0] = bf16_grid(n, sms);
-  plan[1] = BF16_THREADS;
+  plan[0] = ws_grid(n, sms);
+  plan[1] = WS_THREADS;
   plan[2] = (int)pl.total;
   plan[3] = pl.stages;
   plan[4] = bf16_fixed(d) ? 1 : 0;

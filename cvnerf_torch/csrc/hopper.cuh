@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tile loads, wgmma shared-memory descriptors and products with the A
-// operand in registers, warpgroup register reallocation, and the host-side
-// encoding of TMA tensor maps. PTX as the ISA defines it; nothing here
-// allocates or launches.
+// TMA tile loads, the ring of weight stages a TMA producer fills and wgmma
+// consumers drain, wgmma shared-memory descriptors and products (bf16 and
+// int8) with the A operand in registers, warpgroup register reallocation,
+// and the host-side encoding of TMA tensor maps. PTX as the ISA defines it;
+// nothing here allocates or launches.
 
 #pragma once
 
@@ -68,9 +69,9 @@ __device__ __forceinline__ void prefetch_tmap(const CUtensorMap* map) {
 }
 
 // wgmma descriptor of a K-major operand tile written by TMA with 128-byte
-// swizzle: rows of 64 bf16 (128 B), 8-row atoms 1024 B apart (SBO), the
-// tile 1024-byte aligned. Adding 2 to the descriptor moves 32 B (16 bf16,
-// one k16 step) along K; adding 64 moves 8 rows.
+// swizzle: rows of 128 B (64 bf16 or 128 int8), 8-row atoms 1024 B apart
+// (SBO), the tile 1024-byte aligned. Adding 2 to the descriptor moves 32 B
+// along K (one wgmma k step: 16 bf16 or 32 int8); adding 64 moves 8 rows.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t tile) {
   return (uint64_t)((tile & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
@@ -92,6 +93,7 @@ __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"
 __device__ __forceinline__ void fence_operand(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
+__device__ __forceinline__ void fence_operand(int& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 // D[64, 64] (+)= A[64, 16] B[16, 64], bf16 in, fp32 accumulators, A in
 // registers (the m16n8k16 A fragment of each warp's 16 rows), B K-major in
@@ -115,6 +117,101 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, 
 
 #undef HOPPER_F8
 
+// D[64, 64] (+)= A[64, 32] B[32, 64], s8 x s8 -> s32, A in registers (the
+// m16n8k32 A fragment of each warp's 16 rows: register 0 holds row lane/4,
+// k 4 (lane%4) .. +3 as bytes, low byte first; register 1 row + 8; registers
+// 2, 3 the same at k + 16), B K-major in shared memory (the only layout
+// 8-bit wgmma takes; the integer form has no scale-a/b or transpose
+// operands). scale_d = 0 overwrites D. The s32 accumulator fragment is the
+// fp32 one of wgmma_m64n64k16_rs.
+#define HOPPER_R8(i) "+r"(d[i + 0]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), \
+                     "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int* d, const uint32_t* a, uint64_t desc,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p;\n}\n"
+      : HOPPER_R8(0), HOPPER_R8(8), HOPPER_R8(16), HOPPER_R8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+#undef HOPPER_R8
+
+// Columns of the wgmma shape the kernels issue (m64n64), and a fan-out
+// rounded up to whole such products: the rows of a staged weight chunk
+// (TMA fills the rows past the matrix, and the columns past its fan-in,
+// with zeros).
+constexpr int WGMMA_N = 64;
+__host__ __device__ inline int wgmma_rows(int n) { return (n + WGMMA_N - 1) / WGMMA_N * WGMMA_N; }
+
+// ------------------------------------------------- the ring of weight stages
+// A TMA producer thread fills stages in a fixed order and consumer
+// warpgroups drain them in the same order; each stage has a full mbarrier
+// (one arrival plus the TMA bytes) and an empty one (one arrival per
+// consumer warp). Every thread keeps its own walk (shared-space addresses).
+struct Ring {
+  uint32_t base, full, empty;  // stage 0, its full and its empty mbarrier
+  uint32_t stage_bytes;
+  int stages, stage;
+  uint32_t phase;
+  __device__ __forceinline__ uint32_t tile() const { return base + stage * stage_bytes; }
+  __device__ __forceinline__ uint32_t full_bar() const { return full + 8 * stage; }
+  __device__ __forceinline__ uint32_t empty_bar(int s) const { return empty + 8 * s; }
+  __device__ __forceinline__ void advance() {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Producer: load the box at (k0, 0) of `map` (`bytes` with the zero fill)
+// into the next stage once the consumers have released it.
+__device__ __forceinline__ void ring_load(Ring& r, const CUtensorMap* map, int k0,
+                                          uint32_t bytes) {
+  mbar_wait(r.empty_bar(r.stage), r.phase ^ 1);
+  mbar_arrive_expect_tx(r.full_bar(), bytes);
+  tma_load_2d(r.tile(), map, r.full_bar(), k0, 0);
+  r.advance();
+}
+
+struct NoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+// Consumer warpgroup: for each of the next `chunks` (<= MAX) stages, wait
+// for it to land and issue(kc, desc) its wgmmas as one commit group; once
+// the last group is committed, call issued(); a stage is released once
+// wgmma.wait_group shows its reads done (one group in flight behind the
+// newest). The caller fences its operands.
+template <int MAX, class Issue, class Issued = NoHook>
+__device__ __forceinline__ void ring_consume(Ring& r, int chunks, const Issue& issue,
+                                             const Issued& issued = Issued()) {
+  const int lane = threadIdx.x % 32;
+  int prev = -1;
+#pragma unroll
+  for (int kc = 0; kc < MAX; ++kc) {
+    if (kc < chunks) {
+      mbar_wait(r.full_bar(), r.phase);
+      issue(kc, desc_sw128(r.tile()));
+      wgmma_commit();
+      if (kc == chunks - 1) issued();
+      if (prev >= 0) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(r.empty_bar(prev));
+      }
+      prev = r.stage;
+      r.advance();
+    }
+  }
+  wgmma_wait<0>();
+  if (lane == 0) mbar_arrive(r.empty_bar(prev));
+}
+
 // Move this warpgroup's register budget (a multiple of 8 in [24, 256]).
 template <int R>
 __device__ __forceinline__ void reg_alloc() {
@@ -125,9 +222,13 @@ __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
 }
 
-// Barrier `id` (1-15) over `threads` threads, whole warps.
+// Barrier `id` (1-15) over `threads` threads, whole warps: wait, or only
+// arrive.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -162,19 +263,22 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Tensor map of a row-major bf16 matrix [rows, cols] at `base` (16-byte
-// aligned, rows 16-byte multiples), read in boxes of [box_rows, box_cols]
-// with 128-byte swizzle (box_cols = 64); columns past `cols` read as zero.
-// Returns a cudaError_t value (0 on success).
-inline int make_tmap_bf16(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-                          int box_cols) {
+// Tensor map of a row-major matrix [rows, cols] of bf16 (elem_bytes 2) or
+// int8 (1, mapped as bytes) at `base` (16-byte aligned, rows 16-byte
+// multiples), read in boxes of [box_rows, box_cols] with 128-byte swizzle
+// (box_cols x elem_bytes = 128); rows and columns past the matrix read as
+// zero. Returns a cudaError_t value (0 on success).
+inline int make_tmap_sw128(CUtensorMap* map, const void* base, int elem_bytes, int rows,
+                           int cols, int box_rows, int box_cols) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+  const CUtensorMapDataType type =
+      elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

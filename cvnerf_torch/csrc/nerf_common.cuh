@@ -77,6 +77,15 @@ __host__ __device__ inline Offsets offsets(const Dims& d) {
   return o;
 }
 
+// The packed matrices a forward kernel streams by TMA (w1 .. w10b, the
+// order of Offsets, the same in the int8 layout), and the fan-in K and
+// fan-out N of matrix m.
+constexpr int MATS = 12;
+__host__ __device__ inline void mat_shape(int m, const Dims& d, int* K, int* N) {
+  *K = (m == 0 || m == 6) ? d.KX : (m == 11 ? d.KD : d.W);
+  *N = m >= 10 ? d.H : d.W;
+}
+
 __host__ __device__ inline size_t align128(size_t b) { return (b + 127) / 128 * 128; }
 
 template <typename T> __device__ inline T from_float(float v);

@@ -12,7 +12,9 @@ float kernels (``ops/fused_mlp.py``: ``SOURCES``, ``build_library``).
 
 A net's :class:`~cvnerf_torch.ops.quantize.QuantizedNerfParams` are packed
 once, by :class:`QuantizedNerfWeights`, into the kernel's operand layout
-(:func:`pack_qparams`).
+(:func:`pack_qparams`): the output rows of the twelve matrices the kernel
+streams by TMA are stored in :func:`row_order`, so that a layer's
+accumulator fragment packs straight into the next layer's int8 A fragment.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
 from cvnerf_torch.ops.encoding import freq_encode
-from cvnerf_torch.ops.fused_mlp import (_round_up, check_kernel_inputs,
+from cvnerf_torch.ops.fused_mlp import (SMEM_LIMIT, _round_up,
+                                       check_kernel_inputs,
                                        check_point_inputs, load_library)
 from cvnerf_torch.ops.quantize import QuantizedNerfParams, apply_nerf_quant
 
@@ -43,7 +46,9 @@ def check_int8_kernel_config(cfg: NerfMLPConfig) -> None:
 
 def qmat_blocks(cfg: NerfMLPConfig) -> list[tuple[str, int, int]]:
     """The packed int8 matrices in operand order, as ``(name, fan-out,
-    padded fan-in)``; each is stored ``[out, in]`` row-major."""
+    padded fan-in)``; each is stored ``[out, in]`` row-major, the first
+    twelve (``l1`` .. ``l10b``, the kernel's TMA tensors) with their rows in
+    :func:`row_order`."""
     w, h = cfg.trunk_width, cfg.head_width
     kx, kd = _round_up(cfg.xyz_dim, 16), _round_up(cfg.dir_dim, 16)
     return ([("l1", w, kx)] + [(f"l{i}", w, w) for i in range(2, 6)]
@@ -64,14 +69,36 @@ def qvec_blocks(cfg: NerfMLPConfig) -> list[tuple[str, int]]:
                   ("b11", 4)]
 
 
+# The matrices the kernel stages by TMA and multiplies by wgmma (the heads
+# "alpha" and "l11" it reads as dot products, in logical order).
+STAGED = ("l1", "l2", "l3", "l4", "l5", "l6a", "l6b", "l7", "l8", "l9",
+          "l10a", "l10b")
+
+
+def row_order(n: int) -> torch.Tensor:
+    """The logical output row stored at each packed row of a staged matrix
+    with ``n`` rows (a multiple of 16): within each 32-row block, packed row
+    ``c = 8 j + 2 t + e`` holds logical row ``16 (j >> 1) + 4 t + 2 (j & 1)
+    + e``. Accumulator column ``c`` of the kernel's wgmma then computes that
+    logical output, and the four a thread holds for one row in each 16-row
+    half are the four consecutive bytes of its next A fragment register. A
+    16-row tail block maps onto itself."""
+    c = torch.arange(n)
+    j, t, e = (c % 32) // 8, (c % 8) // 2, c % 2
+    return c - c % 32 + 16 * (j // 2) + 4 * t + 2 * (j % 2) + e
+
+
 def pack_qparams(qp: QuantizedNerfParams, cfg: NerfMLPConfig
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """One net's int8 params → ``(qmat, qvec)`` in the kernel's operand
     layout (``csrc/fused_mlp_int8.cu``), on the params' device: the weights
     ``[out, in]`` int8, l6 split into its hidden and encoding parts, l10 into
     its feature and dir-encoding parts, the encoding fan-ins zero-padded to
-    a multiple of 16 (with zero ``inv_act`` at the pad entries); scales,
-    biases and ``inv_act`` as fp32 vectors."""
+    a multiple of 16 (with zero ``inv_act`` at the pad entries), the rows of
+    the staged matrices in :func:`row_order`; scales, biases and
+    ``inv_act`` as fp32 vectors in logical order. Every block starts
+    16-byte aligned with rows of 16-byte multiples (TMA's requirement:
+    every width is a multiple of 16)."""
     check_int8_kernel_config(cfg)
     L = qp.layers
     xd, w = cfg.xyz_dim, cfg.trunk_width
@@ -88,6 +115,9 @@ def pack_qparams(qp: QuantizedNerfParams, cfg: NerfMLPConfig
                 l6b=pad(out_in("l6")[:, :xd], kx), l10a=out_in("l10")[:, :w],
                 l10b=pad(out_in("l10")[:, w:], kd), alpha=out_in("alpha"),
                 l11=out_in("l11"))
+    for name in STAGED:
+        mats[name] = mats[name][row_order(mats[name].shape[0]).to(
+            mats[name].device)]
     qmat = torch.cat([mats[name].reshape(-1)
                       for name, _, _ in qmat_blocks(cfg)])
     vecs = {"inv_x": pad(qp.inv_act["enc_x"].float(), kx),
@@ -130,11 +160,61 @@ def fused_nerf_int8_plain(qp: QuantizedNerfParams, points: torch.Tensor,
 fused_nerf_int8_plain.calls = 0
 
 
+# The kernel (csrc/fused_mlp_int8.cu, fused_nerf_int8_wgmma): the bf16
+# kernel's block (two consumer warpgroups of 64 points and one TMA producer
+# warpgroup, a persistent grid of one block per SM), weights staged in
+# 128-column chunks (the trunk width rounded up to 64 rows x 128 B each) in
+# a ring of at most 8 stages beside each warpgroup's int8 encodings
+# [64, KX' + 16] and [64, KD' + 16] (the fan-ins rounded up to 32), fp32
+# raw inputs [2, 64 x 3] and a copy of the head weights (W + 3H bytes), and
+# the block's copy of qvec up to b10 (the encodings' inverses, the requant
+# scales and biases; fp32).
+INT8_TILE = 128
+INT8_THREADS = 384
+_MAX_STAGES = 8
+
+
+def int8_launch_plan(cfg: NerfMLPConfig, n: int, sm_count: int) -> dict:
+    """The int8 kernel's launch for ``n`` points on a card of ``sm_count``
+    SMs, as ``cvnerf_fused_nerf_int8_plan`` computes it: blocks, threads,
+    dynamic shared-memory bytes, weight stages, and whether the kernel has
+    the widths at compile time (the lego net's: trunk 256, head 128, KX 64,
+    KD 32)."""
+    w, h = cfg.trunk_width, cfg.head_width
+    kx, kd = _round_up(cfg.xyz_dim, 16), _round_up(cfg.dir_dim, 16)
+    stage = _round_up(w, 64) * 128
+    enc = 2 * (64 * (_round_up(kx, 32) + 16 + _round_up(kd, 32) + 16)
+               + 2 * 64 * 3 * 4 + w + 3 * h)
+    vec = (kx + kd + 18 * w + 2 * h) * 4
+    stages = min(_MAX_STAGES, (SMEM_LIMIT - 1024 - enc - vec
+                               - 2 * _MAX_STAGES * 8) // stage)
+    return {"blocks": min(-(-n // INT8_TILE), sm_count),
+            "threads": INT8_THREADS,
+            "smem_bytes": 1024 + stages * stage + enc + vec + 2 * stages * 8,
+            "stages": stages,
+            "fixed": int((w, h, kx, kd) == (256, 128, 64, 32))}
+
+
+def kernel_int8_plan(cfg: NerfMLPConfig, n: int) -> dict:
+    """The same plan as the built kernel computes it on the current card."""
+    lib = load_library("fused_mlp_int8", _bind)
+    plan = (ctypes.c_int * 5)()
+    err = lib.cvnerf_fused_nerf_int8_plan(n, cfg.trunk_width, cfg.head_width,
+                                          cfg.xyz_freqs, cfg.dir_freqs, plan)
+    if err != 0:
+        raise RuntimeError(f"cvnerf_fused_nerf_int8_plan: CUDA error {err}")
+    return dict(zip(("blocks", "threads", "smem_bytes", "stages", "fixed"),
+                    plan))
+
+
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cvnerf_fused_nerf_int8_forward.argtypes = [p, p, p, p, p, i, i, i, i,
                                                    i, p]
     lib.cvnerf_fused_nerf_int8_forward.restype = ctypes.c_int
+    lib.cvnerf_fused_nerf_int8_plan.argtypes = [i, i, i, i, i,
+                                                ctypes.POINTER(ctypes.c_int)]
+    lib.cvnerf_fused_nerf_int8_plan.restype = ctypes.c_int
     for fn in (lib.cvnerf_fused_nerf_int8_mat_elems,
                lib.cvnerf_fused_nerf_int8_vec_elems):
         fn.argtypes = [i, i, i, i]
@@ -157,6 +237,9 @@ def fused_nerf_apply_int8(weights: QuantizedNerfWeights, points: torch.Tensor,
                                      weights.cfg)
     check_kernel_inputs(points, viewdirs, weights.device,
                         weights.qmat is not None)
+    if weights.qmat.data_ptr() % 16 or weights.qvec.data_ptr() % 16:
+        raise ValueError("packed int8 weights must start 16-byte aligned "
+                         "(TMA, float4 loads)")
     cfg = weights.cfg
     lib = load_library("fused_mlp_int8", _bind)
     n = points.shape[0]

@@ -50,9 +50,12 @@ def variants() -> dict[str, str]:
         return s.replace(old, new)
 
     v = {"base": src}
-    v["no_tma"] = sub(src, """            mbar_arrive_expect_tx(ring.full_bar(), (uint32_t)stage_rows(N) * KCHUNK * 2);
-            tma_load_2d(ring.tile(), &maps.m[m], ring.full_bar(), k0, 0);""",
-                      "            mbar_arrive(ring.full_bar());")
+    v["no_tma"] = sub(src, """            ring_load(ring, &maps.m[m], k0, (uint32_t)wgmma_rows(N) * KCHUNK * 2);""",
+                      """            {
+              mbar_wait(ring.empty_bar(ring.stage), ring.phase ^ 1);
+              mbar_arrive(ring.full_bar());
+              ring.advance();
+            }""")
     v["no_encode"] = sub(src, "    encode_wg(pts, dirs, p0, n, d, KX, KD, ex, pl.ldx, ed, "
                               "pl.ldd, raw, 1 + wg);", "")
     e = sub(src, """      const float2 b0 = __ldg(reinterpret_cast<const float2*>(bias + c * 16 + 2 * q));

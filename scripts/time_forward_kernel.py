@@ -4,20 +4,26 @@ in turns, at the four shapes of the main paths: a serving coarse chunk
 (8192 rays x 64 = 524,288 points), a serving fine chunk (x 192 =
 1,572,864), a train step's coarse pass (1024 x 64 = 65,536) and fine pass
 (1024 x 192 = 196,608). The lego-shaped net (trunk 256, head 128, L = 10/4)
-with seeded random weights.
+with seeded random weights. With ``--int8``, the int8 forward kernel
+(``cvnerf_torch.ops.fused_mlp_int8.fused_nerf_apply_int8``) instead, on the
+net quantized on the card from seeded calibration samples, at the shapes
+of the int8 serving path (the two serving chunks) and a ragged n = 65,573.
 
-    python3 scripts/time_forward_kernel.py ROOT [ROOT ...]
+    python3 scripts/time_forward_kernel.py [--int8] ROOT [ROOT ...]
 
 Each ROOT is a checkout (for example a parent commit unpacked with
 ``git archive``); each runs in its own process, in the order given, so
 ``parent change change parent`` compares two versions on one card. Prints
 the card's name and power limit, then one JSON line per ROOT with the
 median milliseconds of 7 launches (CUDA events, after 2 warm-up launches)
-at each shape. Exits non-zero when there is no card.
+at each shape, and a hash of each shape's output (checkouts whose kernels
+are bitwise equal to one plain version print equal hashes). Exits non-zero
+when there is no card.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -25,9 +31,11 @@ from pathlib import Path
 
 SHAPES = {"serve_coarse": 8192 * 64, "serve_fine": 8192 * 192,
           "train_coarse": 1024 * 64, "train_fine": 1024 * 192}
+INT8_SHAPES = {"serve_coarse": 8192 * 64, "serve_fine": 8192 * 192,
+               "ragged": 2 ** 16 + 37}
 
 
-def time_one(root: str) -> dict:
+def time_one(root: str, int8: bool) -> dict:
     sys.path.insert(0, str(Path(root).resolve()))
     import numpy as np
     import torch
@@ -37,44 +45,69 @@ def time_one(root: str) -> dict:
         raise SystemExit(f"imported {fm.__file__}, not the checkout {root}")
     cfg = NerfMLPConfig()
     params = init_nerf_params(torch.Generator().manual_seed(0), cfg, "cuda")
-    w = fm.FusedNerfWeights(params, cfg, torch.bfloat16)
+    if int8:
+        from cvnerf_torch.ops import fused_mlp_int8 as fq
+        from cvnerf_torch.ops import quantize as tq
+        from cvnerf_torch.ops import rng
+        cpts, cdirs = tq.calibration_samples(rng.PRNGKey(6), 1 << 17,
+                                             (-6.0,) * 3, (6.0,) * 3, "cuda")
+        qw = fq.QuantizedNerfWeights(tq.quantize_nerf(params, cfg, cpts,
+                                                      cdirs), cfg)
+        shapes = INT8_SHAPES
+
+        def apply(pts, dirs):
+            return fq.fused_nerf_apply_int8(qw, pts, dirs)
+    else:
+        w = fm.FusedNerfWeights(params, cfg, torch.bfloat16)
+        shapes = SHAPES
+
+        def apply(pts, dirs):
+            return fm.fused_nerf_apply(w, pts, dirs)
     gen = torch.Generator().manual_seed(1)
-    out = {}
-    for name, n in SHAPES.items():
+    out, digest = {}, {}
+    for name, n in shapes.items():
         pts = (torch.randn(n, 3, generator=gen) * 2).cuda()
         dirs = torch.nn.functional.normalize(
             torch.randn(n, 3, generator=gen), dim=-1).cuda()
-        for _ in range(2):
-            fm.fused_nerf_apply(w, pts, dirs)
+        res = apply(pts, dirs)
+        digest[name] = hashlib.sha256(res.cpu().numpy().tobytes()
+                                      ).hexdigest()[:16]
+        apply(pts, dirs)
         torch.cuda.synchronize()
         times = []
         for _ in range(7):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fm.fused_nerf_apply(w, pts, dirs)
+            apply(pts, dirs)
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         out[name] = float(np.median(times))
-    return {"root": root, "ms": out}
+    return {"root": root, "kernel": "int8" if int8 else "bf16", "ms": out,
+            "output_sha256": digest}
 
 
 def main() -> int:
-    if len(sys.argv) > 2 and sys.argv[1] == "--one":
+    args = sys.argv[1:]
+    int8 = bool(args) and args[0] == "--int8"
+    if int8:
+        args = args[1:]
+    if len(args) > 1 and args[0] == "--one":
         import torch
         if not torch.cuda.is_available():
             raise SystemExit("no CUDA card")
-        print(json.dumps(time_one(sys.argv[2])), flush=True)
+        print(json.dumps(time_one(args[1], int8)), flush=True)
         return 0
-    if len(sys.argv) < 2:
+    if not args:
         raise SystemExit(__doc__)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    for root in sys.argv[1:]:
-        res = subprocess.run([sys.executable, __file__, "--one", root],
+    for root in args:
+        res = subprocess.run([sys.executable, __file__]
+                             + ["--int8"] * int8 + ["--one", root],
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             raise SystemExit(f"{root}: {res.stderr[-3000:]}")

@@ -33,6 +33,8 @@ from cvnerf_tpu.ops.encoding import freq_encode as jax_encode
 from cvnerf_tpu.ops.pallas.fused_mlp_int8 import (
     fused_nerf_apply_int8 as jax_int8_kernel)
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
+from cvnerf_torch.ops.encoding import freq_encode
+from cvnerf_torch.ops import fused_mlp as fm
 from cvnerf_torch.ops import fused_mlp_int8 as fq
 from cvnerf_torch.ops import quantize as tq
 from cvnerf_torch.ops import rng
@@ -243,6 +245,11 @@ def test_pack_qparams_round_trip(kw):
     qmat, qvec = fq.pack_qparams(qp, cfg)
     assert qmat.dtype == torch.int8 and qvec.dtype == torch.float32
     mats, vecs = _unpack(qmat, qvec, cfg)
+    # The staged matrices' rows are stored in the kernel's row order: put
+    # them back in logical order before comparing.
+    for name in fq.STAGED:
+        mats[name] = mats[name][torch.argsort(fq.row_order(
+            mats[name].shape[0]))]
     L, xd, w = qp.layers, cfg.xyz_dim, cfg.trunk_width
 
     def eq(a, b):
@@ -269,6 +276,175 @@ def test_pack_qparams_round_trip(kw):
         eq(vecs[name][:k], L[key]["s"])
         eq(vecs["b" + name[1:]][:k], L[key]["b"])
         assert not vecs[name][k:].any()
+
+
+def test_row_order_is_a_permutation_within_32_row_blocks():
+    """Packed row c = 8 j + 2 t + e of a 32-row block holds logical row
+    16 (j >> 1) + 4 t + 2 (j & 1) + e; a 16-row tail maps onto itself."""
+    for n in range(16, 257, 16):
+        order = fq.row_order(n)
+        assert sorted(order.tolist()) == list(range(n)), n
+        assert torch.equal(order // 32, torch.arange(n) // 32), n
+    assert fq.row_order(32).tolist() == [
+        0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15,
+        16, 17, 20, 21, 24, 25, 28, 29, 18, 19, 22, 23, 26, 27, 30, 31]
+
+
+def _kernel_walk(qmat, qvec, cfg, points, viewdirs):
+    """The int8 kernel's data flow (csrc/fused_mlp_int8.cu), in numpy, from
+    the packed buffers: a layer's A fragment byte k is logical column k of
+    its input; its wgmma accumulator column c is the dot with packed row c;
+    the epilogue gives thread t of 32-column block cb the accumulators
+    ``acc[16 cb + 4 j + i]`` (column ``32 cb + 8 j + 2 t + (i & 1)``, rows
+    ``r + 8 (i >> 1)``) and packs ``c[0], c[1], c[4], c[5]`` (scales at
+    ``32 cb + 4 t + 0..3``) into A register 0 and ``c[8], c[9], c[12],
+    c[13]`` (at ``+ 16``) into register 2, registers 1 and 3 the same for
+    row r + 8; columns past the fan-out enter as 0; the heads dot the
+    logical activation with the logical head weights."""
+    mats, vecs = _unpack(qmat, qvec, cfg)
+    mats = {k: v.numpy().astype(np.int64) for k, v in mats.items()}
+    vecs = {k: v.numpy() for k, v in vecs.items()}
+    kx, kd = mats["l1"].shape[1], mats["l10b"].shape[1]
+    f32 = np.float32
+
+    def dq(acc, s, b):            # acc * s + b, each step rounded in fp32
+        return (acc.astype(f32) * f32(s)) + f32(b)
+
+    def quant(v, lo):             # clip(rint(v), lo, 127)
+        return np.clip(np.rint(v), lo, 127).astype(np.int64)
+
+    def epilogue(acc, s, b, n_out, lo):
+        nxt = np.zeros((acc.shape[0], n_out), np.int64)
+        for cb in range(-(-n_out // 32)):
+            for t in range(4):
+                for k0, ks in ((0, (0, 1, 4, 5)), (16, (8, 9, 12, 13))):
+                    if 32 * cb + k0 >= n_out:
+                        continue
+                    for byte, k in enumerate(ks):
+                        j, i = k // 4, k % 4
+                        col = 32 * cb + 8 * j + 2 * t + (i & 1)
+                        logical = 32 * cb + k0 + 4 * t + byte
+                        nxt[:, logical] = quant(
+                            dq(acc[:, col], s[logical], b[logical]), lo)
+        return nxt
+
+    def layer(parts, i, lo):      # parts: [(activation, packed matrix)]
+        acc = sum(a @ m.T for a, m in parts)
+        n_out = parts[0][1].shape[0]
+        return epilogue(acc, vecs[f"s{i}"], vecs[f"b{i}"], n_out, lo)
+
+    def enc(x, freqs, inv, k):
+        e = freq_encode(torch.from_numpy(x), freqs).numpy()
+        e = np.pad(e, ((0, 0), (0, k - e.shape[1])))
+        return np.clip(np.rint(e * inv), -127, 127).astype(np.int64)
+
+    q_ex = enc(points, cfg.xyz_freqs, vecs["inv_x"], kx)
+    q_ed = enc(viewdirs, cfg.dir_freqs, vecs["inv_d"], kd)
+    h = layer([(q_ex, mats["l1"])], 1, 0)
+    for i in (2, 3, 4, 5):
+        h = layer([(h, mats[f"l{i}"])], i, 0)
+    h = layer([(h, mats["l6a"]), (q_ex, mats["l6b"])], 6, 0)
+    h = layer([(h, mats["l7"])], 7, 0)
+    h = layer([(h, mats["l8"])], 8, 0)
+    sigma = dq(h @ mats["alpha"][0], vecs["sa"][0], vecs["ba"][0])
+    h = layer([(h, mats["l9"])], 9, -127)
+    h = layer([(h, mats["l10a"]), (q_ed, mats["l10b"])], 10, 0)
+    rgb = np.stack([dq(h @ mats["l11"][c], vecs["s11"][c], vecs["b11"][c])
+                    for c in range(3)], -1)
+    return np.concatenate([rgb, sigma[:, None]], -1)
+
+
+@pytest.mark.parametrize("kw", [FULL, TINY,
+                                dict(xyz_freqs=3, dir_freqs=1, trunk_width=48,
+                                     head_width=16)])
+def test_kernel_walk_of_the_packing_is_the_plain_version(kw):
+    """The packed operands, walked as the int8 kernel walks them (its
+    accumulator and A-fragment layouts, the permuted rows, columns past a
+    16-wide tail entering as 0), give bitwise the plain version's output:
+    the row order and the kernel's epilogue indexing agree."""
+    cfg = NerfMLPConfig(**kw)
+    params = params_from_jax(_np(jax_init(jax.random.PRNGKey(3),
+                                          JaxCfg(**kw))))
+    pts, dirs = tq.calibration_samples(rng.PRNGKey(4), 512, *BBOX)
+    qp = tq.quantize_nerf(params, cfg, pts, dirs)
+    qmat, qvec = fq.pack_qparams(qp, cfg)
+    tp, td = tq.calibration_samples(rng.PRNGKey(5), 300, (-2.5,) * 3,
+                                    (2.5,) * 3)
+    want = fq.fused_nerf_int8_plain(qp, tp, td, cfg).numpy()
+    got = _kernel_walk(qmat, qvec, cfg, tp.numpy(), td.numpy())
+    np.testing.assert_array_equal(got, want)
+
+
+# Every width check_int8_kernel_config accepts: trunk/head multiples of 16
+# with head <= trunk <= 256, at most 20 bands (the encodings' padded widths
+# go in steps of 16 with the bands, so the extremes and a middle cover them).
+_WIDTHS = [(w, h) for w in range(16, 257, 16) for h in range(16, w + 1, 16)]
+_BANDS = [(lx, ld) for lx in (0, 4, 10, 13, 20) for ld in (0, 2, 4, 20)]
+
+
+@pytest.mark.parametrize("trunk", range(16, 257, 16))
+def test_packed_int8_blocks_are_tma_tensors(trunk):
+    """Each staged int8 matrix is read by TMA as a [fan-out, fan-in] byte
+    tensor: it must start 16-byte aligned, its rows must be 16-byte
+    multiples and its fan-out fit one box (256 rows); the vectors start
+    16-byte aligned (float4 loads of the scales)."""
+    for w, h in (wh for wh in _WIDTHS if wh[0] == trunk):
+        for lx, ld in _BANDS:
+            cfg = NerfMLPConfig(xyz_freqs=lx, dir_freqs=ld, trunk_width=w,
+                                head_width=h)
+            fq.check_int8_kernel_config(cfg)
+            start = 0
+            for name, fan_out, fan_in in fq.qmat_blocks(cfg):
+                assert start % 16 == 0 and fan_in % 16 == 0, (cfg, name)
+                if name in fq.STAGED:
+                    assert fan_out <= 256 and fan_out % 16 == 0, (cfg, name)
+                start += fan_out * fan_in
+            start = 0
+            for name, size in fq.qvec_blocks(cfg):
+                assert (start * 4) % 16 == 0, (cfg, name)
+                start += size
+
+
+@pytest.mark.parametrize("trunk", range(16, 257, 16))
+def test_int8_launch_plan_fits_every_accepted_width(trunk):
+    """The int8 kernel's shared memory (weight stages + int8 encodings +
+    raw inputs + barriers) fits a block on sm_90 with at least two stages,
+    for every width the kernel accepts."""
+    for w, h in (wh for wh in _WIDTHS if wh[0] == trunk):
+        for lx, ld in _BANDS:
+            cfg = NerfMLPConfig(xyz_freqs=lx, dir_freqs=ld, trunk_width=w,
+                                head_width=h)
+            plan = fq.int8_launch_plan(cfg, 1000, 132)
+            assert 2 <= plan["stages"] <= 8, (cfg, plan)
+            assert plan["smem_bytes"] <= fm.SMEM_LIMIT, (cfg, plan)
+            assert plan["threads"] == 384
+
+
+def test_int8_launch_plan_full_width_and_grid():
+    cfg = NerfMLPConfig()
+    plan = fq.int8_launch_plan(cfg, 8192 * 192, 132)
+    # 5 stages of 256 rows x 128 B, int8 encodings of 128 points (64 + 32
+    # wide, each row padded by 16) and their raw inputs (fp32, 6 a point),
+    # each consumer warpgroup's copy of the head weights (256 + 3 x 128 B),
+    # the encodings' inverses and the requant scales and biases (64 + 32 +
+    # 18 x 256 + 2 x 128 fp32), 10 barriers, 1024 B of alignment slack.
+    rest = 2 * (256 + 3 * 128) + (64 + 32 + 18 * 256 + 2 * 128) * 4
+    assert plan == {"blocks": 132, "threads": 384, "stages": 5, "fixed": 1,
+                    "smem_bytes": 1024 + 5 * 32768 + 2 * 64 * (80 + 48)
+                    + 128 * 6 * 4 + rest + 10 * 8}
+    # Other bands or widths read their widths at run time.
+    for kw in (dict(xyz_freqs=12), dict(head_width=256), TINY):
+        assert fq.int8_launch_plan(NerfMLPConfig(**kw), 1, 132)["fixed"] == 0
+    # A fan-in 16 past a k32 step (L = 11: 69 -> KX 80) rows of 96 + 16.
+    assert fq.int8_launch_plan(NerfMLPConfig(xyz_freqs=11), 1, 132)[
+        "smem_bytes"] == 1024 + 5 * 32768 + 2 * 64 * (112 + 48) \
+        + 128 * 6 * 4 + rest + 16 * 4 + 10 * 8
+    # One block per 128-point tile, at most one per SM (persistent grid).
+    for n, blocks in ((1, 1), (127, 1), (128, 1), (129, 2),
+                      (132 * 128, 132), (132 * 128 + 1, 132), (65_573, 132),
+                      (1000 * 128, 132)):
+        assert fq.int8_launch_plan(cfg, n, 132)["blocks"] == blocks, n
+    assert fq.int8_launch_plan(cfg, 10_000, 114)["blocks"] == 79
 
 
 @pytest.mark.parametrize("kw", [dict(trunk_width=24, head_width=16),
@@ -433,22 +609,33 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kw,n", [(FULL, 2 ** 12 + 37), (TINY, 300)])
-def test_int8_kernel_matches_plain_version_on_card(cuda_device, kw, n):
-    """Bitwise: the kernel repeats the plain version's every rounding."""
+@pytest.mark.parametrize("kw", [FULL, TINY,
+                                dict(xyz_freqs=3, dir_freqs=1, trunk_width=48,
+                                     head_width=16)])
+def test_int8_kernel_matches_plain_version_on_card(cuda_device, kw):
+    """Bitwise: the kernel repeats the plain version's every rounding, at
+    ragged n around its 128-point tiles and one persistent wave (132 SMs on
+    an H100), and two launches agree bitwise; its launch plan is the
+    host's."""
     cfg = NerfMLPConfig(**kw)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     params = init_nerf_params(torch.Generator().manual_seed(0), cfg,
                               cuda_device)
     cpts, cdirs = tq.calibration_samples(rng.PRNGKey(1), 4096, *BBOX,
                                          device=cuda_device)
     qp = tq.quantize_nerf(params, cfg, cpts, cdirs)
-    pts, dirs = tq.calibration_samples(rng.PRNGKey(2), n, (-3.0,) * 3,
-                                       (3.0,) * 3, device=cuda_device)
     w = fq.QuantizedNerfWeights(qp, cfg)
-    before = fq.fused_nerf_apply_int8.launches
-    got = fq.fused_nerf_apply_int8(w, pts, dirs)
-    torch.cuda.synchronize()
-    assert fq.fused_nerf_apply_int8.launches == before + 1
-    want = fq.fused_nerf_int8_plain(qp, pts, dirs, cfg)
-    assert torch.equal(got, want), (got - want).abs().max().item()
+    for n in (1, 127, 129, 300, 2 ** 12 + 37, sms * 128 + 1, 65_573):
+        pts, dirs = tq.calibration_samples(rng.PRNGKey(2), n, (-3.0,) * 3,
+                                           (3.0,) * 3, device=cuda_device)
+        before = fq.fused_nerf_apply_int8.launches
+        got = fq.fused_nerf_apply_int8(w, pts, dirs)
+        again = fq.fused_nerf_apply_int8(w, pts, dirs)
+        torch.cuda.synchronize()
+        assert fq.fused_nerf_apply_int8.launches == before + 2
+        want = fq.fused_nerf_int8_plain(qp, pts, dirs, cfg)
+        assert torch.equal(got, want), (kw, n,
+                                        (got - want).abs().max().item())
+        assert torch.equal(got, again), (kw, n)
+        assert fq.kernel_int8_plan(cfg, n) == fq.int8_launch_plan(cfg, n, sms)
 
