@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero; no phase is caught and passed over):
   1. build every kernel from the checkout's sources (``nvcc``, one process
      per source, all started together), print ptxas' registers and spills
-     of the bf16 and int8 forward kernels (a spill fails), and hold the forward
+     of the bf16 and int8 forward kernels and of the bf16 backward's pass 1
+     and weight-gradient kernels (a spill fails), and hold the forward
      kernel against its plain PyTorch version on the card at full width:
      fp32 at a ragged n; bf16 at ragged sizes around its 128-point tiles and
      one-block-per-SM grid (1, 127, 129, a full wave of tiles + 1, 65,573),
@@ -18,7 +19,9 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      (ragged n in fp32 and bf16, the train step's coarse and fine shapes
      and a ragged n past one chunk in bf16), per leaf relative to the
      leaf's largest gradient, check that two launches on the same inputs
-     agree bitwise, and time both;
+     agree bitwise and (bf16) that its launch plan is the host's, and time
+     both, the kernel also split into pass 1 and the rest by
+     ``torch.profiler``;
      at the ragged n also print what the tolerances rest on (two plain
      versions, two halves against the whole, a planted fault) and check the
      ragged tail's points alone;
@@ -50,7 +53,10 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
   5. train (main path): ``create_train_state`` and ``Trainer.run`` for
      TRAIN_STEPS steps of the lego-shaped workload (400x400 bench scene,
      1024 rays, 64 + 128 samples, perturb, bf16, full width, Adam lr 5e-4,
-     lr_decay 500), then render one 400x400 frame of the trained params;
+     lr_decay 500), split a few more steps' device time by kernel with
+     ``torch.profiler`` (the backward's pass 1 must be
+     ``fused_nerf_bwd_wgmma`` alone), then render one 400x400 frame of the
+     trained params;
   6. one train step with the kernels and with ``kernels="off"`` from the
      same state and key, in fp32 and in bf16, compared.
 The launch counts of phases 2, 2b, 3 and 5 (the main paths) are reset just
@@ -267,6 +273,8 @@ def phase_kernels(fm, cfg, params):
           f"{time.time() - t0:.1f} s", flush=True)
     check_ptxas(fm, libs["fused_mlp"], "fused_nerf_wgmma")
     check_ptxas(fm, libs["fused_mlp_int8"], "fused_nerf_int8_wgmma")
+    check_ptxas(fm, libs["fused_mlp_bwd"], "fused_nerf_bwd_wgmma")
+    check_ptxas(fm, libs["fused_mlp_bwd"], "wgrad_wgmma")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(SEED + 1)
     rows = []
@@ -419,10 +427,30 @@ def leaf_errors(got: dict, want: dict) -> dict:
             for k in want for p in ("w", "b")}
 
 
+def bwd_split_ms(run, reps: int = 3) -> dict:
+    """Device ms per backward launch of its pass 1 (the kernel named
+    ``fused_nerf_bwd_wgmma`` in bf16, ``fused_nerf_bwd_kernel`` in fp32)
+    and of the rest (weight gradients, sums, the workspace's memset, the
+    weights' transposed copy), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    out = {"pass1_ms": 0.0, "rest_ms": 0.0}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            key = "pass1_ms" if "fused_nerf_bwd" in e.key else "rest_ms"
+            out[key] += e.self_device_time_total / reps / 1e3
+    return out
+
+
 def phase_backward(fm, fb, cfg, params):
     """Check the backward kernel against its plain version, its launch
-    against a second launch (bitwise), and time both; returns the rows."""
+    against a second launch (bitwise), its launch plan (bf16) against the
+    host's, and time both; returns the rows."""
     gen = torch.Generator().manual_seed(SEED + 4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     # Ragged size in both dtypes, a train step's coarse (1024 rays x 64)
     # and fine (x 192) shapes, and a ragged size past the kernel's chunk of
@@ -445,13 +473,20 @@ def phase_backward(fm, fb, cfg, params):
         if n == 2 ** 16 + 37:
             calibrate(fb, cfg, params, w, pts, dirs, g, first, want)
         finite = bool(torch.isfinite(first).all())
+        plan = ""
+        if dt == torch.bfloat16:
+            plan = fb.kernel_bwd_plan(cfg, n)
+            if plan != fb.bwd_launch_plan(cfg, n, sms):
+                fail(f"the backward's launch plan {plan} is not the host's "
+                     f"{fb.bwd_launch_plan(cfg, n, sms)} (n={n})")
         print(f"fused_nerf_bwd n={n} {str(dt)[6:]}: max leaf error "
               f"{errs[worst]:.3e} ({worst}; tol {tol:g}), bitwise equal over "
-              f"two launches: {same}, finite: {finite}", flush=True)
+              f"two launches: {same}, finite: {finite} {plan}", flush=True)
         if not (finite and same and errs[worst] <= tol):
             fail(f"backward kernel check failed (n={n}, {dt})")
         kernel_ms = time_ms(lambda: fb.fused_nerf_bwd(w, pts, dirs, g),
                             reps=5)
+        split = bwd_split_ms(lambda: fb.fused_nerf_bwd(w, pts, dirs, g))
         plain_ms = time_ms(lambda: fb.fused_nerf_bwd_plain(
             params, pts, dirs, g, cfg, dt), reps=5)
         flops = fb.backward_flops(cfg) * n
@@ -461,11 +496,13 @@ def phase_backward(fm, fb, cfg, params):
                   + w.wvec.numel() * 4 + first.numel() * 4)
         ops_ms, bytes_ms = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
         bound = max(ops_ms, bytes_ms)
-        print(f"  kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bound:.4f} (share {bound / kernel_ms:.2%})",
-              flush=True)
+        print(f"  kernel_ms={kernel_ms:.4f} (profiler: pass 1 "
+              f"{split['pass1_ms']:.4f}, the rest {split['rest_ms']:.4f}) "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} (share "
+              f"{bound / kernel_ms:.2%})", flush=True)
         rows.append({"n": n, "dtype": str(dt)[6:], "max_abs_err": errs[worst],
-                     "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "ms": kernel_ms, **split, "plain_ms": plain_ms,
+                     "bound_ms": bound,
                      "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes"})
         del pts, dirs, g, first, second
@@ -634,23 +671,30 @@ def profile_steps(tr, start: int, n: int, step_ms: float) -> dict:
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     # The backward's passes: the recompute and input gradients
-    # (fused_nerf_bwd_kernel), the weight gradients (wgrad_gemm) and the
-    # fixed-order sum of the partials (reduce_slabs).
+    # (fused_nerf_bwd_wgmma in bf16; fused_nerf_bwd_kernel is the fp32
+    # pass 1, which a bf16 step must not launch), the weight gradients
+    # (wgrad_wgmma; wgrad_gemm in fp32) and the fixed-order sum of the
+    # partials (reduce_slabs).
     us = {"fwd_kernels": 0.0, "bwd_pass1": 0.0, "bwd_wgrad": 0.0,
           "other_device": 0.0}
+    pass1_names = set()
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
             continue
         t = e.self_device_time_total
-        if "fused_nerf_bwd_kernel" in e.key:
+        if "fused_nerf_bwd" in e.key:
             us["bwd_pass1"] += t
-        elif "wgrad_gemm" in e.key or "reduce_slabs" in e.key:
+            pass1_names.add(re.search(r"fused_nerf_bwd_\w+", e.key).group(0))
+        elif "wgrad_" in e.key or "reduce_slabs" in e.key:
             us["bwd_wgrad"] += t
         elif "fused_nerf_wgmma" in e.key or "fused_nerf_kernel" in e.key:
             us["fwd_kernels"] += t
         else:
             us["other_device"] += t
     busy_ms = sum(us.values()) / n / 1e3
+    if busy_ms > 0 and pass1_names != {"fused_nerf_bwd_wgmma"}:
+        fail(f"the bf16 train step's pass 1 ran {sorted(pass1_names)}, not "
+             "fused_nerf_bwd_wgmma alone")
     split = {k: v / n / 1e3 for k, v in us.items()}
     split["bwd_kernels"] = split["bwd_pass1"] + split["bwd_wgrad"]
     split["profiled_wall"] = wall_us / n / 1e3
@@ -662,7 +706,8 @@ def profile_steps(tr, start: int, n: int, step_ms: float) -> dict:
               f"{split['bwd_pass1']:.3f}, weight gradients and sums "
               f"{split['bwd_wgrad']:.3f}), other device "
               f"work {split['other_device']:.3f} (profiled wall "
-              f"{split['profiled_wall']:.3f}); device idle "
+              f"{split['profiled_wall']:.3f}); pass-1 kernels "
+              f"{sorted(pass1_names)}; device idle "
               f"{split['idle_share']:.1%} of the {step_ms:.3f} ms step",
               flush=True)
     else:
@@ -1096,7 +1141,9 @@ def main() -> int:
         "step_ms": step_ms,
         "step_split_ms": split,
         "note": "ms/plain_ms/bound_ms at a train step's fine pass "
-                "(n=196608, bf16); max_abs_err is the largest per-leaf error "
+                "(n=196608, bf16), pass1_ms the pass-1 kernel "
+                "fused_nerf_bwd_wgmma alone (profiler; in fp32 "
+                "fused_nerf_bwd_kernel); max_abs_err is the largest per-leaf error "
                 "relative to the leaf's largest gradient; the bound counts "
                 "the least work (wgrad of 12 layers + dgrad of 11), not the "
                 "forward recompute; no single PyTorch call computes this "

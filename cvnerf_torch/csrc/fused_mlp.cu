@@ -66,143 +66,18 @@
 //
 // Operand layout and encoding: nerf_common.cuh (shared with the backward and
 // int8 kernels). The warp-specialised block, its register budget and the
-// staged encoding: nerf_wgmma.cuh (shared with the int8 kernel). wgmma, TMA,
-// mbarrier helpers and the ring of weight stages: hopper.cuh.
+// staged encoding: nerf_wgmma.cuh (shared with the int8 kernel), and in its
+// namespace bf16wg the shared-memory plan, product, load_frags, epilogue and
+// encode_wg (shared with the backward's pass 1, fused_mlp_bwd.cu). wgmma,
+// TMA, mbarrier helpers and the ring of weight stages: hopper.cuh.
 
 #include "nerf_wgmma.cuh"
 
 namespace {
 
 using namespace cvnerf;
+using namespace cvnerf::bf16wg;
 using namespace hopper;
-
-// ------------------------------------------------------------ bf16: wgmma
-
-constexpr int KCHUNK = 64;                   // k columns a stage holds: one 128 B row
-constexpr int MAX_STAGES = 8;
-constexpr int ENC_PAD = 8;                   // encoding row padding (bank spread)
-constexpr int NB = WGMMA_N;                  // columns of one wgmma (m64n64k16)
-
-// Shared-memory plan (bytes from a 1024-aligned base; `total` includes the
-// alignment slack): the weight stages [S][wgmma_rows(W) x 128 B], then each
-// consumer warpgroup's encodings enc_x [64, KX+8] and enc_d [64, KD+8]
-// (bf16) and raw inputs [2][64 x 3] (fp32), then S full and S empty
-// mbarriers. As many stages as fit, at most MAX_STAGES.
-struct Bf16Plan {
-  int stages, ldx, ldd;
-  size_t stage_bytes, enc_at, bars_at, total;
-};
-
-__host__ __device__ inline Bf16Plan bf16_plan(const Dims& d) {
-  Bf16Plan p;
-  p.ldx = d.KX + ENC_PAD;
-  p.ldd = d.KD + ENC_PAD;
-  p.stage_bytes = (size_t)wgmma_rows(d.W) * KCHUNK * 2;
-  const size_t enc = (size_t)CONSUMERS * (WG_ROWS * (p.ldx + p.ldd) * 2 + RAW_BYTES);
-  const size_t room = SMEM_LIMIT - 1024 - enc - 2 * MAX_STAGES * 8;
-  p.stages = (int)(room / p.stage_bytes);
-  if (p.stages > MAX_STAGES) p.stages = MAX_STAGES;
-  p.enc_at = p.stages * p.stage_bytes;
-  p.bars_at = p.enc_at + enc;
-  p.total = 1024 + p.bars_at + 2 * p.stages * 8;
-  return p;
-}
-
-// acc[64, N] (+)= A[64, K] W^T for the next ceil(K/64) staged chunks of
-// packed matrix W [N, K]; A is this warpgroup's register fragment a[k16]
-// (k16 < K/16). first: the product overwrites acc (else adds to it).
-__device__ __forceinline__ void product(float (&acc)[128], uint32_t (&a)[16][4], int K, int N,
-                                        bool first, Ring& r) {
-  // Every write of acc and a happens before the fence, in program order.
-#pragma unroll
-  for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) fence_operand(a[i][j]);
-  wgmma_fence();
-  ring_consume<256 / KCHUNK>(r, (K + KCHUNK - 1) / KCHUNK, [&](int kc, uint64_t desc) {
-#pragma unroll
-    for (int kk = 0; kk < KCHUNK / 16; ++kk) {
-      const int k16 = kc * (KCHUNK / 16) + kk;
-      if (k16 * 16 < K) {
-        const int scale_d = (first && k16 == 0) ? 0 : 1;
-#pragma unroll
-        for (int nb = 0; nb < 256 / NB; ++nb) {
-          // B rows nb*NB..: 8-row atoms of 1024 B, i.e. 64 descriptor
-          // units each; the k16 step: 32 B, i.e. 2.
-          if (nb * NB < N)
-            wgmma_m64n64k16_rs(&acc[nb * NB / 2], a[k16], desc + 2 * kk + nb * NB * 8, scale_d);
-        }
-      }
-    }
-  });
-#pragma unroll
-  for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
-}
-
-// a[k16] <- A fragments of this warp's rows of E [64, ld] (bf16, shared),
-// k < K: a[k16] = {(r, k0..k0+1), (r+8, k0..), (r, k0+8..), (r+8, k0+8..)}
-// with r = 16 warp + lane/4 and k0 = 16 k16 + 2 (lane%4).
-__device__ __forceinline__ void load_frags(uint32_t (&a)[16][4], const __nv_bfloat16* E, int ld,
-                                           int K) {
-  const int warp = (threadIdx.x % WG) / 32, lane = threadIdx.x % 32;
-  const __nv_bfloat16* r0 = E + (warp * 16 + lane / 4) * ld + 2 * (lane % 4);
-  const __nv_bfloat16* r8 = r0 + 8 * ld;
-#pragma unroll
-  for (int k16 = 0; k16 < 16; ++k16) {
-    if (k16 * 16 < K) {
-      a[k16][0] = *reinterpret_cast<const uint32_t*>(r0 + k16 * 16);
-      a[k16][1] = *reinterpret_cast<const uint32_t*>(r8 + k16 * 16);
-      a[k16][2] = *reinterpret_cast<const uint32_t*>(r0 + k16 * 16 + 8);
-      a[k16][3] = *reinterpret_cast<const uint32_t*>(r8 + k16 * 16 + 8);
-    }
-  }
-}
-
-// Encode this warpgroup's 64 points, p0.., into ex [64, ldx] and ed
-// [64, ldd] (bf16, freq_encode's layout, zero pad columns) by
-// nerf_wgmma.cuh's encode_staged.
-__device__ __forceinline__ void encode_wg(const float* __restrict__ pts,
-                                          const float* __restrict__ dirs, int p0, int n,
-                                          const Dims& d, int KX, int KD, __nv_bfloat16* ex,
-                                          int ldx, __nv_bfloat16* ed, int ldd, float* raw,
-                                          int bar) {
-  const int tid = threadIdx.x % WG;
-  encode_staged(pts, dirs, p0, n, d, raw, bar, [&](bool dir, int r, int col, float v) {
-    (dir ? ed + r * ldd : ex + r * ldx)[col] = __float2bfloat16(v);
-  });
-  // The pad columns lie in the last 16 of each row.
-  for (int i = tid; i < WG_ROWS * 16; i += WG) {
-    const int r = i / 16, c = i % 16;
-    if (KX - 16 + c >= 3 + 6 * d.Lx) ex[r * ldx + KX - 16 + c] = __float2bfloat16(0.f);
-    if (KD - 16 + c >= 3 + 6 * d.Ld) ed[r * ldd + KD - 16 + c] = __float2bfloat16(0.f);
-  }
-}
-
-// a <- bf16(act(acc + bias)) over N columns: the accumulator fragment of one
-// layer is the A fragment of the next (column group 2 c16 + h of the
-// accumulator is k group h of k16 step c16).
-__device__ __forceinline__ void epilogue(const float (&acc)[128], uint32_t (&a)[16][4],
-                                         const float* __restrict__ bias, int N, bool relu) {
-  const int q = threadIdx.x % 4;
-#pragma unroll
-  for (int c = 0; c < 16; ++c) {
-    if (c * 16 < N) {
-      const float2 b0 = __ldg(reinterpret_cast<const float2*>(bias + c * 16 + 2 * q));
-      const float2 b1 = __ldg(reinterpret_cast<const float2*>(bias + c * 16 + 8 + 2 * q));
-      float v[8] = {acc[8 * c + 0] + b0.x, acc[8 * c + 1] + b0.y, acc[8 * c + 2] + b0.x,
-                    acc[8 * c + 3] + b0.y, acc[8 * c + 4] + b1.x, acc[8 * c + 5] + b1.y,
-                    acc[8 * c + 6] + b1.x, acc[8 * c + 7] + b1.y};
-      if (relu) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] = fmaxf(v[i], 0.f);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[c][i] = pack_bf16(v[2 * i], v[2 * i + 1]);
-    }
-  }
-}
 
 // The consumer warpgroups' walk over their tiles. FW, FH, FKX, FKD fix the
 // widths at compile time (0: read them from d), so that every wgmma of a
@@ -216,7 +91,7 @@ __device__ __forceinline__ void consumer(const float* __restrict__ pts,
   const int wg = threadIdx.x / WG, tid = threadIdx.x % WG;
   const int lane = threadIdx.x % 32, q = lane % 4;
   const int row = (tid / 32) * 16 + lane / 4;  // this thread's rows: row, row + 8
-  unsigned char* mine = smem + pl.enc_at + wg * (WG_ROWS * (pl.ldx + pl.ldd) * 2 + RAW_BYTES);
+  unsigned char* mine = smem + pl.enc_at + wg * pl.wg_bytes;
   __nv_bfloat16* ex = reinterpret_cast<__nv_bfloat16*>(mine);
   __nv_bfloat16* ed = ex + WG_ROWS * pl.ldx;
   float* raw = reinterpret_cast<float*>(ed + WG_ROWS * pl.ldd);
@@ -229,7 +104,7 @@ __device__ __forceinline__ void consumer(const float* __restrict__ pts,
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int p0 = t * WS_TILE + wg * WG_ROWS;
     named_sync(1 + wg, WG);  // the last tile's reads of ex / ed / raw are done
-    encode_wg(pts, dirs, p0, n, d, KX, KD, ex, pl.ldx, ed, pl.ldd, raw, 1 + wg);
+    encode_wg(pts, dirs, p0, n, d, KX, KD, ex, pl.ldx, ed, pl.ldd, raw, 1 + wg, tid);
     named_sync(1 + wg, WG);
     // Define acc and a afresh (the wgmmas read both as operands), so that
     // the last tile's values are dead while the encoding runs.
@@ -436,7 +311,7 @@ fused_nerf_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
   __syncthreads();
   // Activations ping-pong: h1 A, h2 B, ..., h8 B, feat A, h10 B.
   float* const h[10] = {bufA, bufB, bufA, bufB, bufA, bufB, bufA, bufB, bufA, bufB};
-  forward_tile<float, TILE>(enc_x, ldx, enc_d, ldd, wmat, wvec, d, o, h, ld, sig, nullptr);
+  forward_tile<TILE>(enc_x, ldx, enc_d, ldd, wmat, wvec, d, o, h, ld, sig);
   // rgb = l11(h10), fp32; write (r, g, b, sigma) for the points that exist.
   for (int idx = threadIdx.x; idx < TILE * 3; idx += THREADS) {
     const int r = idx / 3, c = idx % 3;

@@ -394,7 +394,7 @@ __device__ __forceinline__ void consumer(const float* __restrict__ pts,
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int p0 = t * WS_TILE + wg * WG_ROWS;
     named_sync(1 + wg, WG);  // the last tile's reads of qx / qd / raw are done
-    encode_staged(pts, dirs, p0, n, d, raw, 1 + wg, emit);
+    encode_staged(pts, dirs, p0, n, d, raw, 1 + wg, tid, emit);
     named_sync(1 + wg, WG);
     // Define acc and a afresh (the wgmmas read both as operands), so that
     // the last tile's values are dead while the encoding runs.

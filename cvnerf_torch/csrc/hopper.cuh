@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
 // TMA tile loads, the ring of weight stages a TMA producer fills and wgmma
 // consumers drain, wgmma shared-memory descriptors and products (bf16 and
-// int8) with the A operand in registers, warpgroup register reallocation,
+// int8) with the A operand in registers, or (bf16) both operands MN-major
+// in shared memory, warpgroup register reallocation,
 // and the host-side encoding of TMA tensor maps. PTX as the ISA defines it;
 // nothing here allocates or launches.
 
@@ -76,6 +77,17 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t tile) {
   return (uint64_t)((tile & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
+// wgmma descriptor of an MN-major operand tile written by TMA with 128-byte
+// swizzle: a box [k rows, 64 bf16] whose rows, 128 B each, run along M (or
+// N) at consecutive k, in 8-row atoms 1024 B apart, the tile 1024-byte
+// aligned. One product reads one atom column (64 along M or N), so only
+// the step between 8-row atoms along K is used; both stride fields hold
+// 1024 B. Adding 128 to the descriptor moves 16 rows along K (one wgmma k
+// step).
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t tile) {
+  return (uint64_t)((tile & 0x3FFFF) >> 4) | (64ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -113,6 +125,22 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, 
       " {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : HOPPER_F8(0), HOPPER_F8(8), HOPPER_F8(16), HOPPER_F8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// D[64, 64] (+)= A[64, 16] B[16, 64], bf16 in, fp32 accumulators, both
+// operands in shared memory and MN-major (A's M and B's N contiguous, the
+// transpose bits set; desc_sw128_mn). The accumulator fragment is
+// wgmma_m64n64k16_rs's.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_mn(float* d, uint64_t da, uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : HOPPER_F8(0), HOPPER_F8(8), HOPPER_F8(16), HOPPER_F8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 #undef HOPPER_F8

@@ -1,17 +1,15 @@
 // Device code shared by the fused NeRF MLP kernels (fused_mlp.cu forward,
 // fused_mlp_bwd.cu backward, fused_mlp_int8.cu): the packed-operand layout,
-// the frequency encoding of a tile of points, the warp-tiled products and
-// the forward layer walk. The backward kernel recomputes the forward
-// through forward_tile (wmma bf16 / FFMA fp32), as does the fp32 forward;
-// the bf16 forward is the wgmma kernel of fused_mlp.cu, which keeps the
-// same cast points but sums in another order, so a ReLU within rounding of
-// zero may flip between the two (bounded like any kernel vs plain gap).
+// the frequency encoding of a tile of points, and the fp32 kernels' FFMA
+// products and forward layer walk (forward_tile: the fp32 forward and the
+// fp32 backward's recompute). The bf16 kernels are wgmma kernels
+// (nerf_wgmma.cuh).
 //
 // Operand layout (packed on the host by cvnerf_torch/ops/fused_mlp.py):
 //   wmat (compute dtype): w1 [W,KX], w2..w5 [W,W], w6a [W,W], w6b [W,KX],
 //     w7, w8, w9 [W,W], w10a [H,W], w10b [H,KD]; each [out, in] row-major for
-//     bf16 (wmma's column-major B; wgmma's K-major B, each block read by
-//     TMA, so it starts 16-byte aligned with rows of 16-byte multiples)
+//     bf16 (wgmma's K-major B, each block read by TMA, so it starts
+//     16-byte aligned with rows of 16-byte multiples)
 //     and [in, out] row-major for fp32.
 //   wvec (fp32): b1..b9 [W] each, b10 [H], wa [W], w11 [3, H], ba [4], b11 [4]
 //     (wa and w11 already rounded to the compute dtype).
@@ -23,15 +21,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace cvnerf {
 
 constexpr int THREADS = 256;  // 8 warps
-constexpr int WARPS = THREADS / 32;
 constexpr int PAD = 8;        // shared-memory row padding (elements)
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -148,60 +142,8 @@ __device__ __forceinline__ void encode_tile(const float* __restrict__ pts,
 // B[k * ldb + n]. Every output element goes through epi(row, col, acc),
 // which stores it and returns the fp32 value; with COLSUM the returned
 // values are also summed per column into colpart[group * N + col]
-// (colgroups<T, TILE>() groups, each summing a fixed set of rows in a fixed
+// (colgroups<TILE>() groups, each summing a fixed set of rows in a fixed
 // order, so the sums are deterministic).
-
-// bf16: nvcuda::wmma 16x16x16 with fp32 accumulators; each warp owns 16x16
-// output tiles and finishes them through a per-warp 16x16 fp32 scratch.
-template <int TILE, bool B_COL, bool COLSUM, class Epi>
-__device__ __forceinline__ void gemm(const __nv_bfloat16* A, int lda, int K,
-                                     const __nv_bfloat16* __restrict__ B, int ldb,
-                                     const __nv_bfloat16* A2, int lda2, int K2,
-                                     const __nv_bfloat16* __restrict__ B2, int ldb2, int N,
-                                     float* scratch, float* colpart, const Epi& epi) {
-  using namespace nvcuda;
-  using BLayout = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sc = scratch + warp * 256;
-  const int n_tiles = (TILE / 16) * (N / 16);
-  for (int t = warp; t < n_tiles; t += WARPS) {
-    const int mi = t % (TILE / 16), ni = t / (TILE / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> b;
-    for (int k = 0; k < K; k += 16) {
-      wmma::load_matrix_sync(a, A + mi * 16 * lda + k, lda);
-      wmma::load_matrix_sync(b, B_COL ? B + (long)ni * 16 * ldb + k : B + (long)k * ldb + ni * 16,
-                             ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    for (int k = 0; k < K2; k += 16) {
-      wmma::load_matrix_sync(a, A2 + mi * 16 * lda2 + k, lda2);
-      wmma::load_matrix_sync(
-          b, B_COL ? B2 + (long)ni * 16 * ldb2 + k : B2 + (long)k * ldb2 + ni * 16, ldb2);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(sc, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    const int row = lane / 2, col0 = (lane % 2) * 8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float* s = sc + row * 16 + col0 + j;
-      const float v = epi(mi * 16 + row, ni * 16 + col0 + j, *s);
-      if (COLSUM) *s = v;
-    }
-    __syncwarp();
-    if (COLSUM) {
-      if (lane < 16) {
-        float s = 0.f;
-        for (int r = 0; r < 16; ++r) s += sc[r * 16 + lane];
-        colpart[mi * N + ni * 16 + lane] = s;
-      }
-      __syncwarp();
-    }
-  }
-}
 
 // fp32: plain FFMA, never TF32 (the JAX kernels demand Precision.HIGHEST).
 // Threads form an RG x CG grid: thread (ty, tx) owns rows ty + RG i (i < R)
@@ -220,7 +162,7 @@ __device__ __forceinline__ void gemm(const float* A, int lda, int K,
                                      const float* __restrict__ B, int ldb,
                                      const float* A2, int lda2, int K2,
                                      const float* __restrict__ B2, int ldb2, int N,
-                                     float*, float* colpart, const Epi& epi) {
+                                     float* colpart, const Epi& epi) {
   using G = FfmaGrid<TILE>;
   constexpr int R = G::R, C = G::C;
   const int tx = threadIdx.x % G::CG, ty = threadIdx.x / G::CG;
@@ -270,89 +212,78 @@ __device__ __forceinline__ void gemm(const float* A, int lda, int K,
 }
 
 // Row groups of gemm's column partial sums.
-template <typename T, int TILE> __host__ __device__ constexpr int colgroups() {
-  return sizeof(T) == 2 ? TILE / 16 : FfmaGrid<TILE>::RG;
-}
+template <int TILE> __host__ __device__ constexpr int colgroups() { return FfmaGrid<TILE>::RG; }
 
-// Forward epilogue: bias + optional ReLU in fp32, then the cast.
-template <typename T>
+// Forward epilogue: bias + optional ReLU in fp32.
 struct EpiAct {
   const float* bias;
   bool relu;
-  T* out;
+  float* out;
   int ldo;
   __device__ __forceinline__ float operator()(int row, int col, float acc) const {
     float v = acc + bias[col];
     if (relu) v = fmaxf(v, 0.f);
-    out[row * ldo + col] = from_float<T>(v);
+    out[row * ldo + col] = v;
     return v;
   }
 };
 
 // out[TILE, N] = act(in @ W + in2 @ W2 + bias), W in the packed layout.
 template <int TILE>
-__device__ __forceinline__ void layer(const __nv_bfloat16* in, int ldin, int K,
-                                      const __nv_bfloat16* W, const __nv_bfloat16* in2, int ldin2,
-                                      int K2, const __nv_bfloat16* W2, const float* bias, int N,
-                                      bool relu, __nv_bfloat16* out, int ldout, float* scratch) {
-  const EpiAct<__nv_bfloat16> e{bias, relu, out, ldout};
-  gemm<TILE, true, false>(in, ldin, K, W, K, in2, ldin2, K2, W2, K2, N, scratch, nullptr, e);
-}
-template <int TILE>
 __device__ __forceinline__ void layer(const float* in, int ldin, int K, const float* W,
                                       const float* in2, int ldin2, int K2, const float* W2,
-                                      const float* bias, int N, bool relu, float* out, int ldout,
-                                      float* scratch) {
-  const EpiAct<float> e{bias, relu, out, ldout};
-  gemm<TILE, false, false>(in, ldin, K, W, N, in2, ldin2, K2, W2, N, N, scratch, nullptr, e);
+                                      const float* bias, int N, bool relu, float* out,
+                                      int ldout) {
+  const EpiAct e{bias, relu, out, ldout};
+  gemm<TILE, false, false>(in, ldin, K, W, N, in2, ldin2, K2, W2, N, N, nullptr, e);
 }
 
 // The 12-layer walk on one encoded tile: h[0..7] = h1..h8, h[8] = feat
-// (l9, no ReLU), h[9] = h10 (l10 on [feat | dir_enc]), each [TILE, ld] in
-// the compute dtype. The buffers may alias as long as no layer reads the
+// (l9, no ReLU), h[9] = h10 (l10 on [feat | dir_enc]), each [TILE, ld]
+// (fp32). The buffers may alias as long as no layer reads the
 // buffer it writes (the forward kernel ping-pongs two). With sig non-null,
 // sigma = h8 . wa + ba (fp32) is written to sig[TILE] right after h8.
-template <typename T, int TILE>
-__device__ __forceinline__ void forward_tile(const T* enc_x, int ldx, const T* enc_d,
-                                             int ldd, const T* __restrict__ wmat,
+template <int TILE>
+__device__ __forceinline__ void forward_tile(const float* enc_x, int ldx, const float* enc_d,
+                                             int ldd, const float* __restrict__ wmat,
                                              const float* __restrict__ wvec, const Dims& d,
-                                             const Offsets& o, T* const* h, int ld,
-                                             float* sig, float* scratch) {
+                                             const Offsets& o, float* const* h, int ld,
+                                             float* sig) {
   const int W = d.W;
   layer<TILE>(enc_x, ldx, d.KX, wmat + o.w1, nullptr, 0, 0, nullptr, wvec + o.b[0], W, true,
-              h[0], ld, scratch);
+              h[0], ld);
   __syncthreads();
   const long wt[4] = {o.w2, o.w3, o.w4, o.w5};
 #pragma unroll
   for (int l = 0; l < 4; ++l) {
     layer<TILE>(h[l], ld, W, wmat + wt[l], nullptr, 0, 0, nullptr, wvec + o.b[l + 1], W, true,
-                h[l + 1], ld, scratch);
+                h[l + 1], ld);
     __syncthreads();
   }
   // l6 on [xyz_enc | h5]: hidden part + encoding part into one accumulator.
   layer<TILE>(h[4], ld, W, wmat + o.w6a, enc_x, ldx, d.KX, wmat + o.w6b, wvec + o.b[5], W,
-              true, h[5], ld, scratch);
+              true, h[5], ld);
   __syncthreads();
   layer<TILE>(h[5], ld, W, wmat + o.w7, nullptr, 0, 0, nullptr, wvec + o.b[6], W, true, h[6],
-              ld, scratch);
+              ld);
   __syncthreads();
   layer<TILE>(h[6], ld, W, wmat + o.w8, nullptr, 0, 0, nullptr, wvec + o.b[7], W, true, h[7],
-              ld, scratch);
+              ld);
   __syncthreads();
   if (sig != nullptr) {  // sigma = h8 . wa + ba, fp32 (no activation).
     for (int r = threadIdx.x; r < TILE; r += THREADS) {
       float s = 0.f;
-      for (int k = 0; k < W; ++k) s = fmaf(to_float(h[7][r * ld + k]), wvec[o.wa + k], s);
+      for (int k = 0; k < W; ++k) s = fmaf(h[7][r * ld + k], wvec[o.wa + k], s);
       sig[r] = s + wvec[o.ba];
     }
   }
   // feat = l9(h8), cast without ReLU.
   layer<TILE>(h[7], ld, W, wmat + o.w9, nullptr, 0, 0, nullptr, wvec + o.b[8], W, false, h[8],
-              ld, scratch);
+              ld);
   __syncthreads();
   // l10 on [feat | dir_enc] (H wide).
   layer<TILE>(h[8], ld, W, wmat + o.w10a, enc_d, ldd, d.KD, wmat + o.w10b, wvec + o.b10, d.H,
-              true, h[9], ld, scratch);
+              true, h[9], ld);
   __syncthreads();
 }
 

@@ -8,7 +8,11 @@ backward kernel (``cvnerf_torch/csrc/fused_mlp_bwd.cu``) recomputes the
 forward per tile of points and backpropagates the upstream ``g [n, 4]``
 through all 12 layers, returning fp32 weight and bias gradients summed
 over all points in the packed operand layout. :func:`unpack_grads` maps
-them to the params layout.
+them to the params layout. In bf16 its pass 1 is ``fused_nerf_bwd_wgmma``
+(TMA-fed ``wgmma`` with the activations and deltas in registers; launch
+plan :func:`bwd_launch_plan`), which reads the input-gradient weights
+from :func:`in_out_matrices`, and its weight gradients ``wgrad_wgmma``
+(TMA-fed ``wgmma`` on the stashed operands).
 
 Gradients flow to the **parameters only**. Sample positions enter the loss
 through depths the renderer detaches and ray origins/directions are data,
@@ -25,9 +29,9 @@ import torch
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
 from cvnerf_torch.ops.encoding import freq_encode
-from cvnerf_torch.ops.fused_mlp import (FusedNerfWeights, forward_flops,
-                                        fused_nerf_apply, load_library,
-                                        mat_blocks, packed_size)
+from cvnerf_torch.ops.fused_mlp import (SMEM_LIMIT, FusedNerfWeights,
+                                        forward_flops, fused_nerf_apply,
+                                        load_library, mat_blocks, packed_size)
 
 # Param leaves in the order the autograd function takes them.
 LEAVES = tuple((name, part)
@@ -55,21 +59,110 @@ def _bind_backward(lib) -> None:
     lib.cvnerf_fused_nerf_backward.restype = ctypes.c_int
     lib.cvnerf_fused_nerf_bwd_workspace.argtypes = [i, i, i, i, i, i]
     lib.cvnerf_fused_nerf_bwd_workspace.restype = ctypes.c_long
+    lib.cvnerf_fused_nerf_bwd_plan.argtypes = [i, i, i, i, i,
+                                               ctypes.POINTER(ctypes.c_long)]
+    lib.cvnerf_fused_nerf_bwd_plan.restype = ctypes.c_int
+
+
+def _transposed_blocks(wmat: torch.Tensor, cfg: NerfMLPConfig,
+                       rows_are_in: bool) -> torch.Tensor:
+    """Every packed block of ``wmat`` transposed, at the same offsets: a
+    block stored ``[in, out]`` (``rows_are_in``) becomes ``[out, in]`` and
+    the other way round."""
+    parts, p = [], 0
+    for _, fin, fout in mat_blocks(cfg):
+        shape = (fin, fout) if rows_are_in else (fout, fin)
+        parts.append(wmat[p:p + fin * fout].reshape(shape).t().reshape(-1))
+        p += fin * fout
+    return torch.cat(parts)
 
 
 def out_in_matrices(weights: FusedNerfWeights) -> torch.Tensor:
     """``weights.wmat`` with every block in the ``[out, in]`` layout, which
-    the kernel's input gradients read (adjacent threads, adjacent weights).
-    The bf16 packing already is; the fp32 one is ``[in, out]`` and is
-    transposed here, block by block."""
+    the fp32 kernel's input gradients read (adjacent threads, adjacent
+    weights). The bf16 packing already is; the fp32 one is ``[in, out]`` and
+    is transposed here, block by block."""
     if weights.compute_dtype == torch.bfloat16:
         return weights.wmat
-    parts, p = [], 0
-    for _, fin, fout in mat_blocks(weights.cfg):
-        blk = weights.wmat[p:p + fin * fout]
-        parts.append(blk.reshape(fin, fout).t().reshape(-1))
-        p += fin * fout
-    return torch.cat(parts)
+    return _transposed_blocks(weights.wmat, weights.cfg, rows_are_in=True)
+
+
+def in_out_matrices(weights: FusedNerfWeights) -> torch.Tensor:
+    """The bf16 packing ``weights.wmat`` with every block transposed to
+    ``[in, out]``, at the packing's offsets: the K-major B operand of the
+    bf16 kernel's input gradients ``d_prev[64, in] = d[64, out] W[out, in]``
+    (``in`` the product's N rows, ``out`` its depth), read by TMA like the
+    forward's blocks (each block starts 16-byte aligned and its rows,
+    ``out`` wide, are multiples of 16 bytes). Built once per backward call:
+    1.19 MB at full width."""
+    if weights.compute_dtype != torch.bfloat16:
+        raise ValueError("in_out_matrices is the bf16 kernel's operand")
+    return _transposed_blocks(weights.wmat, weights.cfg, rows_are_in=False)
+
+
+# The bf16 backward's pass 1 (csrc/fused_mlp_bwd.cu, fused_nerf_bwd_wgmma):
+# the bf16 forward's block (one TMA producer warpgroup and two consumer
+# warpgroups of 64 points, one block per SM, at most one per 128-point tile)
+# with, beside each consumer warpgroup's encodings and raw inputs, its rows'
+# upstream g [64, 4] (fp32) and the ReLU masks of h1..h8 (one 32-bit word a
+# thread, 4 words a layer). Points go in chunks of 2^18; each chunk's stash
+# holds every weight gradient's operands in bf16 for rows rounded up to the
+# tile; weight gradients are split-K partials over about 16,384 points (at
+# most 16 a chunk); vector slabs: one per block and one per consumer warp.
+_BWD_CHUNK = 1 << 18
+_BWD_TILE = 128
+_BWD_MASK_BYTES = 8 * 4 * 128 * 4
+_SPLIT_POINTS = 16384
+_MAX_SPLITS = 16
+
+
+def _splits(cn: int) -> int:
+    return min(max(-(-cn // _SPLIT_POINTS), 1), _MAX_SPLITS)
+
+
+def _r(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def bwd_launch_plan(cfg: NerfMLPConfig, n: int, sm_count: int) -> dict:
+    """The bf16 backward's launch for ``n`` points on a card of
+    ``sm_count`` SMs, as ``cvnerf_fused_nerf_bwd_plan`` computes it: pass
+    1's blocks, threads, dynamic shared-memory bytes and weight stages, the
+    stash's rows, the workspace bytes (block and warp vector slabs, split-K
+    partials, the stash of one chunk, each 256-byte aligned) and the
+    split-K partials over all chunks."""
+    w, h = cfg.trunk_width, cfg.head_width
+    kx, kd = _r(cfg.xyz_dim, 16), _r(cfg.dir_dim, 16)
+    stage = _r(w, 64) * 64 * 2
+    per_wg = (64 * (kx + 8 + kd + 8) * 2 + 2 * 64 * 3 * 4 + 64 * 4 * 4
+              + _BWD_MASK_BYTES)
+    stages = min(8, (SMEM_LIMIT - 1024 - 2 * per_wg - 2 * 8 * 8) // stage)
+    first = min(n, _BWD_CHUNK)
+    blocks = min(-(-first // _BWD_TILE), sm_count)
+    rows = _r(first, _BWD_TILE)
+    vec = 9 * w + h + w + 3 * h + 8
+    vstride, mstride = _r(vec, 64), _r(packed_size(cfg) - vec, 64)
+    splits = sum(_splits(min(_BWD_CHUNK, n - p0))
+                 for p0 in range(0, n, _BWD_CHUNK))
+    stash = rows * (kx + kd + 9 * w + 9 * w + h) * 2
+    workspace = (_r(blocks * vstride * 4, 256) + _r(8 * blocks * vstride * 4, 256)
+                 + _r(splits * mstride * 4, 256) + _r(stash, 256))
+    return {"blocks": blocks, "threads": 384,
+            "smem_bytes": 1024 + stages * stage + 2 * per_wg + 2 * stages * 8,
+            "stages": stages, "stash_rows": rows,
+            "workspace_bytes": workspace, "splits": splits}
+
+
+def kernel_bwd_plan(cfg: NerfMLPConfig, n: int) -> dict:
+    """The same plan as the built kernel computes it on the current card."""
+    lib = load_library("fused_mlp_bwd", _bind_backward)
+    plan = (ctypes.c_long * 7)()
+    err = lib.cvnerf_fused_nerf_bwd_plan(n, cfg.trunk_width, cfg.head_width,
+                                         cfg.xyz_freqs, cfg.dir_freqs, plan)
+    if err != 0:
+        raise RuntimeError(f"cvnerf_fused_nerf_bwd_plan: CUDA error {err}")
+    return dict(zip(("blocks", "threads", "smem_bytes", "stages",
+                     "stash_rows", "workspace_bytes", "splits"), plan))
 
 
 def unpack_grads(flat: torch.Tensor, cfg: NerfMLPConfig,
@@ -227,11 +320,14 @@ def fused_nerf_bwd(weights: FusedNerfWeights, points: torch.Tensor,
         # per-split fp32 partials, which the kernel sums in a fixed order
         # (no float atomics).
         ws = torch.empty(nbytes, dtype=torch.uint8, device=points.device)
-        wout = out_in_matrices(weights)
+        # Each block transposed: the input gradients' weights.
+        wt = in_out_matrices(weights) if bf16 else out_in_matrices(weights)
+        if weights.wmat.data_ptr() % 16 or wt.data_ptr() % 16:
+            raise ValueError("packed weights must start 16-byte aligned (TMA)")
         stream = torch.cuda.current_stream(points.device).cuda_stream
         err = lib.cvnerf_fused_nerf_backward(
             points.data_ptr(), viewdirs.data_ptr(), g.data_ptr(),
-            weights.wmat.data_ptr(), wout.data_ptr(), weights.wvec.data_ptr(),
+            weights.wmat.data_ptr(), wt.data_ptr(), weights.wvec.data_ptr(),
             ws.data_ptr(), nbytes, out.data_ptr(), n, w, h, lx, ld, bf16,
             stream)
     if err != 0:

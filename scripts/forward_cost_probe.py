@@ -4,10 +4,10 @@ NVIDIA card, at the serving chunks (lego net, seeded random weights).
 
     python3 scripts/forward_cost_probe.py
 
-Each variant is the kernel source with one text substitution (the script
-fails if the source no longer holds the text it replaces), built with the
-port's nvcc flags into ``build/forward_cost_probe/`` and called through the
-C entry point. Their outputs are wrong on purpose; only their times mean
+Each variant is the kernel's sources with one text substitution (the
+script fails if they no longer hold the text it replaces), built with the
+port's nvcc flags into ``build/forward_cost_probe/<variant>/`` and called
+through the C entry point. Their outputs are wrong on purpose; only their times mean
 something:
   base         the kernel as it is;
   no_tma       the producer completes each weight stage without loading it
@@ -41,38 +41,41 @@ CSRC = ROOT / "cvnerf_torch" / "csrc"
 OUT = ROOT / "build" / "forward_cost_probe"
 
 
-def variants() -> dict[str, str]:
+def variants() -> dict[str, dict[str, str]]:
+    """Per variant, the sources that differ from csrc/: file name -> text."""
     src = (CSRC / "fused_mlp.cu").read_text()
+    head = (CSRC / "nerf_wgmma.cuh").read_text()
 
     def sub(s: str, old: str, new: str) -> str:
         if old not in s:
-            raise SystemExit(f"fused_mlp.cu no longer holds:\n{old}")
+            raise SystemExit(f"the kernel's sources no longer hold:\n{old}")
         return s.replace(old, new)
 
-    v = {"base": src}
-    v["no_tma"] = sub(src, """            ring_load(ring, &maps.m[m], k0, (uint32_t)wgmma_rows(N) * KCHUNK * 2);""",
-                      """            {
+    v = {"base": {}}
+    v["no_tma"] = {"fused_mlp.cu": sub(src, """            ring_load(ring, &maps.m[m], k0, (uint32_t)wgmma_rows(N) * KCHUNK * 2);""",
+                                       """            {
               mbar_wait(ring.empty_bar(ring.stage), ring.phase ^ 1);
               mbar_arrive(ring.full_bar());
               ring.advance();
-            }""")
-    v["no_encode"] = sub(src, "    encode_wg(pts, dirs, p0, n, d, KX, KD, ex, pl.ldx, ed, "
-                              "pl.ldd, raw, 1 + wg);", "")
-    e = sub(src, """      const float2 b0 = __ldg(reinterpret_cast<const float2*>(bias + c * 16 + 2 * q));
+            }""")}
+    v["no_encode"] = {"fused_mlp.cu": sub(src, "    encode_wg(pts, dirs, p0, n, d, KX, KD, ex, pl.ldx, "
+                                               "ed, pl.ldd, raw, 1 + wg, tid);", "")}
+    e = sub(head, """      const float2 b0 = __ldg(reinterpret_cast<const float2*>(bias + c * 16 + 2 * q));
       const float2 b1 = __ldg(reinterpret_cast<const float2*>(bias + c * 16 + 8 + 2 * q));""",
             "      const float2 b0 = make_float2(0.f, 0.f), b1 = b0;")
-    v["no_epilogue"] = sub(e, """      for (int i = 0; i < 4; ++i) a[c][i] = pack_bf16(v[2 * i], v[2 * i + 1]);""",
-                           """      for (int i = 0; i < 4; ++i) a[c][i] = __float_as_uint(acc[8 * c + 2 * i]);""")
+    v["no_epilogue"] = {"nerf_wgmma.cuh": sub(e, """      for (int i = 0; i < 4; ++i) a[c][i] = pack_bf16(v[2 * i], v[2 * i + 1]);""",
+                                              """      for (int i = 0; i < 4; ++i) a[c][i] = __float_as_uint(acc[8 * c + 2 * i]);""")}
     return v
 
 
-def build(name: str, src: str) -> Path:
-    OUT.mkdir(parents=True, exist_ok=True)
-    for h in CSRC.glob("*.cuh"):
-        (OUT / h.name).write_text(h.read_text())
-    cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
-    cu.write_text(src)
-    res = subprocess.run([fm._nvcc(), *fm.NVCC_FLAGS, "-o", str(so), str(cu)],
+def build(name: str, files: dict[str, str]) -> Path:
+    """The kernel with `files` in place of csrc/'s, in a directory of its own."""
+    out = OUT / name
+    out.mkdir(parents=True, exist_ok=True)
+    for f in list(CSRC.glob("*.cuh")) + [CSRC / "fused_mlp.cu"]:
+        (out / f.name).write_text(files.get(f.name, f.read_text()))
+    so = out / "fused_mlp.so"
+    res = subprocess.run([fm._nvcc(), *fm.NVCC_FLAGS, "-o", str(so), str(out / "fused_mlp.cu")],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise SystemExit(f"nvcc failed on {name}:\n{res.stderr[-3000:]}")

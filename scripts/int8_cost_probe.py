@@ -72,7 +72,7 @@ def variants() -> dict[str, str]:
               mbar_arrive(ring.full_bar());
               ring.advance();
             }""")
-    v["no_encode"] = sub(src, "    encode_staged(pts, dirs, p0, n, d, raw, 1 + wg, emit);", "")
+    v["no_encode"] = sub(src, "    encode_staged(pts, dirs, p0, n, d, raw, 1 + wg, tid, emit);", "")
     dequant = "  return __fadd_rn(__fmul_rn(__int2float_rn(acc), s), b);"
     v["no_requant"] = sub(src, """  if (lo == 0.f) {
     const uint32_t x =""", """  return pack4(a0, a1, a2, a3);

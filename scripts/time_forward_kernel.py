@@ -6,10 +6,17 @@ in turns, at the four shapes of the main paths: a serving coarse chunk
 (1024 x 192 = 196,608). The lego-shaped net (trunk 256, head 128, L = 10/4)
 with seeded random weights. With ``--int8``, the int8 forward kernel
 (``cvnerf_torch.ops.fused_mlp_int8.fused_nerf_apply_int8``) instead, on the
-net quantized on the card from seeded calibration samples, at the shapes
+net quantized on the card from calibration points a seeded torch generator
+draws (not the checkout's own draws, which may differ), at the shapes
 of the int8 serving path (the two serving chunks) and a ragged n = 65,573.
+With ``--bwd``, the bf16 backward (``cvnerf_torch.ops.fused_mlp_bwd.
+fused_nerf_bwd``) at a train step's coarse and fine passes, with seeded
+upstream gradients: the whole backward by CUDA events and, from
+``torch.profiler`` over 3 more launches, its pass 1 (the kernel whose name
+holds ``fused_nerf_bwd``) and the rest (``wgrad_gemm``, ``reduce_slabs``,
+the workspace's memset).
 
-    python3 scripts/time_forward_kernel.py [--int8] ROOT [ROOT ...]
+    python3 scripts/time_forward_kernel.py [--int8 | --bwd] ROOT [ROOT ...]
 
 Each ROOT is a checkout (for example a parent commit unpacked with
 ``git archive``); each runs in its own process, in the order given, so
@@ -33,9 +40,27 @@ SHAPES = {"serve_coarse": 8192 * 64, "serve_fine": 8192 * 192,
           "train_coarse": 1024 * 64, "train_fine": 1024 * 192}
 INT8_SHAPES = {"serve_coarse": 8192 * 64, "serve_fine": 8192 * 192,
                "ragged": 2 ** 16 + 37}
+BWD_SHAPES = {"train_coarse": 1024 * 64, "train_fine": 1024 * 192}
 
 
-def time_one(root: str, int8: bool) -> dict:
+def split_ms(apply, reps: int = 3) -> dict:
+    """Device ms per call of the backward's pass 1 and of its other
+    kernels, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            apply()
+        torch.cuda.synchronize()
+    out = {"pass1": 0.0, "rest": 0.0}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            key = "pass1" if "fused_nerf_bwd" in e.key else "rest"
+            out[key] += e.self_device_time_total / reps / 1e3
+    return out
+
+
+def time_one(root: str, kind: str) -> dict:
     sys.path.insert(0, str(Path(root).resolve()))
     import numpy as np
     import torch
@@ -45,59 +70,77 @@ def time_one(root: str, int8: bool) -> dict:
         raise SystemExit(f"imported {fm.__file__}, not the checkout {root}")
     cfg = NerfMLPConfig()
     params = init_nerf_params(torch.Generator().manual_seed(0), cfg, "cuda")
-    if int8:
+    if kind == "bwd":
+        from cvnerf_torch.ops import fused_mlp_bwd as fb
+        w = fm.FusedNerfWeights(params, cfg, torch.bfloat16)
+        shapes = BWD_SHAPES
+
+        def apply(pts, dirs, g):
+            return fb.fused_nerf_bwd(w, pts, dirs, g)
+    elif kind == "int8":
         from cvnerf_torch.ops import fused_mlp_int8 as fq
         from cvnerf_torch.ops import quantize as tq
-        from cvnerf_torch.ops import rng
-        cpts, cdirs = tq.calibration_samples(rng.PRNGKey(6), 1 << 17,
-                                             (-6.0,) * 3, (6.0,) * 3, "cuda")
+        # Calibration points from a seeded torch generator, not the
+        # checkout's own draws, so that every checkout quantizes the same
+        # weights and equal hashes mean equal kernels.
+        cal = torch.Generator().manual_seed(6)
+        cpts = (torch.rand(1 << 17, 3, generator=cal) * 12 - 6).cuda()
+        cdirs = torch.nn.functional.normalize(
+            torch.randn(1 << 17, 3, generator=cal), dim=-1).cuda()
         qw = fq.QuantizedNerfWeights(tq.quantize_nerf(params, cfg, cpts,
                                                       cdirs), cfg)
         shapes = INT8_SHAPES
 
-        def apply(pts, dirs):
+        def apply(pts, dirs, g):
             return fq.fused_nerf_apply_int8(qw, pts, dirs)
     else:
         w = fm.FusedNerfWeights(params, cfg, torch.bfloat16)
         shapes = SHAPES
 
-        def apply(pts, dirs):
+        def apply(pts, dirs, g):
             return fm.fused_nerf_apply(w, pts, dirs)
     gen = torch.Generator().manual_seed(1)
-    out, digest = {}, {}
+    grads = torch.Generator().manual_seed(2)
+    out, digest, split = {}, {}, {}
     for name, n in shapes.items():
         pts = (torch.randn(n, 3, generator=gen) * 2).cuda()
         dirs = torch.nn.functional.normalize(
             torch.randn(n, 3, generator=gen), dim=-1).cuda()
-        res = apply(pts, dirs)
+        g = ((torch.randn(n, 4, generator=grads) * 1e-3).cuda()
+             if kind == "bwd" else None)
+        res = apply(pts, dirs, g)
         digest[name] = hashlib.sha256(res.cpu().numpy().tobytes()
                                       ).hexdigest()[:16]
-        apply(pts, dirs)
+        apply(pts, dirs, g)
         torch.cuda.synchronize()
         times = []
         for _ in range(7):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            apply(pts, dirs)
+            apply(pts, dirs, g)
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         out[name] = float(np.median(times))
-    return {"root": root, "kernel": "int8" if int8 else "bf16", "ms": out,
-            "output_sha256": digest}
+        if kind == "bwd":
+            split[name] = split_ms(lambda: apply(pts, dirs, g))
+    res = {"root": root, "kernel": kind, "ms": out, "output_sha256": digest}
+    if split:
+        res["split_ms"] = split
+    return res
 
 
 def main() -> int:
     args = sys.argv[1:]
-    int8 = bool(args) and args[0] == "--int8"
-    if int8:
-        args = args[1:]
+    kind = "bf16"
+    if args and args[0] in ("--int8", "--bwd"):
+        kind, args = args[0][2:], args[1:]
     if len(args) > 1 and args[0] == "--one":
         import torch
         if not torch.cuda.is_available():
             raise SystemExit("no CUDA card")
-        print(json.dumps(time_one(args[1], int8)), flush=True)
+        print(json.dumps(time_one(args[1], kind)), flush=True)
         return 0
     if not args:
         raise SystemExit(__doc__)
@@ -107,7 +150,8 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     for root in args:
         res = subprocess.run([sys.executable, __file__]
-                             + ["--int8"] * int8 + ["--one", root],
+                             + [f"--{kind}"] * (kind != "bf16")
+                             + ["--one", root],
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             raise SystemExit(f"{root}: {res.stderr[-3000:]}")
