@@ -5,23 +5,23 @@
 Phases (any failure exits non-zero; no phase is caught and passed over):
   1. build every kernel from the checkout's sources (``nvcc``, one process
      per source, all started together), print ptxas' registers and spills
-     of the bf16 and int8 forward kernels and of the bf16 backward's pass 1
-     and weight-gradient kernels (a spill fails), and hold the forward
-     kernel against its plain PyTorch version on the card at full width:
-     fp32 at a ragged n; bf16 at ragged sizes around its 128-point tiles and
-     one-block-per-SM grid (1, 127, 129, a full wave of tiles + 1, 65,573),
-     the serving chunks and a train step's shapes, each bf16 case launched
-     twice and bitwise equal, its launch plan the host's; time both with
-     CUDA events (median of >= 5 runs after warm-up), and beside the fine
-     chunk the same products unfused through ``torch.matmul``
-     (``gemm_chain_ms``, a yardstick of cuBLAS on these shapes);
-  1b. hold the backward kernel against its plain version at full width
-     (ragged n in fp32 and bf16, the train step's coarse and fine shapes
-     and a ragged n past one chunk in bf16), per leaf relative to the
-     leaf's largest gradient, check that two launches on the same inputs
-     agree bitwise and (bf16) that its launch plan is the host's, and time
-     both, the kernel also split into pass 1 and the rest by
-     ``torch.profiler``;
+     of the bf16, fp32 and int8 forward kernels and of both backwards' pass
+     1 and weight-gradient kernels (a spill fails), and hold the forward
+     kernel against its plain PyTorch version on the card at full width, in
+     fp32 and bf16: at ragged sizes around the dtype's tiles (fp32 64
+     points, bf16 128) and one-block-per-SM grid (1, tile - 1, tile + 1, a
+     full wave of tiles + 1, 65,573), the serving chunks and a train step's
+     shapes, each case launched twice and bitwise equal, its launch plan
+     the host's; time both with CUDA events (median of >= 5 runs after
+     warm-up), and beside the fine chunk the same products unfused through
+     ``torch.matmul`` in the same dtype (``gemm_chain_ms``, a yardstick of
+     cuBLAS on these shapes; fp32 without TF32);
+  1b. hold the backward kernel against its plain version at full width, in
+     fp32 and bf16 (a ragged n, the train step's coarse and fine shapes and
+     a ragged n past one chunk), per leaf relative to the leaf's largest
+     gradient, check that two launches on the same inputs agree bitwise and
+     that its launch plan is the host's, and time both, the kernel also
+     split into pass 1 and the rest by ``torch.profiler``;
      at the ragged n also print what the tolerances rest on (two plain
      versions, two halves against the whole, a planted fault) and check the
      ragged tail's points alone;
@@ -48,6 +48,9 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      sample flips witnessed by its terminal density's sign), and time
      phase 3's pose sequence under int8;
   3. render a two-pose sequence through ``NerfRenderer.render_video``;
+  3b. serve fp32 (the ``--no-bf16`` path): the server's renderer from a run
+     directory whose snapshot says ``"bf16": false`` renders one 400x400
+     frame (40 fp32 forward launches, no plain call; wall time printed);
   4. render one small frame with the kernel and with ``kernels="off"`` on
      the card and compare them;
   5. train (main path): ``create_train_state`` and ``Trainer.run`` for
@@ -57,9 +60,13 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      ``torch.profiler`` (the backward's pass 1 must be
      ``fused_nerf_bwd_wgmma`` alone), then render one 400x400 frame of the
      trained params;
+  5b. train fp32 (the ``--no-bf16`` path): TRAIN_STEPS_FP32 steps of the
+     same workload in fp32 through ``Trainer`` (2 + 2 launches a step, no
+     plain call), the step time and a profiler split whose pass 1 must be
+     ``fused_nerf_bwd_ffma`` alone;
   6. one train step with the kernels and with ``kernels="off"`` from the
      same state and key, in fp32 and in bf16, compared.
-The launch counts of phases 2, 2b, 3 and 5 (the main paths) are reset just
+The launch counts of phases 2, 2b, 3, 3b, 5 and 5b (the main paths) are reset just
 before each phase and read just after: the kernels must have launched
 exactly as often as the chunking implies (40 forward launches per 400x400
 frame at chunk 8192, or 40 int8 launches and no forward launch under
@@ -128,6 +135,7 @@ TOL_INT8 = 1e-6
 INT8_FLIP_SHARE = 0.02        # see phase_int8_serve
 TRAIN_HW = 400
 TRAIN_STEPS = 50
+TRAIN_STEPS_FP32 = 5
 
 
 def fail(msg: str) -> None:
@@ -213,14 +221,17 @@ def ptxas_report(fm, library: Path, kernel: str) -> list[dict]:
     return list(found.values())
 
 
-def gemm_chain_ms(cfg, n: int) -> tuple[float, float]:
+def gemm_chain_ms(cfg, n: int, dt=torch.bfloat16) -> tuple[float, float]:
     """The forward's products alone, unfused, through ``torch.matmul`` in
-    bf16 at the kernel's padded widths: l1 and l6b (n x KX x W), eight
-    W x W layers, l10a (n x W x H) and l10b (n x KD x H). Returns the
-    median ms and the FLOP it does."""
+    ``dt`` (fp32: full fp32 products, ``allow_tf32`` False) at the kernel's
+    padded widths: l1 and l6b (n x KX x W), eight W x W layers, l10a
+    (n x W x H) and l10b (n x KD x H). Returns the median ms and the FLOP
+    it does."""
+    if dt == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        fail("the fp32 yardstick must not run on TF32")
     w, h = cfg.trunk_width, cfg.head_width
     kx, kd = -(-cfg.xyz_dim // 16) * 16, -(-cfg.dir_dim // 16) * 16
-    bf = dict(device="cuda", dtype=torch.bfloat16)
+    bf = dict(device="cuda", dtype=dt)
     x, xe, de = (torch.randn(n, k, **bf) for k in (w, kx, kd))
     wx, ww, wh, wd = (torch.randn(a, b, **bf) * 0.05
                       for a, b in ((kx, w), (w, w), (w, h), (kd, h)))
@@ -272,21 +283,24 @@ def phase_kernels(fm, cfg, params):
     print(f"built {[str(p.name) for p in libs.values()]} in "
           f"{time.time() - t0:.1f} s", flush=True)
     check_ptxas(fm, libs["fused_mlp"], "fused_nerf_wgmma")
+    check_ptxas(fm, libs["fused_mlp"], "fused_nerf_ffma")
     check_ptxas(fm, libs["fused_mlp_int8"], "fused_nerf_int8_wgmma")
     check_ptxas(fm, libs["fused_mlp_bwd"], "fused_nerf_bwd_wgmma")
     check_ptxas(fm, libs["fused_mlp_bwd"], "wgrad_wgmma")
+    check_ptxas(fm, libs["fused_mlp_bwd"], "fused_nerf_bwd_ffma")
+    check_ptxas(fm, libs["fused_mlp_bwd"], "wgrad_ffma")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(SEED + 1)
     rows = []
-    # fp32 at a ragged size; bf16 at ragged sizes around the 128-point tiles
-    # and the one-block-per-SM grid, the serving shapes (a coarse chunk of
-    # 8192 rays x 64, a fine chunk x 192) and a train step's (1024 rays x 64
-    # coarse, x 192 fine).
-    ragged = [1, 127, 129, sms * 128 + 1, 2 ** 16 + 37]
-    cases = ([(2 ** 16 + 37, torch.float32)]
-             + [(n, torch.bfloat16) for n in ragged]
-             + [(n, torch.bfloat16) for n in (CHUNK * 64, CHUNK * 192,
-                                              1024 * 64, 1024 * 192)])
+    # Each dtype at ragged sizes around its tiles (fp32 64 points, bf16 128)
+    # and its one-block-per-SM grid, then the serving shapes (a coarse chunk
+    # of 8192 rays x 64, a fine chunk x 192) and a train step's (1024 rays x
+    # 64 coarse, x 192 fine).
+    main_shapes = (CHUNK * 64, CHUNK * 192, 1024 * 64, 1024 * 192)
+    cases = [(n, dt) for dt, tile in ((torch.float32, fm.FP32_TILE),
+                                      (torch.bfloat16, fm.BF16_TILE))
+             for n in (1, tile - 1, tile + 1, sms * tile + 1, 2 ** 16 + 37)
+             + main_shapes]
     for n, dt in cases:
         w = fm.FusedNerfWeights(params, cfg, dt)
         pts, dirs = inputs(n, gen)
@@ -298,19 +312,22 @@ def phase_kernels(fm, cfg, params):
         tol = TOL_FP32 if dt == torch.float32 else TOL_BF16
         ok = bool(torch.isfinite(got).all()) and got.shape == (n, 4)
         same = torch.equal(got, again)
-        plan = ""
         if dt == torch.bfloat16:
-            plan = fm.kernel_bf16_plan(cfg, n)
-            if plan != fm.bf16_launch_plan(cfg, n, sms):
-                fail(f"the kernel's launch plan {plan} is not the host's "
-                     f"{fm.bf16_launch_plan(cfg, n, sms)} (n={n})")
+            plan, host = fm.kernel_bf16_plan(cfg, n), fm.bf16_launch_plan(
+                cfg, n, sms)
+        else:
+            plan, host = fm.kernel_fp32_plan(cfg, n), fm.fp32_launch_plan(
+                cfg, n, sms)
+        if plan != host:
+            fail(f"the kernel's launch plan {plan} is not the host's {host} "
+                 f"(n={n}, {dt})")
         print(f"fused_nerf_apply n={n} {str(dt)[6:]}: max_abs_err={err:.3e} "
               f"(tol {tol:g}) finite_and_shaped={ok} two launches bitwise "
               f"equal: {same} {plan}", flush=True)
         if not ok or not err <= tol:
             fail(f"kernel disagrees with its plain version (n={n}, {dt})")
-        if dt == torch.bfloat16 and not same:
-            fail(f"two bf16 launches differ (n={n})")
+        if not same:
+            fail(f"two {dt} launches differ (n={n})")
         del again
         kernel_ms = time_ms(lambda: fm.fused_nerf_apply(w, pts, dirs))
         plain_ms = time_ms(lambda: fm.fused_nerf_plain(params, pts, dirs,
@@ -331,10 +348,10 @@ def phase_kernels(fm, cfg, params):
                      else "bytes"})
         del pts, dirs, got, want
         if n == CHUNK * 192:
-            chain_ms, chain_flops = gemm_chain_ms(cfg, n)
+            chain_ms, chain_flops = gemm_chain_ms(cfg, n, dt)
             rows[-1]["gemm_chain_ms"] = chain_ms
-            print(f"  gemm_chain_ms={chain_ms:.4f} (the same bf16 products "
-                  f"unfused through torch.matmul, "
+            print(f"  gemm_chain_ms={chain_ms:.4f} (the same {str(dt)[6:]} "
+                  f"products unfused through torch.matmul, "
                   f"{chain_flops / chain_ms / 1e9:.2f} TFLOP/s; a yardstick, "
                   "not library_ms)", flush=True)
         torch.cuda.empty_cache()
@@ -429,8 +446,8 @@ def leaf_errors(got: dict, want: dict) -> dict:
 
 def bwd_split_ms(run, reps: int = 3) -> dict:
     """Device ms per backward launch of its pass 1 (the kernel named
-    ``fused_nerf_bwd_wgmma`` in bf16, ``fused_nerf_bwd_kernel`` in fp32)
-    and of the rest (weight gradients, sums, the workspace's memset, the
+    ``fused_nerf_bwd_wgmma`` in bf16, ``fused_nerf_bwd_ffma`` in fp32) and
+    of the rest (weight gradients, sums, the workspace's memset, the
     weights' transposed copy), from ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -452,12 +469,12 @@ def phase_backward(fm, fb, cfg, params):
     gen = torch.Generator().manual_seed(SEED + 4)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    # Ragged size in both dtypes, a train step's coarse (1024 rays x 64)
+    # In both dtypes: a ragged size, a train step's coarse (1024 rays x 64)
     # and fine (x 192) shapes, and a ragged size past the kernel's chunk of
     # 2^18 points (two chunks).
-    cases = [(2 ** 16 + 37, torch.float32), (2 ** 16 + 37, torch.bfloat16),
-             (1024 * 64, torch.bfloat16), (1024 * 192, torch.bfloat16),
-             (2 ** 18 + 2 ** 15 + 37, torch.bfloat16)]
+    cases = [(n, dt) for dt in (torch.float32, torch.bfloat16)
+             for n in (2 ** 16 + 37, 1024 * 64, 1024 * 192,
+                       2 ** 18 + 2 ** 15 + 37)]
     for n, dt in cases:
         w = fm.FusedNerfWeights(params, cfg, dt)
         pts, dirs = inputs(n, gen)
@@ -473,12 +490,12 @@ def phase_backward(fm, fb, cfg, params):
         if n == 2 ** 16 + 37:
             calibrate(fb, cfg, params, w, pts, dirs, g, first, want)
         finite = bool(torch.isfinite(first).all())
-        plan = ""
-        if dt == torch.bfloat16:
-            plan = fb.kernel_bwd_plan(cfg, n)
-            if plan != fb.bwd_launch_plan(cfg, n, sms):
-                fail(f"the backward's launch plan {plan} is not the host's "
-                     f"{fb.bwd_launch_plan(cfg, n, sms)} (n={n})")
+        plan = fb.kernel_bwd_plan(cfg, n, dt)
+        host = (fb.bwd_launch_plan if dt == torch.bfloat16
+                else fb.bwd32_launch_plan)(cfg, n, sms)
+        if plan != host:
+            fail(f"the backward's launch plan {plan} is not the host's "
+                 f"{host} (n={n}, {dt})")
         print(f"fused_nerf_bwd n={n} {str(dt)[6:]}: max leaf error "
               f"{errs[worst]:.3e} ({worst}; tol {tol:g}), bitwise equal over "
               f"two launches: {same}, finite: {finite} {plan}", flush=True)
@@ -514,7 +531,8 @@ def calibrate(fb, cfg, params, w, pts, dirs, g, whole, want) -> None:
     plain versions (cuBLAS on the card, the CPU) disagree on the same
     inputs, how far the kernel's gradients of two halves of the points are
     from its whole, and what a kernel that dropped the ragged tail would
-    read. Then checks the ragged tail's points alone."""
+    read, which must lie above the tolerance. Then checks the ragged
+    tail's points alone."""
     dt, n = w.compute_dtype, pts.shape[0]
     cpu = {k: {p: t.cpu() for p, t in v.items()} for k, v in params.items()}
     on_cpu = fb.fused_nerf_bwd_plain(cpu, pts.cpu(), dirs.cpu(), g.cpu(), cfg,
@@ -554,6 +572,10 @@ def calibrate(fb, cfg, params, w, pts, dirs, g, whole, want) -> None:
           f"(tol {TOL_TAIL:g})", flush=True)
     if not tail <= TOL_TAIL:
         fail(f"backward check of the ragged tail failed (n={n}, {dt})")
+    tol = TOL_BWD_FP32 if dt == torch.float32 else TOL_BWD_BF16
+    if not dropped > tol:
+        fail(f"the planted fault reads {dropped:.3e}, within the tolerance "
+             f"{tol:g}: the check could not see a dropped tail ({dt})")
 
 
 def reset_counts(fm, fb, fq) -> None:
@@ -659,10 +681,12 @@ def phase_train(fm, fb, fq, card: str):
     return counts, med, split
 
 
-def profile_steps(tr, start: int, n: int, step_ms: float) -> dict:
+def profile_steps(tr, start: int, n: int, step_ms: float,
+                  pass1: str = "fused_nerf_bwd_wgmma") -> dict:
     """Device time per train step by kernel group, from ``torch.profiler``
     (device activity only) over ``n`` more steps after the counted run, and
-    the device's idle share of the unprofiled median step ``step_ms``."""
+    the device's idle share of the unprofiled median step ``step_ms``. The
+    backward's pass 1 must be the kernel ``pass1`` alone."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -671,10 +695,9 @@ def profile_steps(tr, start: int, n: int, step_ms: float) -> dict:
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     # The backward's passes: the recompute and input gradients
-    # (fused_nerf_bwd_wgmma in bf16; fused_nerf_bwd_kernel is the fp32
-    # pass 1, which a bf16 step must not launch), the weight gradients
-    # (wgrad_wgmma; wgrad_gemm in fp32) and the fixed-order sum of the
-    # partials (reduce_slabs).
+    # (fused_nerf_bwd_wgmma in bf16, fused_nerf_bwd_ffma in fp32; a step
+    # must launch its own dtype's alone), the weight gradients (wgrad_wgmma,
+    # wgrad_ffma) and the fixed-order sum of the partials (reduce_slabs).
     us = {"fwd_kernels": 0.0, "bwd_pass1": 0.0, "bwd_wgrad": 0.0,
           "other_device": 0.0}
     pass1_names = set()
@@ -687,14 +710,14 @@ def profile_steps(tr, start: int, n: int, step_ms: float) -> dict:
             pass1_names.add(re.search(r"fused_nerf_bwd_\w+", e.key).group(0))
         elif "wgrad_" in e.key or "reduce_slabs" in e.key:
             us["bwd_wgrad"] += t
-        elif "fused_nerf_wgmma" in e.key or "fused_nerf_kernel" in e.key:
+        elif "fused_nerf_wgmma" in e.key or "fused_nerf_ffma" in e.key:
             us["fwd_kernels"] += t
         else:
             us["other_device"] += t
     busy_ms = sum(us.values()) / n / 1e3
-    if busy_ms > 0 and pass1_names != {"fused_nerf_bwd_wgmma"}:
-        fail(f"the bf16 train step's pass 1 ran {sorted(pass1_names)}, not "
-             "fused_nerf_bwd_wgmma alone")
+    if busy_ms > 0 and pass1_names != {pass1}:
+        fail(f"the train step's pass 1 ran {sorted(pass1_names)}, not "
+             f"{pass1} alone")
     split = {k: v / n / 1e3 for k, v in us.items()}
     split["bwd_kernels"] = split["bwd_pass1"] + split["bwd_wgrad"]
     split["profiled_wall"] = wall_us / n / 1e3
@@ -714,6 +737,89 @@ def profile_steps(tr, start: int, n: int, step_ms: float) -> dict:
         print("train step split: the profiler saw no device time (not "
               "measured)", flush=True)
     return split
+
+
+def phase_train_fp32(fm, fb, fq, card: str):
+    """The --no-bf16 training path: TRAIN_STEPS_FP32 lego-shaped fp32
+    steps through ``Trainer``, exactly 2 forward and 2 backward launches a
+    step and no plain call, the step time by CUDA events and a profiler
+    split whose pass 1 is ``fused_nerf_bwd_ffma`` alone. Returns the launch
+    counts, the median step and the split."""
+    from cvnerf_torch.data.synthetic import bench_scene
+    from cvnerf_torch.train.loop import Trainer
+    from cvnerf_torch.train.state import create_train_state
+    images, poses = bench_scene(TRAIN_HW, TRAIN_HW)
+    tcfg = lego_train_config(torch.float32)
+    state = create_train_state(torch.Generator().manual_seed(SEED),
+                               lr=tcfg.lr, lr_decay=tcfg.lr_decay,
+                               mlp=tcfg.render.mlp, device="cuda")
+    tr = Trainer(tcfg, state, images, poses, [0, 1], seed=SEED)
+    seen, events = [], []
+
+    def on_step(i, trainer, m):
+        seen.append(m)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    tr.add_callback(1, on_step)
+    torch.cuda.synchronize()
+    reset_counts(fm, fb, fq)
+    t0 = time.perf_counter()
+    tr.run(1, 1 + TRAIN_STEPS_FP32)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS_FP32
+    counts = read_counts(fm, fb, fq)
+    med = float(np.median([a.elapsed_time(b)
+                           for a, b in zip(events, events[1:])]))
+    finite = all(np.isfinite(v) for m in seen for v in m.values())
+    want = {"fwd": 2 * TRAIN_STEPS_FP32, "bwd": 2 * TRAIN_STEPS_FP32,
+            "int8": 0, "fwd_plain": 0, "bwd_plain": 0, "int8_plain": 0}
+    print(f"train --no-bf16: {TRAIN_STEPS_FP32} lego-shaped fp32 steps "
+          f"through Trainer: loss {seen[0]['loss']:.4f} -> "
+          f"{seen[-1]['loss']:.4f}, metrics finite: {finite}; median step "
+          f"{med:.3f} ms by CUDA events (wall {wall:.3f} ms a step); "
+          f"launches {counts} (expected {want}); card: {card}", flush=True)
+    if not finite or len(seen) != TRAIN_STEPS_FP32:
+        fail("fp32 train: missing or non-finite metrics")
+    if counts != want:
+        fail("fp32 train: the step did not run exactly through the kernels")
+    split = profile_steps(tr, 1 + TRAIN_STEPS_FP32, 3, med,
+                          pass1="fused_nerf_bwd_ffma")
+    return counts, med, split
+
+
+def phase_frame_fp32(fm, fb, fq, run: str):
+    """The --no-bf16 serving path: the server's renderer from a run
+    directory whose snapshot says ``"bf16": false`` renders one 400x400
+    frame; exactly 40 forward launches and no plain call. Returns the
+    launch counts and the frame's wall ms."""
+    from cvnerf_torch.server import build_parser, renderer_from_args
+    args = build_parser().parse_args(["--run", run, "--device", "cuda"])
+    renderer = renderer_from_args(args)
+    if renderer.cfg.compute_dtype != torch.float32:
+        fail("the fp32 run directory did not load as fp32")
+    renderer.render_video(np.stack([pose(1.1)]))   # warm
+    torch.cuda.synchronize()
+    reset_counts(fm, fb, fq)
+    t0 = time.perf_counter()
+    frames = renderer.render_video(np.stack([pose(0.3)]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts(fm, fb, fq)
+    per_frame = 2 * -(-SERVE_HW * SERVE_HW // CHUNK)          # 40
+    want = {"fwd": per_frame, "bwd": 0, "int8": 0, "fwd_plain": 0,
+            "bwd_plain": 0, "int8_plain": 0}
+    ok = (frames.shape == (1, SERVE_HW, SERVE_HW, 3)
+          and bool(np.isfinite(frames).all()))
+    print(f"serve --no-bf16: one {SERVE_HW}x{SERVE_HW} fp32 frame in "
+          f"{ms:.1f} ms wall, finite and shaped: {ok}; launches {counts} "
+          f"(expected {want})", flush=True)
+    if not ok:
+        fail("the fp32 frame is misshapen or non-finite")
+    if counts != want:
+        fail("fp32 serving did not run exactly through the kernel")
+    return counts, ms
 
 
 def phase_step_vs_off(cfg):
@@ -771,12 +877,13 @@ def phase_step_vs_off(cfg):
             fail(f"train step {dt}: kernels and kernels='off' disagree")
 
 
-def write_run_dir(run: str, cfg, convert, init, gen_seed: int) -> None:
+def write_run_dir(run: str, cfg, convert, init, gen_seed: int,
+                  bf16: bool = True) -> None:
     os.makedirs(os.path.join(run, "torch_checkpoints"))
     scene = {"height": SERVE_HW, "width": SERVE_HW, "focal": 555.0,
              "near": 2.0, "far": 6.0, "ndc": False,
              "ndc_variant": "canonical", "white_bkg": True, "n_coarse": 64,
-             "n_fine": 128, "bf16": True, "sorted_resample": True,
+             "n_fine": 128, "bf16": bf16, "sorted_resample": True,
              "pallas": "auto",
              "mlp": {"xyz_freqs": cfg.xyz_freqs, "dir_freqs": cfg.dir_freqs,
                      "trunk_width": cfg.trunk_width,
@@ -1083,6 +1190,12 @@ def main() -> int:
                                        np.asarray(out["acc"], np.float32),
                                        t_json)
 
+        # -- 3b. fp32 serving, the --no-bf16 path (main path) -------------
+        run32 = os.path.join(tmp, "lego_serve_fp32")
+        write_run_dir(run32, cfg, convert, init_nerf_params, SEED + 2,
+                      bf16=False)
+        frame32_counts, frame32_ms = phase_frame_fp32(fm, fb, fq, run32)
+
     # -- 4. kernel vs kernels="off", end to end, on the card -------------
     nets = {k: init_nerf_params(torch.Generator().manual_seed(SEED + 3 + i),
                                 cfg, "cuda")
@@ -1108,13 +1221,22 @@ def main() -> int:
 
     # -- 5. train through Trainer (main path) -----------------------------
     train_counts, step_ms, split = phase_train(fm, fb, fq, card)
+    # -- 5b. fp32 training, the --no-bf16 path (main path) ----------------
+    train32_counts, step32_ms, split32 = phase_train_fp32(fm, fb, fq, card)
 
     # -- 6. one train step, kernels vs kernels="off", on the card ----------
     phase_step_vs_off(cfg)
 
     main_launches = serve_launches + video_launches + train_counts["fwd"]
-    serve_row = next(r for r in rows if r["n"] == CHUNK * 192)
-    fine_row = next(r for r in bwd_rows if r["n"] == 1024 * 192)
+    serve_row = next(r for r in rows
+                     if r["n"] == CHUNK * 192 and r["dtype"] == "bfloat16")
+    fine_row = next(r for r in bwd_rows
+                    if r["n"] == 1024 * 192 and r["dtype"] == "bfloat16")
+
+    def fp32_of(shape_rows, n):
+        r = next(r for r in shape_rows
+                 if r["n"] == n and r["dtype"] == "float32")
+        return {k: v for k, v in r.items() if k not in ("n", "dtype")}
     report = {"kernels": [{
         "name": "fused_nerf_apply", "route": "cuda",
         "source": "cvnerf_torch/csrc/fused_mlp.cu",
@@ -1125,9 +1247,15 @@ def main() -> int:
         "bound_ms": serve_row["bound_ms"], "bound_by": serve_row["bound_by"],
         "library_ms": None,
         "shapes": rows,
+        "fp32": {"kernel": "fused_nerf_ffma",
+                 "launches": frame32_counts["fwd"] + train32_counts["fwd"],
+                 "frame_ms": frame32_ms, **fp32_of(rows, CHUNK * 192)},
         "note": "ms/plain_ms/bound_ms at the fine-pass chunk "
-                f"(n={CHUNK * 192}, bf16); no single PyTorch call computes "
-                "this function, so library_ms is null",
+                f"(n={CHUNK * 192}, bf16: fused_nerf_wgmma); fp32 (the "
+                "--no-bf16 path, fused_nerf_ffma) at the same chunk, its "
+                "launches from one fp32 frame and the fp32 train steps; no "
+                "single PyTorch call computes this function, so library_ms "
+                "is null",
     }, {
         "name": "fused_nerf_bwd", "route": "cuda",
         "source": "cvnerf_torch/csrc/fused_mlp_bwd.cu",
@@ -1140,10 +1268,14 @@ def main() -> int:
         "shapes": bwd_rows,
         "step_ms": step_ms,
         "step_split_ms": split,
+        "fp32": {"kernels": ["fused_nerf_bwd_ffma", "wgrad_ffma"],
+                 "launches": train32_counts["bwd"], "step_ms": step32_ms,
+                 "step_split_ms": split32, **fp32_of(bwd_rows, 1024 * 192)},
         "note": "ms/plain_ms/bound_ms at a train step's fine pass "
                 "(n=196608, bf16), pass1_ms the pass-1 kernel "
-                "fused_nerf_bwd_wgmma alone (profiler; in fp32 "
-                "fused_nerf_bwd_kernel); max_abs_err is the largest per-leaf error "
+                "fused_nerf_bwd_wgmma alone (profiler; in fp32, the "
+                "--no-bf16 path, fused_nerf_bwd_ffma, then wgrad_ffma); "
+                "max_abs_err is the largest per-leaf error "
                 "relative to the leaf's largest gradient; the bound counts "
                 "the least work (wgrad of 12 layers + dgrad of 11), not the "
                 "forward recompute; no single PyTorch call computes this "

@@ -12,14 +12,14 @@
 //
 // What bounds it on this card: operations. The full-width net does 1,186,816
 // FLOP per point against 24 B in and 16 B out of device memory, so the
-// tensor cores (989 TFLOP/s dense bf16) bound it: 1.887 ms for a fine chunk
-// of 1,572,864 points. The cost that stands between a kernel and that bound
-// is the weights: all 1.19 MB of them (bf16) pass through every tile of
-// points, so a tile of M points reads each weight byte once per M FLOP. At
-// M = 64 with each warp fetching its own fragments from L2 (the first
-// version: nvcuda::wmma 16x16x16, weights re-read per 16x16 output tile,
-// ~74 KB of L2 reads a point) the kernel sat at ~4.5% of the bound, limited
-// by the latency of those unstaged loads.
+// tensor cores (989 TFLOP/s dense bf16) bound the bf16 kernel: 1.887 ms for
+// a fine chunk of 1,572,864 points. The cost that stands between a kernel
+// and that bound is the weights: all 1.19 MB of them (bf16) pass through
+// every tile of points, so a tile of M points reads each weight byte once
+// per M FLOP. At M = 64 with each warp fetching its own fragments from L2
+// (the first version: nvcuda::wmma 16x16x16, weights re-read per 16x16
+// output tile, ~74 KB of L2 reads a point) the kernel sat at ~4.5% of the
+// bound, limited by the latency of those unstaged loads.
 //
 // bf16 design (fused_nerf_wgmma):
 //   * one persistent block per SM walks tiles of 128 points: one producer
@@ -56,22 +56,46 @@
 //     __shfl_xor_sync; rows past n compute on the encoded origin and are
 //     never written; no atomics, a fixed tile -> block map: two launches on the
 //     same inputs are bitwise equal.
-// fp32 (no main path runs it): the first version's FFMA walk, never TF32
-// (the JAX kernel demands Precision.HIGHEST), through nerf_common.cuh's
-// forward_tile with activations ping-ponging in shared memory.
+// fp32 design (fused_nerf_ffma; the --no-bf16 path: every MLP query of an
+// fp32 frame or train step). True fp32 products on the FFMA pipe, never
+// TF32 (the JAX kernel demands Precision.HIGHEST), so what bounds it is the
+// FFMA rate: 1,186,816 FLOP a point at 67 TFLOP/s, 1.162 ms at n = 65,573.
+// The first version walked 64-point tiles with the weights loaded from L2
+// inside the FFMA loop (16 loads per 64 FFMAs a thread, 8 warps an SM to
+// hide them, 2.4 MB of weights re-read per block) and sat at 15% of that
+// bound. This one is nerf_ffma.cuh's block:
+//   * a persistent grid of one block per SM walks the 64-point tiles; one
+//     producer warp streams every layer's weights, tile after tile, in
+//     16-row K-slabs (contiguous in the fp32 [in, out] packing) by bulk
+//     copies into a ring of up to 8 stages, so the FFMA loop never waits
+//     on L2;
+//   * eight consumer warps each hold 8 x 8 register micro-tiles (8 points
+//     x 8 columns) and read both operands from shared memory by 16-byte
+//     loads: 4 loads, one wavefront each, per 64 FFMAs; the activations
+//     lie [k][64 points], swizzled, in one buffer that each layer's output
+//     overwrites from registers after a barrier; the encodings stay in two
+//     more; the l6 skip and the l10 concat are split products into one
+//     accumulator; the lego head (128 wide) takes one column chunk a
+//     thread, so every thread stays busy;
+//   * sigma and rgb are per-thread partial dots over the thread's columns
+//     of h8 and h10 in registers, summed by shuffles over a warp's column
+//     groups and then over the 4 warp columns in a fixed order; no atomics,
+//     a fixed tile -> block map: two launches are bitwise equal.
 // What the TPU kernel did for its matrix unit (mantissa-split phase matmul,
 // the [id|sin|cos] row permutation, the transposed [channels, T] layout, the
 // 8-row output padding) has no counterpart here: the encoding keeps
 // freq_encode's own layout [x | sin_0 cos_0 | ...], zero-padded to 16.
 //
-// Operand layout and encoding: nerf_common.cuh (shared with the backward and
-// int8 kernels). The warp-specialised block, its register budget and the
-// staged encoding: nerf_wgmma.cuh (shared with the int8 kernel), and in its
+// Operand layout: nerf_common.cuh (shared with the backward and int8
+// kernels). The warp-specialised block, its register budget and the staged
+// encoding: nerf_wgmma.cuh (shared with the int8 kernel), and in its
 // namespace bf16wg the shared-memory plan, product, load_frags, epilogue and
-// encode_wg (shared with the backward's pass 1, fused_mlp_bwd.cu). wgmma,
-// TMA, mbarrier helpers and the ring of weight stages: hopper.cuh.
+// encode_wg (shared with the backward's pass 1, fused_mlp_bwd.cu). The fp32
+// block: nerf_ffma.cuh (shared with the fp32 backward's pass 1). wgmma,
+// TMA, bulk copies, mbarrier helpers and the ring of weight stages:
+// hopper.cuh.
 
-#include "nerf_wgmma.cuh"
+#include "nerf_ffma.cuh"
 
 namespace {
 
@@ -269,81 +293,170 @@ int launch_bf16(const float* pts, const float* dirs, const void* wmat, const flo
 }
 
 // ------------------------------------------------------------ fp32: FFMA
+// fused_nerf_ffma: nerf_ffma.cuh's block. Its own shared memory: the head
+// partials hp [4 warp columns][64 points][r, g, b, sigma].
+constexpr size_t HEAD_BYTES = 4 * ffma::TILE * 4 * sizeof(float);
 
-constexpr int TILE = 64;  // points per block
-
-// Dynamic shared-memory plan, in bytes: two activation buffers [TILE, W+PAD],
-// enc_x [TILE, KX+PAD], enc_d [TILE, KD+PAD] and sigma [TILE].
-__host__ __device__ inline void smem_plan(const Dims& d, size_t* off_b, size_t* off_ex,
-                                          size_t* off_ed, size_t* off_sig, size_t* total) {
-  size_t p = 0;
-  const size_t act = align128((size_t)TILE * (d.W + PAD) * sizeof(float));
-  *off_b = p + act;
-  p += 2 * act;
-  *off_ex = p;
-  p += align128((size_t)TILE * (d.KX + PAD) * sizeof(float));
-  *off_ed = p;
-  p += align128((size_t)TILE * (d.KD + PAD) * sizeof(float));
-  *off_sig = p;
-  p += align128(TILE * sizeof(float));
-  *total = p;
+__host__ __device__ inline ffma::Plan fp32_plan(const Dims& d) {
+  return ffma::plan(d, HEAD_BYTES);
 }
 
-// One block per SM fits in shared memory, so its registers need not leave
-// room for a second.
-__global__ void __launch_bounds__(THREADS, 1)
-fused_nerf_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
-                  const float* __restrict__ wmat, const float* __restrict__ wvec,
-                  float* __restrict__ out, int n, Dims d) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  size_t off_b, off_ex, off_ed, off_sig, total;
-  smem_plan(d, &off_b, &off_ex, &off_ed, &off_sig, &total);
-  float* bufA = reinterpret_cast<float*>(smem);
-  float* bufB = reinterpret_cast<float*>(smem + off_b);
-  float* enc_x = reinterpret_cast<float*>(smem + off_ex);
-  float* enc_d = reinterpret_cast<float*>(smem + off_ed);
-  float* sig = reinterpret_cast<float*>(smem + off_sig);
-  const int ld = d.W + PAD, ldx = d.KX + PAD, ldd = d.KD + PAD;
+// hp[warp column][point(i)][ch] <- the sum of part[i] over the warp's 8
+// column groups (every lane calls it; the shuffles are the warp's).
+__device__ __forceinline__ void head_part(float (&part)[8], float* hp, int ch,
+                                          const ffma::Thr& t) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) part[i] = ffma::row_sum8(part[i]);
+  if ((t.lane & 7) == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) hp[((t.warp & 3) * ffma::TILE + t.point(i)) * 4 + ch] = part[i];
+  }
+}
+
+// part[i] <- sum over this thread's columns below N of v[i][j] w[col(j)].
+template <int NCH>
+__device__ __forceinline__ void dot_cols(const float (&v)[8][8], const float* __restrict__ w,
+                                         int N, float (&part)[8], const ffma::Thr& t) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) part[i] = 0.f;
+#pragma unroll
+  for (int jc = 0; jc < NCH; ++jc) {
+    if (ffma::chunk_in(jc, N, t)) {
+      const float4 w4 = __ldg(reinterpret_cast<const float4*>(w + 128 * jc + 4 * t.cg));
+      const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) part[i] = fmaf(v[i][4 * jc + jj], ww[jj], part[i]);
+    }
+  }
+}
+
+// The consumer warps' walk over their tiles. FW, FH, FKX, FKD fix the
+// widths at compile time (0: read them from d; then every product takes
+// both column chunks, and a layer 128 wide or less computes the second
+// chunk's unused columns).
+template <int FW, int FH, int FKX, int FKD>
+__device__ __forceinline__ void fp32_consumer(const float* __restrict__ pts,
+                                              const float* __restrict__ dirs,
+                                              const float* __restrict__ wvec,
+                                              float* __restrict__ out, int n, const Dims& d,
+                                              int tiles, const ffma::Plan& pl,
+                                              unsigned char* smem, Ring& ring) {
+  using namespace ffma;
+  constexpr int NW = (FW == 0 || FW > 128) ? 2 : 1;
+  constexpr int NH = (FH == 0 || FH > 128) ? 2 : 1;
+  const Thr t = thr();
+  const int W = FW ? FW : d.W, H = FH ? FH : d.H;
+  const int KX = FKX ? FKX : d.KX, KD = FKD ? FKD : d.KD;
+  float* buf = reinterpret_cast<float*>(smem + pl.act_at);
+  float* ex = reinterpret_cast<float*>(smem + pl.ex_at);
+  float* ed = reinterpret_cast<float*>(smem + pl.ed_at);
+  float* raw = reinterpret_cast<float*>(smem + pl.raw_at);
+  float* hp = reinterpret_cast<float*>(smem + pl.own_at);
+  const Stages st{reinterpret_cast<const float*>(smem), (int)(pl.stage_bytes / 4)};
   const Offsets o = offsets(d);
-  const int p0 = blockIdx.x * TILE;
+  zero_pad_rows(d, ex, ed);
+  float acc[8][8], part[8];
 
-  encode_tile<float, TILE>(pts, dirs, p0, n, d, enc_x, ldx, enc_d, ldd);
-  __syncthreads();
-  // Activations ping-pong: h1 A, h2 B, ..., h8 B, feat A, h10 B.
-  float* const h[10] = {bufA, bufB, bufA, bufB, bufA, bufB, bufA, bufB, bufA, bufB};
-  forward_tile<TILE>(enc_x, ldx, enc_d, ldd, wmat, wvec, d, o, h, ld, sig);
-  // rgb = l11(h10), fp32; write (r, g, b, sigma) for the points that exist.
-  for (int idx = threadIdx.x; idx < TILE * 3; idx += THREADS) {
-    const int r = idx / 3, c = idx % 3;
-    const int p = p0 + r;
-    if (p >= n) continue;
-    float s = 0.f;
-    for (int k = 0; k < d.H; ++k) s = fmaf(bufB[r * ld + k], wvec[o.w11 + (long)c * d.H + k], s);
-    out[4L * p + c] = s + wvec[o.b11 + c];
-  }
-  for (int r = threadIdx.x; r < TILE; r += THREADS) {
-    const int p = p0 + r;
-    if (p < n) out[4L * p + 3] = sig[r];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int p0 = tile * TILE;
+    named_sync(BAR, CONSUMER_THREADS);  // the last tile's reads of ex, ed, raw, hp are done
+    encode(pts, dirs, p0, n, d, ex, ed, raw);
+    // l1: enc_x (buf is free: the last tile's products are done)
+    ffma::product<NW>(acc, ex, KX, W, true, ring, st, t);
+    bias_act<NW>(acc, wvec + o.b[0], W, true, t);
+    store_rows<NW>(acc, buf, W, t);
+    named_sync(BAR, CONSUMER_THREADS);
+    // l2..l9 (bias l at wvec + l W); l6 on [xyz_enc | h5]: h5 with w6a, then
+    // enc_x with w6b, one accumulator; l9 (feat) without ReLU.
+#pragma unroll 1
+    for (int l = 1; l < 9; ++l) {
+      ffma::product<NW>(acc, buf, W, W, true, ring, st, t);
+      if (l == 5) ffma::product<NW>(acc, ex, KX, W, false, ring, st, t);
+      bias_act<NW>(acc, wvec + l * W, W, l < 8, t);
+      if (l == 7) {  // sigma = h8 . wa + ba, fp32
+        dot_cols<NW>(acc, wvec + o.wa, W, part, t);
+        head_part(part, hp, 3, t);
+      }
+      named_sync(BAR, CONSUMER_THREADS);  // every thread has read buf
+      store_rows<NW>(acc, buf, W, t);
+      named_sync(BAR, CONSUMER_THREADS);
+    }
+    // l10 on [feat | dir_enc] (H wide), then rgb = l11(h10) from registers.
+    ffma::product<NH>(acc, buf, W, H, true, ring, st, t);
+    ffma::product<NH>(acc, ed, KD, H, false, ring, st, t);
+    bias_act<NH>(acc, wvec + o.b10, H, true, t);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      dot_cols<NH>(acc, wvec + o.w11 + ch * H, H, part, t);
+      head_part(part, hp, ch, t);
+    }
+    named_sync(BAR, CONSUMER_THREADS);
+    if (threadIdx.x < TILE) {  // (r, g, b, sigma), the warp columns summed in order
+      const int p = threadIdx.x;
+      float v[4];
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        float s = hp[p * 4 + ch];
+#pragma unroll
+        for (int wc = 1; wc < 4; ++wc) s += hp[(wc * TILE + p) * 4 + ch];
+        v[ch] = s + __ldg(wvec + (ch < 3 ? o.b11 + ch : o.ba));
+      }
+      if (p0 + p < n) reinterpret_cast<float4*>(out)[p0 + p] = make_float4(v[0], v[1], v[2], v[3]);
+    }
   }
 }
 
+template <int FW, int FH, int FKX, int FKD>
+__global__ void __launch_bounds__(ffma::THREADS, 1)
+fused_nerf_ffma(const float* __restrict__ pts, const float* __restrict__ dirs,
+                const float* __restrict__ wmat, const float* __restrict__ wvec,
+                float* __restrict__ out, int n, Dims d, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ffma::Plan pl = fp32_plan(d);
+  Ring ring = ffma::make_ring(smem, pl);
+  __syncthreads();
+  if (threadIdx.x >= ffma::CONSUMER_THREADS) {  // the producer warp: its lane 0 streams
+    if (threadIdx.x == ffma::CONSUMER_THREADS) {
+      const Offsets o = offsets(d);
+      const long at[MATS] = {o.w1, o.w2, o.w3, o.w4, o.w5, o.w6a, o.w6b, o.w7, o.w8, o.w9,
+                             o.w10a, o.w10b};
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        for (int m = 0; m < MATS; ++m) {
+          int K, N;
+          mat_shape(m, d, &K, &N);
+          ffma::stream_block(ring, wmat + at[m], K, N);
+        }
+      }
+    }
+    return;
+  }
+  fp32_consumer<FW, FH, FKX, FKD>(pts, dirs, wvec, out, n, d, tiles, pl, smem, ring);
+}
+
+template <int FW = 0, int FH = 0, int FKX = 0, int FKD = 0>
 int launch_fp32(const float* pts, const float* dirs, const void* wmat, const float* wvec,
                 float* out, int n, Dims d, cudaStream_t stream) {
-  size_t off_b, off_ex, off_ed, off_sig, total;
-  smem_plan(d, &off_b, &off_ex, &off_ed, &off_sig, &total);
-  cudaError_t err = cudaFuncSetAttribute(fused_nerf_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)total);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + TILE - 1) / TILE;
-  fused_nerf_kernel<<<blocks, THREADS, total, stream>>>(
-      pts, dirs, static_cast<const float*>(wmat), wvec, out, n, d);
+  const ffma::Plan pl = fp32_plan(d);
+  if (pl.stages < 3) return (int)cudaErrorInvalidConfiguration;
+  int sms;
+  int err = sm_count(&sms);
+  if (err != 0) return err;
+  err = (int)cudaFuncSetAttribute(fused_nerf_ffma<FW, FH, FKX, FKD>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.total);
+  if (err != 0) return err;
+  const int tiles = (n + ffma::TILE - 1) / ffma::TILE;
+  fused_nerf_ffma<FW, FH, FKX, FKD><<<ffma::grid(n, sms), ffma::THREADS, pl.total, stream>>>(
+      pts, dirs, static_cast<const float*>(wmat), wvec, out, n, d, tiles);
   return (int)cudaGetLastError();
 }
 
 // The lego net (trunk 256, head 128, L = 10 / 4: KX = 64, KD = 32) gets its
 // widths at compile time; other widths read them at run time, where ptxas
-// serialises the wgmmas of a product behind the width tests.
-inline bool bf16_fixed(const Dims& d) {
+// serialises the wgmmas of a product behind the width tests (bf16) or every
+// product takes both column chunks (fp32).
+inline bool fixed_widths(const Dims& d) {
   return d.W == 256 && d.H == 128 && d.KX == 64 && d.KD == 32;
 }
 
@@ -374,21 +487,42 @@ int cvnerf_fused_nerf_bf16_plan(int n, int W, int H, int Lx, int Ld, int* plan) 
   plan[1] = WS_THREADS;
   plan[2] = (int)pl.total;
   plan[3] = pl.stages;
-  plan[4] = bf16_fixed(d) ? 1 : 0;
+  plan[4] = fixed_widths(d) ? 1 : 0;
+  return 0;
+}
+
+// The fp32 launch for n points on the current device, so the host can check
+// its own arithmetic (ops/fused_mlp.py::fp32_launch_plan): plan[0..4] as
+// cvnerf_fused_nerf_bf16_plan's. Returns a cudaError_t value.
+int cvnerf_fused_nerf_fp32_plan(int n, int W, int H, int Lx, int Ld, int* plan) {
+  const Dims d = make_dims(W, H, Lx, Ld);
+  const ffma::Plan pl = fp32_plan(d);
+  int sms;
+  const int err = sm_count(&sms);
+  if (err != 0) return err;
+  plan[0] = ffma::grid(n, sms);
+  plan[1] = ffma::THREADS;
+  plan[2] = (int)pl.total;
+  plan[3] = pl.stages;
+  plan[4] = fixed_widths(d) ? 1 : 0;
   return 0;
 }
 
 // out[n, 4] = fused encode -> MLP of (pts[n, 3], dirs[n, 3]). bf16 != 0
-// selects the bf16 (wgmma) kernel. Launches on `stream` and returns
-// cudaGetLastError() of the launch (0 on success); does not synchronise.
+// selects the bf16 (wgmma) kernel, else the fp32 (FFMA) one. Launches on
+// `stream` and returns cudaGetLastError() of the launch (0 on success);
+// does not synchronise.
 int cvnerf_fused_nerf_forward(const float* pts, const float* dirs, const void* wmat,
                               const float* wvec, float* out, int n, int W, int H, int Lx,
                               int Ld, int bf16, void* stream) {
   if (n <= 0) return 0;
   const Dims d = make_dims(W, H, Lx, Ld);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bf16) return launch_fp32(pts, dirs, wmat, wvec, out, n, d, s);
-  if (bf16_fixed(d)) return launch_bf16<256, 128, 64, 32>(pts, dirs, wmat, wvec, out, n, d, s);
+  if (!bf16) {
+    if (fixed_widths(d)) return launch_fp32<256, 128, 64, 32>(pts, dirs, wmat, wvec, out, n, d, s);
+    return launch_fp32<>(pts, dirs, wmat, wvec, out, n, d, s);
+  }
+  if (fixed_widths(d)) return launch_bf16<256, 128, 64, 32>(pts, dirs, wmat, wvec, out, n, d, s);
   return launch_bf16<>(pts, dirs, wmat, wvec, out, n, d, s);
 }
 

@@ -29,7 +29,10 @@
 // reads them back: 2.53 GB a train step, at least 0.76 + 0.76 ms at
 // 3.35 TB/s, above the operation bound. Pass 1 writes each byte once, from
 // registers, while its products run; the weight-gradient pass reads a
-// weight block's deltas once and its inputs once per 128 outputs.
+// weight block's deltas once and its inputs once per 128 outputs. In fp32
+// (FFMA at 67 TFLOP/s) the operations bound it, recompute included: 3.415
+// ms at n = 65,573, against 0.76 ms to write and read its 19,328 B a point
+// of stash.
 //
 // Per chunk of up to CHUNK_POINTS points, pass 1 then pass 2; then one
 // reduction:
@@ -71,22 +74,49 @@
 //          16-byte streaming store (whole 32-byte sectors; 4-byte stores of
 //          the fragments as they lie wrote half sectors and took 58% of the
 //          pass, scripts/backward_cost_probe.py);
-//      fp32 (no main path runs it; not redesigned): fused_nerf_bwd_kernel,
-//      16-point tiles, nerf_common.cuh's FFMA forward walk with the
-//      activations in shared memory, FFMA input gradients on the weights
-//      transposed to [out, in], stash copies from shared memory.
+//      pass 1, fp32 (the --no-bf16 path): fused_nerf_bwd_ffma, the fp32
+//      forward's block (nerf_ffma.cuh; FFMA, never TF32, so the FFMA rate
+//      bounds it: the recompute and the input gradients are 2,302,208 FLOP
+//      a point, 2.253 ms at n = 65,573 and 67 TFLOP/s; its fp32 stash,
+//      19,328 B a point, takes 0.38 ms to write at 3.35 TB/s, and the
+//      stores run beside the products). The first version kept ten fp32
+//      activations, two deltas and the encodings of a tile in shared
+//      memory, so a tile held 16 points, and read the weights from L2
+//      inside its FFMA loops: 5.8% of the bound. Now a persistent grid
+//      walks 64-point tiles; the producer warp streams, per tile and in
+//      one fixed order, the 12 forward blocks and then the 9 input-gradient
+//      blocks of ops/fused_mlp_bwd.py::out_in_matrices ([out, in], so a
+//      K-slab is contiguous rows) through the ring of bulk-copied stages;
+//      the eight consumer warps hold 8 x 8 micro-tiles in registers:
+//        * the recompute is the fp32 forward's walk; each epilogue stores
+//          h to the stash from registers (16-byte streaming stores: a
+//          warp writes 4 rows of 128 contiguous bytes) and keeps its ReLU
+//          mask as bits (bit 8 (i % 4) + j of word i / 4 of the thread's
+//          slot, 16 KB for h1..h8), so one activation buffer suffices;
+//        * the head sums (wa at h8; w11, b10 and d h10 at h10, all from
+//          registers) and every bias sum are fp32 column sums in a fixed
+//          order: the thread's 8 points, then a shuffle tree over the 4
+//          lanes that share the column group, into the slab of the
+//          block's row of warps (two a block, no float atomics);
+//        * each input gradient d_prev[64, in] = d[64, out] W[out, in] reads
+//          the last delta from the shared buffer (written over its input
+//          after a barrier) with the forward's micro-tiles.
 //   2. the weight gradients G = D^T H of each weight block over the
 //      chunk's points, split-K over the points, each split writing its own
 //      fp32 partial: in bf16 wgrad_wgmma (TMA-fed wgmma on the stash as it
 //      lies, through wgmma's transpose bits; 128 x 256 output tiles), in
-//      fp32 wgrad_gemm (FFMA, never TF32; 64 x 64 tiles).
+//      fp32 wgrad_ffma (FFMA, never TF32; 128 x 128 output tiles of 8 x 8
+//      micro-tiles, both operands [points, width] as they lie, each stage
+//      32 points' row pieces by cp.async, a ring of 3 stages; the first
+//      version's 64 x 64 tiles of 4 x 4 micro-tiles with one synchronous
+//      buffer took ~4 ms at n = 65,573).
 //   3. reduce_slabs sums the partials (and the vector slabs) in a fixed
 //      order. No float atomics anywhere, and a fixed tile -> block map, so
 //      the same inputs give bitwise-identical gradients on every launch (the
 //      TPU kernel's sequential-grid accumulation does not carry over to a
 //      parallel grid).
 
-#include "nerf_wgmma.cuh"
+#include "nerf_ffma.cuh"
 
 namespace {
 
@@ -97,9 +127,6 @@ using namespace hopper;
 constexpr int CHUNK_POINTS = 1 << 18;  // points per pass 1 + pass 2
 constexpr int SPLIT_POINTS = 16384;    // points per split-K partial (about)
 constexpr int MAX_SPLITS = 16;
-constexpr int KT = 32;                 // wgrad_gemm: points per k-step
-constexpr int MT = 64, NT = 64;        // wgrad_gemm: output tile
-constexpr int TILE32 = 16;             // fp32 pass 1: points per tile
 
 // ------------------------------------------------------------ the stash
 // Operands of the weight gradients, each [rows, width] row-major in the
@@ -579,172 +606,268 @@ fused_nerf_bwd_wgmma(const __grid_constant__ BwdMaps maps, const float* __restri
 }
 
 // ------------------------------------------------------------ pass 1, fp32
-// Backward epilogue: v = (acc + wa[col] * d sigma[row]) * (h > 0), stored;
-// the value feeds the bias sums.
-struct EpiDelta {
-  const float* mask;   // h whose ReLU gates this delta, or nullptr (l9)
-  int ldm;
-  const float* wa;     // sigma head weights, only for d h8
-  const float* g;      // the tile's upstream gradient [TILE32, 4]
-  float* out;
-  int ldo;
-  __device__ __forceinline__ float operator()(int row, int col, float acc) const {
-    float v = acc;
-    if (wa != nullptr) v += wa[col] * g[row * 4 + 3];
-    if (mask != nullptr && !(mask[row * ldm + col] > 0.f)) v = 0.f;
-    out[row * ldo + col] = v;
-    return v;
-  }
-};
+// fused_nerf_bwd_ffma: nerf_ffma.cuh's block. Its own shared memory: the
+// tile's g [64][4] (fp32) and the ReLU masks of h1..h8, [MASKED][2][256]
+// (two 32-bit words a consumer thread a layer, word-major).
+constexpr int MASK_WORDS32 = 2;  // 64 bits a thread: one per accumulator register
+constexpr size_t G32_BYTES = ffma::TILE * 4 * sizeof(float);
+constexpr size_t OWN32 = G32_BYTES + (size_t)MASKED * MASK_WORDS32 * ffma::CONSUMER_THREADS * 4;
+constexpr int ROW_SLABS = 2;     // vector slabs a block: one per row of 4 consumer warps
 
-// D_prev[TILE32, N] = epi(D[TILE32, K] @ W^T): W is a layer's block in the
-// [out=K, in=N] layout (row-major), read as the product's row-major B.
-__device__ __forceinline__ void dgrad(const float* D, int ldd, int K, const float* W, int N,
-                                      const EpiDelta& e, float* colpart) {
-  gemm<TILE32, false, true>(D, ldd, K, W, N, nullptr, 0, 0, nullptr, 0, N, colpart, e);
+__host__ __device__ inline ffma::Plan bwd32_plan(const Dims& d) { return ffma::plan(d, OWN32); }
+
+// Keep the ReLU mask of v (N wide) in msk: bit 8 (i % 4) + j of word i / 4
+// is v[i][j] > 0, in the thread's own slot of each word.
+template <int NCH>
+__device__ __forceinline__ void keep_mask32(const float (&v)[8][8], int N, uint32_t* msk,
+                                            const ffma::Thr& t) {
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int jc = 0; jc < NCH; ++jc)
+    if (ffma::chunk_in(jc, N, t))
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          w[i >> 2] |= (uint32_t)(v[i][4 * jc + jj] > 0.f) << (8 * (i & 3) + 4 * jc + jj);
+  msk[threadIdx.x] = w[0];
+  msk[ffma::CONSUMER_THREADS + threadIdx.x] = w[1];
 }
 
-// gb[c] += the column sums gemm left in colpart (groups in fixed order).
-__device__ void add_colsums(const float* colpart, int N, float* gb) {
-  for (int c = threadIdx.x; c < N; c += THREADS) {
-    float s = 0.f;
-    for (int g = 0; g < colgroups<TILE32>(); ++g) s += colpart[g * N + c];
-    gb[c] += s;
+// v[i][j] <- v[i][j] where the mask msk (keep_mask32's layout) has its bit.
+template <int NCH>
+__device__ __forceinline__ void apply_mask32(float (&v)[8][8], const uint32_t* msk) {
+  const uint32_t w[2] = {msk[threadIdx.x], msk[ffma::CONSUMER_THREADS + threadIdx.x]};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NCH; ++j)
+      v[i][j] = ((w[i >> 2] >> (8 * (i & 3) + j)) & 1u) ? v[i][j] : 0.f;
+}
+
+// dst[col(j)] += the sum over the tile's points this warp row holds of
+// val(i, j), for this thread's columns below N: the thread's 8 points in
+// order, then the 4 threads of the warp that share the column group (a
+// fixed shuffle tree); lanes 0-7 add it to the row's slab. Every lane
+// calls it (the shuffles are the warp's).
+template <int NCH, class Val>
+__device__ __forceinline__ void col_sums32(float* dst, int N, const ffma::Thr& t,
+                                           const Val& val) {
+#pragma unroll
+  for (int jc = 0; jc < NCH; ++jc) {
+    const bool in = ffma::chunk_in(jc, N, t);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float s = 0.f;
+      if (in) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s += val(i, 4 * jc + jj);
+      }
+      s = ffma::col_sum4(s);
+      if (in && t.lane < 8) dst[t.col(4 * jc + jj)] += s;
+    }
   }
 }
 
-// Copy a tile's rows [TILE32, width] from shared memory (row stride lds) to
-// rows p0.. of a stash operand, 16 bytes at a time.
-__device__ __forceinline__ void stash_rows(const float* src, int lds, float* dst, int width,
-                                           int p0) {
+// Rows p0 + point(i) of a stash operand dst [rows, N] <- v, 16 bytes at a
+// time (a warp's store: 4 rows of 128 contiguous bytes), streaming.
+template <int NCH>
+__device__ __forceinline__ void stash_regs(const float (&v)[8][8], float* dst, int N, int p0,
+                                           const ffma::Thr& t) {
+#pragma unroll
+  for (int jc = 0; jc < NCH; ++jc)
+    if (ffma::chunk_in(jc, N, t))
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        __stcs(reinterpret_cast<float4*>(dst + (long)(p0 + t.point(i)) * N + t.col(4 * jc)),
+               make_float4(v[i][4 * jc], v[i][4 * jc + 1], v[i][4 * jc + 2], v[i][4 * jc + 3]));
+}
+
+// The tile's encoding E [width][64] (swizzled) to rows p0.. of a stash
+// operand [rows, width], 16 bytes at a time.
+__device__ __forceinline__ void stash_enc32(const float* E, int width, float* dst, int p0) {
   const int vw = width / 4;
-  for (int idx = threadIdx.x; idx < TILE32 * vw; idx += THREADS) {
-    const int r = idx / vw, c = (idx % vw) * 4;
-    *reinterpret_cast<float4*>(dst + (long)(p0 + r) * width + c) =
-        *reinterpret_cast<const float4*>(src + r * lds + c);
+  for (int i = threadIdx.x; i < ffma::TILE * vw; i += ffma::CONSUMER_THREADS) {
+    const int r = i / vw, c = (i % vw) * 4;
+    __stcs(reinterpret_cast<float4*>(dst + (long)(p0 + r) * width + c),
+           make_float4(E[ffma::swz(c, r)], E[ffma::swz(c + 1, r)], E[ffma::swz(c + 2, r)],
+                       E[ffma::swz(c + 3, r)]));
   }
 }
 
-// Shared-memory plan, in bytes: ten activations [TILE32, W+PAD], enc_x,
-// enc_d, two deltas [TILE32, W+PAD], the tile's g [TILE32, 4] and the
-// column partials [groups, W].
-struct Plan32 {
-  size_t act[10], ex, ed, dc[2], g, cp, total;
-};
-
-__host__ __device__ inline Plan32 smem_plan32(const Dims& d) {
-  Plan32 s;
-  size_t p = 0;
-  const size_t act = align128((size_t)TILE32 * (d.W + PAD) * sizeof(float));
-  for (int i = 0; i < 10; ++i) { s.act[i] = p; p += act; }
-  s.ex = p; p += align128((size_t)TILE32 * (d.KX + PAD) * sizeof(float));
-  s.ed = p; p += align128((size_t)TILE32 * (d.KD + PAD) * sizeof(float));
-  s.dc[0] = p; p += act;
-  s.dc[1] = p; p += act;
-  s.g = p; p += align128(TILE32 * 4 * sizeof(float));
-  s.cp = p; p += align128((size_t)colgroups<TILE32>() * d.W * sizeof(float));
-  s.total = p;
-  return s;
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-fused_nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
-                      const float* __restrict__ gout, const float* __restrict__ wmat,
-                      const float* __restrict__ wout, const float* __restrict__ wvec,
-                      float* __restrict__ vslabs, long vstride, float* __restrict__ stash,
-                      Stash sp, int n, Dims d) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Plan32 pl = smem_plan32(d);
-  float* h[10];
-  for (int i = 0; i < 10; ++i) h[i] = reinterpret_cast<float*>(smem + pl.act[i]);
-  float* enc_x = reinterpret_cast<float*>(smem + pl.ex);
-  float* enc_d = reinterpret_cast<float*>(smem + pl.ed);
-  float* dcA = reinterpret_cast<float*>(smem + pl.dc[0]);
-  float* dcB = reinterpret_cast<float*>(smem + pl.dc[1]);
-  float* gt = reinterpret_cast<float*>(smem + pl.g);
-  float* colpart = reinterpret_cast<float*>(smem + pl.cp);
-  const int ld = d.W + PAD, ldx = d.KX + PAD, ldd = d.KD + PAD;
-  const int W = d.W, H = d.H;
+// The consumer warps' walk over their tiles: the forward, keeping what the
+// chain and the weight gradients need, then the input gradients, each
+// delta in registers, then over its input in the shared buffer as the next
+// product's A. FW, FH, FKX, FKD fix the widths at compile time (0: read
+// them from d; every product then takes both column chunks).
+template <int FW, int FH, int FKX, int FKD>
+__device__ __forceinline__ void bwd32_consumer(const float* __restrict__ pts,
+                                               const float* __restrict__ dirs,
+                                               const float* __restrict__ gout,
+                                               const float* __restrict__ wvec,
+                                               float* __restrict__ vslabs, long vstride,
+                                               float* __restrict__ stash, const Stash& sp, int n,
+                                               const Dims& d, int tiles, const ffma::Plan& pl,
+                                               unsigned char* smem, Ring& ring) {
+  using namespace ffma;
+  constexpr int NW = (FW == 0 || FW > 128) ? 2 : 1;
+  constexpr int NH = (FH == 0 || FH > 128) ? 2 : 1;
+  const Thr t = thr();
+  const int W = FW ? FW : d.W, H = FH ? FH : d.H;
+  const int KX = FKX ? FKX : d.KX, KD = FKD ? FKD : d.KD;
+  float* buf = reinterpret_cast<float*>(smem + pl.act_at);
+  float* ex = reinterpret_cast<float*>(smem + pl.ex_at);
+  float* ed = reinterpret_cast<float*>(smem + pl.ed_at);
+  float* raw = reinterpret_cast<float*>(smem + pl.raw_at);
+  float* gs = reinterpret_cast<float*>(smem + pl.own_at);
+  uint32_t* msk = reinterpret_cast<uint32_t*>(smem + pl.own_at + G32_BYTES);
+  const Stages st{reinterpret_cast<const float*>(smem), (int)(pl.stage_bytes / 4)};
+  float* const slab = vslabs + ((long)blockIdx.x * ROW_SLABS + (t.warp >> 2)) * vstride;
   const Offsets o = offsets(d);
-  float* Gv = vslabs + blockIdx.x * vstride;   // this block's vector slab
-  const float* w11 = wvec + o.w11;
-  float* const h8 = h[7];
-  float* const h10 = h[9];
-  const int tiles = (n + TILE32 - 1) / TILE32;
+  zero_pad_rows(d, ex, ed);
+  float acc[8][8];
+  const auto g = [&](int i, int ch) { return gs[t.point(i) * 4 + ch]; };
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int p0 = tile * TILE32;
-    encode_tile<float, TILE32>(pts, dirs, p0, n, d, enc_x, ldx, enc_d, ldd);
-    for (int idx = threadIdx.x; idx < TILE32 * 4; idx += THREADS) {
-      const int p = p0 + idx / 4;
-      gt[idx] = p < n ? gout[4L * p + idx % 4] : 0.f;   // pad rows add nothing
+    const int p0 = tile * TILE;
+    named_sync(BAR, CONSUMER_THREADS);  // the last tile's reads of ex, ed, raw, gs, buf are done
+    for (int i = threadIdx.x; i < TILE * 4; i += CONSUMER_THREADS) {
+      const long e = 4L * p0 + i;
+      gs[i] = e < 4L * n ? gout[e] : 0.f;  // rows past n: g = 0, so every delta is 0
     }
-    __syncthreads();
-    forward_tile<TILE32>(enc_x, ldx, enc_d, ldd, wmat, wvec, d, o, h, ld, nullptr);
-    stash_rows(enc_x, ldx, stash + sp.act[0], d.KX, p0);
-    stash_rows(enc_d, ldd, stash + sp.act[1], d.KD, p0);
-    for (int i = 0; i < 9; ++i) stash_rows(h[i], ld, stash + sp.act[2 + i], W, p0);
+    encode(pts, dirs, p0, n, d, ex, ed, raw);  // ends with the consumers' barrier
+    stash_enc32(ex, KX, stash + sp.act[0], p0);
+    stash_enc32(ed, KD, stash + sp.act[1], p0);
+    if (threadIdx.x < 4) {  // b11 and ba: the sums of g over the tile's points, in order
+      float v = 0.f;
+      for (int p = 0; p < TILE; ++p) v += gs[p * 4 + threadIdx.x];
+      slab[threadIdx.x < 3 ? o.b11 + threadIdx.x : o.ba] += v;
+    }
 
-    // ---- heads: w11, b11, wa, ba, and d h10 (-> dcA, b10).
-    for (int idx = threadIdx.x; idx < 3 * H; idx += THREADS) {
-      const int c = idx / H, k = idx % H;
-      float s = 0.f;
-      for (int t = 0; t < TILE32; ++t) s = fmaf(gt[t * 4 + c], h10[t * ld + k], s);
-      Gv[o.w11 + idx] += s;
+    // ---- the forward: h1..h8 and feat to the stash, the masks of h1..h8.
+    ffma::product<NW>(acc, ex, KX, W, true, ring, st, t);
+    bias_act<NW>(acc, wvec + o.b[0], W, true, t);
+    stash_regs<NW>(acc, stash + sp.act[2], W, p0, t);
+    keep_mask32<NW>(acc, W, msk, t);
+    store_rows<NW>(acc, buf, W, t);
+    named_sync(BAR, CONSUMER_THREADS);
+#pragma unroll 1
+    for (int l = 1; l < 9; ++l) {  // h_{l+1} (bias l at wvec + l W), l = 8: feat
+      ffma::product<NW>(acc, buf, W, W, true, ring, st, t);
+      if (l == 5) ffma::product<NW>(acc, ex, KX, W, false, ring, st, t);  // l6's enc_x part
+      bias_act<NW>(acc, wvec + l * W, W, l < 8, t);
+      stash_regs<NW>(acc, stash + sp.act[2] + l * sp.wstride, W, p0, t);
+      if (l < 8) keep_mask32<NW>(acc, W, msk + l * MASK_WORDS32 * CONSUMER_THREADS, t);
+      if (l == 7)  // wa: d sigma . h8
+        col_sums32<NW>(slab + o.wa, W, t, [&](int i, int j) { return g(i, 3) * acc[i][j]; });
+      named_sync(BAR, CONSUMER_THREADS);
+      store_rows<NW>(acc, buf, W, t);
+      named_sync(BAR, CONSUMER_THREADS);
     }
-    for (int j = threadIdx.x; j < W; j += THREADS) {
-      float s = 0.f;
-      for (int t = 0; t < TILE32; ++t) s = fmaf(gt[t * 4 + 3], h8[t * ld + j], s);
-      Gv[o.wa + j] += s;
-    }
-    for (int k = threadIdx.x; k < H; k += THREADS) {
-      float s = 0.f;
-      for (int t = 0; t < TILE32; ++t) {
-        float v = 0.f;
-        for (int c = 0; c < 3; ++c) v = fmaf(w11[c * H + k], gt[t * 4 + c], v);
-        if (!(h10[t * ld + k] > 0.f)) v = 0.f;
-        dcA[t * ld + k] = v;
-        s += v;
-      }
-      Gv[o.b10 + k] += s;
-    }
-    if (threadIdx.x < 4) {
-      float s = 0.f;
-      for (int t = 0; t < TILE32; ++t) s += gt[t * 4 + threadIdx.x];
-      Gv[(threadIdx.x < 3 ? o.b11 + threadIdx.x : o.ba)] += s;
-    }
-    __syncthreads();
-    stash_rows(dcA, ld, stash + sp.del[9], H, p0);
+    // h10 = l10 on [feat | dir_enc] (H wide), in registers.
+    ffma::product<NH>(acc, buf, W, H, true, ring, st, t);
+    ffma::product<NH>(acc, ed, KD, H, false, ring, st, t);
+    bias_act<NH>(acc, wvec + o.b10, H, true, t);
 
-    // ---- d feat = d h10 @ w10a^T (l9 has no ReLU; -> dcB, b9).
-    dgrad(dcA, ld, H, wout + o.w10a, W, EpiDelta{nullptr, 0, nullptr, gt, dcB, ld}, colpart);
-    __syncthreads();
-    add_colsums(colpart, W, Gv + o.b[8]);
-    stash_rows(dcB, ld, stash + sp.del[8], W, p0);
-    __syncthreads();
-
-    // ---- d h8 = (d feat @ w9^T + wa * d sigma) * (h8 > 0) (-> dcA, b8).
-    dgrad(dcB, ld, W, wout + o.w9, W, EpiDelta{h8, ld, wvec + o.wa, gt, dcA, ld}, colpart);
-    __syncthreads();
-    add_colsums(colpart, W, Gv + o.b[7]);
-    stash_rows(dcA, ld, stash + sp.del[7], W, p0);
-    __syncthreads();
-
-    // ---- trunk l8 .. l2: d h_{L-1} from d h_L (-> b_{L-1}).
-    const long wt[7] = {o.w8, o.w7, o.w6a, o.w5, o.w4, o.w3, o.w2};
-    float* cur = dcA;
-    float* nxt = dcB;
+    // ---- heads: w11 (g_rgb . h10), then d h10 = (g_rgb w11^T) (h10 > 0).
 #pragma unroll
-    for (int l = 0; l < 7; ++l) {       // layer L = 8 - l, its input h[6 - l]
-      const float* hin = h[6 - l];
-      dgrad(cur, ld, W, wout + wt[l], W, EpiDelta{hin, ld, nullptr, gt, nxt, ld}, colpart);
-      __syncthreads();
-      add_colsums(colpart, W, Gv + o.b[6 - l]);
-      stash_rows(nxt, ld, stash + sp.del[6 - l], W, p0);
-      __syncthreads();
-      float* tmp = cur; cur = nxt; nxt = tmp;
+    for (int ch = 0; ch < 3; ++ch)
+      col_sums32<NH>(slab + o.w11 + ch * H, H, t,
+                     [&](int i, int j) { return g(i, ch) * acc[i][j]; });
+#pragma unroll
+    for (int jc = 0; jc < NH; ++jc) {
+      if (chunk_in(jc, H, t)) {
+        float4 w[3];
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          w[ch] = __ldg(reinterpret_cast<const float4*>(wvec + o.w11 + ch * H + t.col(4 * jc)));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float g0 = g(i, 0), g1 = g(i, 1), g2 = g(i, 2);
+          const float dv[4] = {fmaf(w[2].x, g2, fmaf(w[1].x, g1, w[0].x * g0)),
+                               fmaf(w[2].y, g2, fmaf(w[1].y, g1, w[0].y * g0)),
+                               fmaf(w[2].z, g2, fmaf(w[1].z, g1, w[0].z * g0)),
+                               fmaf(w[2].w, g2, fmaf(w[1].w, g1, w[0].w * g0))};
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            acc[i][4 * jc + jj] = acc[i][4 * jc + jj] > 0.f ? dv[jj] : 0.f;
+        }
+      }
+    }
+    col_sums32<NH>(slab + o.b10, H, t, [&](int i, int j) { return acc[i][j]; });
+    stash_regs<NH>(acc, stash + sp.del[9], H, p0, t);
+    named_sync(BAR, CONSUMER_THREADS);  // every thread has read buf (feat)
+    store_rows<NH>(acc, buf, H, t);
+    named_sync(BAR, CONSUMER_THREADS);
+
+    // ---- the input gradients. d feat = d h10 w10a^T (l9 has no ReLU).
+    ffma::product<NW>(acc, buf, H, W, true, ring, st, t);
+    col_sums32<NW>(slab + o.b[8], W, t, [&](int i, int j) { return acc[i][j]; });
+    stash_regs<NW>(acc, stash + sp.del[8], W, p0, t);
+    named_sync(BAR, CONSUMER_THREADS);
+    store_rows<NW>(acc, buf, W, t);
+    named_sync(BAR, CONSUMER_THREADS);
+    // d h8 = (d feat w9^T + wa d sigma) (h8 > 0), then d h_{l+1} = (d h_{l+2}
+    // w_{l+2}^T) (h_{l+1} > 0) through w8, w7, w6a, w5, w4, w3, w2.
+#pragma unroll 1
+    for (int l = 7; l >= 0; --l) {
+      ffma::product<NW>(acc, buf, W, W, true, ring, st, t);
+      if (l == 7) {
+#pragma unroll
+        for (int jc = 0; jc < NW; ++jc) {
+          if (chunk_in(jc, W, t)) {
+            const float4 w4 = __ldg(reinterpret_cast<const float4*>(wvec + o.wa + t.col(4 * jc)));
+            const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+                acc[i][4 * jc + jj] = fmaf(ww[jj], g(i, 3), acc[i][4 * jc + jj]);
+          }
+        }
+      }
+      apply_mask32<NW>(acc, msk + l * MASK_WORDS32 * CONSUMER_THREADS);
+      col_sums32<NW>(slab + l * W, W, t, [&](int i, int j) { return acc[i][j]; });
+      stash_regs<NW>(acc, stash + sp.del[0] + l * sp.wstride, W, p0, t);
+      if (l > 0) {
+        named_sync(BAR, CONSUMER_THREADS);
+        store_rows<NW>(acc, buf, W, t);
+        named_sync(BAR, CONSUMER_THREADS);
+      }
     }
   }
+}
+
+template <int FW, int FH, int FKX, int FKD>
+__global__ void __launch_bounds__(ffma::THREADS, 1)
+fused_nerf_bwd_ffma(const float* __restrict__ pts, const float* __restrict__ dirs,
+                    const float* __restrict__ g, const float* __restrict__ wmat,
+                    const float* __restrict__ wt, const float* __restrict__ wvec,
+                    float* __restrict__ vslabs, long vstride, float* __restrict__ stash,
+                    Stash sp, int n, Dims d, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ffma::Plan pl = bwd32_plan(d);
+  Ring ring = ffma::make_ring(smem, pl);
+  __syncthreads();
+  if (threadIdx.x >= ffma::CONSUMER_THREADS) {  // the producer warp: its lane 0 streams
+    if (threadIdx.x == ffma::CONSUMER_THREADS) {
+      const Offsets o = offsets(d);
+      const long at[MATS] = {o.w1, o.w2, o.w3, o.w4, o.w5, o.w6a, o.w6b, o.w7, o.w8, o.w9,
+                             o.w10a, o.w10b};
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        for (int m = 0; m < MATS; ++m) {  // the forward's blocks [in, out]
+          int K, N;
+          mat_shape(m, d, &K, &N);
+          ffma::stream_block(ring, wmat + at[m], K, N);
+        }
+        for (int j = 0; j < DGRAD; ++j)  // the input gradients' blocks [out, in]
+          ffma::stream_block(ring, wt + dgrad_at(j, o), dgrad_k(j, d), d.W);
+      }
+    }
+    return;
+  }
+  bwd32_consumer<FW, FH, FKX, FKD>(pts, dirs, g, wvec, vslabs, vstride, stash, sp, n, d, tiles,
+                                   pl, smem, ring);
 }
 
 // ------------------------------------------------------------ pass 2
@@ -926,56 +1049,128 @@ wgrad_wgmma(const __grid_constant__ WgradMaps maps, Dims d, int rows, int kc,
   }
 }
 
-// fp32: FFMA, never TF32; thread (tx, ty) owns outputs m0 + 4 tx .. +3 by
-// inputs n0 + 4 ty .. +3.
-__global__ void __launch_bounds__(THREADS)
-wgrad_gemm(const float* __restrict__ stash, Stash sp, Dims d, int rows, int kc,
+// fp32: FFMA, never TF32 (wgrad_ffma). A block of 256 threads holds an
+// output tile of WT x WT (out x in), each thread an 8 x 8 register
+// micro-tile: outs 4 tm .. + 3 and 64 + 4 tm .., ins 4 tn .. and 64 + 4 tn ..
+// (tm = 4 (warp / 2) + lane / 8, tn = 8 (warp % 2) + lane % 8), so that a
+// point's step reads its D row piece and its H row piece by 16-byte loads
+// (one shared-memory wavefront each for a warp's A and its B) for 64 FFMAs.
+// The stash as it lies: both operands [points, width], so each stage is
+// WKT points' contiguous row pieces of D (WT outs) and H (WT ins), loaded
+// by cp.async (16 bytes a copy, zero-filled past the split's points or the
+// block's columns) into a ring of W32_STAGES stages, W32_STAGES - 1 ahead
+// of the products.
+constexpr int WT = 128;        // output tile (outs x ins)
+constexpr int WKT = 32;        // points a stage holds
+constexpr int W32_STAGES = 3;
+constexpr int W32_THREADS = 256;
+constexpr int W32_PER_SM = 2;  // blocks an SM holds (registers and shared memory)
+constexpr int W32_STAGE_FLOATS = 2 * WKT * WT;
+constexpr int W32_SMEM = W32_STAGES * W32_STAGE_FLOATS * 4;
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Grid (tiles, splits): block (x, y) forms output tile x of G over the
+// points [y kc, min(rows, (y + 1) kc)) of the chunk into partial y.
+__global__ void __launch_bounds__(W32_THREADS, W32_PER_SM)
+wgrad_ffma(const float* __restrict__ stash, Stash sp, Dims d, int rows, int kc,
            float* __restrict__ part, long pstride) {
-  __shared__ __align__(16) float Ds[KT][MT];
-  __shared__ __align__(16) float Hs[KT][NT];
+  extern __shared__ __align__(16) float wsm[];
   int m0, n0;
-  const Job j = locate(blockIdx.x, d, MT, NT, &m0, &n0);
-  const float* D = stash + sp.del[j.del];
-  const float* Hm = stash + sp.act[j.act];
-  const int ldD = del_width(j.del, d), ldH = act_width(j.act, d);
+  const Job j = locate(blockIdx.x, d, WT, WT, &m0, &n0);
+  const float* D = stash + sp.del[j.del];  // [rows, M]
+  const float* Hm = stash + sp.act[j.act];  // [rows, N]
   const int k0 = blockIdx.y * kc;
   const int k1 = rows < k0 + kc ? rows : k0 + kc;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int k = k0; k < k1; k += KT) {
+  const int steps = k1 > k0 ? (k1 - k0 + WKT - 1) / WKT : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tm = 4 * (warp >> 1) + (lane >> 3), tn = 8 * (warp & 1) + (lane & 7);
+  // This thread's copies: column c of the stage's rows r0 + 8 q (q < 4) of
+  // D's row pieces, then the same of H's ([2][WKT][WT] a stage).
+  const int r0 = threadIdx.x / (WT / 4), c = 4 * (threadIdx.x % (WT / 4));
+  const bool d_in = m0 + c < j.M, h_in = n0 + c < j.N;
+  const float* dsrc = D + (d_in ? (long)(k0 + r0) * j.M + m0 + c : 0);
+  const float* hsrc = Hm + (h_in ? (long)(k0 + r0) * j.N + n0 + c : 0);
+  const long d_row8 = 8L * j.M, h_row8 = 8L * j.N;
+  const uint32_t dst0 = smem_addr(wsm) + 4 * (r0 * WT + c);
+
+  // Stage s <- the next WKT points (steps in order: the sources advance by
+  // WKT rows a call), zero past the split's points or the block's columns.
+  int pt = k0 + r0;
+  const auto load = [&](int s) {
+    const uint32_t dst = dst0 + 4 * s * W32_STAGE_FLOATS;
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {                 // KT x 64 in float4 pieces
-      const int idx = threadIdx.x + q * THREADS;
-      const int r = idx / 16, c = (idx % 16) * 4;
-      float4 dv = make_float4(0.f, 0.f, 0.f, 0.f), hv = dv;
-      if (k + r < k1) {
-        if (m0 + c < j.M) dv = *reinterpret_cast<const float4*>(D + (long)(k + r) * ldD + m0 + c);
-        if (n0 + c < j.N) hv = *reinterpret_cast<const float4*>(Hm + (long)(k + r) * ldH + n0 + c);
-      }
-      *reinterpret_cast<float4*>(&Ds[r][c]) = dv;
-      *reinterpret_cast<float4*>(&Hs[r][c]) = hv;
+    for (int q = 0; q < WKT / 8; ++q) {
+      const bool in = pt + 8 * q < k1;
+      cp_async16(dst + 4 * 8 * q * WT, dsrc + (in && d_in ? q * d_row8 : 0), in && d_in);
+      cp_async16(dst + 4 * (WKT + 8 * q) * WT, hsrc + (in && h_in ? q * h_row8 : 0),
+                 in && h_in);
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int t = 0; t < KT; ++t) {
-      const float4 dv = *reinterpret_cast<const float4*>(&Ds[t][tx * 4]);
-      const float4 hv = *reinterpret_cast<const float4*>(&Hs[t][ty * 4]);
-      const float dd[4] = {dv.x, dv.y, dv.z, dv.w}, hh[4] = {hv.x, hv.y, hv.z, hv.w};
+    pt += WKT;
+    if (d_in) dsrc += 4 * d_row8;
+    if (h_in) hsrc += 4 * h_row8;
+  };
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(dd[u], hh[v], acc[u][v]);
-    }
-    __syncthreads();
+  for (int s = 0; s < W32_STAGES - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
   }
-  const int o0 = m0 + tx * 4;
-  if (o0 >= j.M) return;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
+#pragma unroll 1
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<W32_STAGES - 2>();
+    __syncthreads();  // stage `step` landed for all; stage step - 1 is free
+    const int next = step + W32_STAGES - 1;
+    if (next < steps) load(next % W32_STAGES);
+    cp_async_commit();
+    const float* Ds = wsm + (step % W32_STAGES) * W32_STAGE_FLOATS + 4 * tm;
+    const float* Hs = wsm + (step % W32_STAGES) * W32_STAGE_FLOATS + WKT * WT + 4 * tn;
+#pragma unroll
+    for (int k = 0; k < WKT; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(Ds + k * WT);
+      const float4 a1 = *reinterpret_cast<const float4*>(Ds + k * WT + 64);
+      const float4 b0 = *reinterpret_cast<const float4*>(Hs + k * WT);
+      const float4 b1 = *reinterpret_cast<const float4*>(Hs + k * WT + 64);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
+    }
+  }
+  cp_async_wait<0>();
+  // The fp32 partial G [N in][M out] (the fp32 packing): each in row, two
+  // pieces of 4 outs.
   float* G = part + blockIdx.y * pstride + j.goff;
-  for (int v = 0; v < 4; ++v) {
-    const int i = n0 + ty * 4 + v;
-    if (i < j.N)
-      *reinterpret_cast<float4*>(G + (long)i * j.M + o0) =
-          make_float4(acc[0][v], acc[1][v], acc[2][v], acc[3][v]);
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int in = n0 + 4 * tn + (jj & 3) + 64 * (jj >> 2);
+    if (in < j.N) {
+#pragma unroll
+      for (int ic = 0; ic < 2; ++ic) {
+        const int o0 = m0 + 64 * ic + 4 * tm;
+        if (o0 < j.M)
+          *reinterpret_cast<float4*>(G + (long)in * j.M + o0) =
+              make_float4(acc[4 * ic][jj], acc[4 * ic + 1][jj], acc[4 * ic + 2][jj],
+                          acc[4 * ic + 3][jj]);
+      }
+    }
   }
 }
 
@@ -998,41 +1193,37 @@ inline int splits_for(int cn) {
   return s < 1 ? 1 : s > MAX_SPLITS ? MAX_SPLITS : s;
 }
 
+// fp32: wgrad_ffma's blocks (output tiles x splits) all do the same work,
+// W32_PER_SM at a time on an SM, so a last wave that is mostly empty costs
+// a whole wave. Take the least split count from splits_for(cn) up whose
+// blocks fill at least 90% of their waves, keeping at least MIN_SPLIT32
+// points a split and at most MAX_SPLITS32 splits (else splits_for(cn)).
+constexpr int MIN_SPLIT32 = 1024;
+constexpr int MAX_SPLITS32 = 32;
+
+inline int splits32_for(int cn, const Dims& d, int sms) {
+  const int s0 = splits_for(cn), tiles = wgrad_tiles(d, WT, WT), slots = W32_PER_SM * sms;
+  const int top = cn / MIN_SPLIT32 < MAX_SPLITS32 ? cn / MIN_SPLIT32 : MAX_SPLITS32;
+  for (int s = s0; s <= top; ++s) {
+    const long blocks = (long)tiles * s, waves = (blocks + slots - 1) / slots;
+    if (blocks * 10 >= waves * slots * 9) return s;
+  }
+  return s0;
+}
+
 // The lego net (trunk 256, head 128, L = 10 / 4: KX = 64, KD = 32) gets its
 // widths at compile time; other widths read them at run time.
-inline bool bf16_fixed(const Dims& d) {
+inline bool fixed_widths(const Dims& d) {
   return d.W == 256 && d.H == 128 && d.KX == 64 && d.KD == 32;
 }
 
-// Blocks of the fp32 pass 1 that fit the device at once (one per SM),
-// queried once per device; negative: -(CUDA error).
-int resident_blocks32(const Dims& d) {
-  static int cached[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return -(int)err;
-  if (dev < 64 && cached[dev] > 0) return cached[dev];
-  const Plan32 pl = smem_plan32(d);
-  err = cudaFuncSetAttribute(fused_nerf_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)pl.total);
-  if (err != cudaSuccess) return -(int)err;
-  int sms = 0, per_sm = 0;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return -(int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_nerf_bwd_kernel, THREADS, pl.total)) != cudaSuccess)
-    return -(int)err;
-  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
-  if (dev < 64) cached[dev] = sms * per_sm;
-  return sms * per_sm;
-}
-
-// Byte layout of the workspace, each part 256-byte aligned: the blocks'
-// vector slabs, (bf16) the warps' vector slabs, the split-K partials of
-// pass 2 and the stash of one chunk.
+// Byte layout of the workspace, each part 256-byte aligned: the vector
+// slabs (bf16: one per block; fp32: one per block and row of consumer
+// warps), (bf16) the warps' vector slabs, the split-K partials of pass 2 and
+// the stash of one chunk.
 struct Workspace {
   long vstride, mstride, rows;
-  int blocks, wslabs, parts;
+  int sms, blocks, vslabs, wslabs, parts;
   size_t wslab_at, part_at, stash_at, total;
 };
 
@@ -1041,25 +1232,24 @@ struct Workspace {
 int plan_workspace(int n, const Dims& d, bool bf16, Workspace* w) {
   const Offsets o = offsets(d);
   const int first = n < CHUNK_POINTS ? n : CHUNK_POINTS;
-  const int tile = bf16 ? WS_TILE : TILE32;
+  const int tile = bf16 ? WS_TILE : ffma::TILE;
   const int tiles = (first + tile - 1) / tile;
-  int res;
-  if (bf16) {
-    const int err = sm_count(&res);
-    if (err != 0) return err;
-  } else {
-    res = resident_blocks32(d);
-    if (res < 0) return -res;
-  }
-  w->blocks = tiles < res ? tiles : res;
+  int sms;
+  const int err = sm_count(&sms);
+  if (err != 0) return err;
+  w->sms = sms;
+  w->blocks = tiles < sms ? tiles : sms;
+  w->vslabs = bf16 ? w->blocks : w->blocks * ROW_SLABS;
   w->wslabs = bf16 ? w->blocks * WARP_SLABS : 0;
   w->parts = 0;
-  for (int p0 = 0; p0 < n; p0 += CHUNK_POINTS)
-    w->parts += splits_for(n - p0 < CHUNK_POINTS ? n - p0 : CHUNK_POINTS);
+  for (int p0 = 0; p0 < n; p0 += CHUNK_POINTS) {
+    const int cn = n - p0 < CHUNK_POINTS ? n - p0 : CHUNK_POINTS;
+    w->parts += bf16 ? splits_for(cn) : splits32_for(cn, d, sms);
+  }
   w->rows = round_up_l(first, tile);
   w->vstride = round_up_l(o.vec_total, 64);
   w->mstride = round_up_l(o.mat_total, 64);
-  size_t p = round_up_l((long)w->blocks * w->vstride * 4, 256);
+  size_t p = round_up_l((long)w->vslabs * w->vstride * 4, 256);
   w->wslab_at = p;
   p += round_up_l((long)w->wslabs * w->vstride * 4, 256);
   w->part_at = p;
@@ -1070,13 +1260,16 @@ int plan_workspace(int n, const Dims& d, bool bf16, Workspace* w) {
   return 0;
 }
 
-// Pass 2 of one chunk of cn points (its split-K partials from `part`).
-int launch_wgrad(const float* stash, const Stash& sp, const Dims& d, int cn, float* part,
+// Pass 2 of one chunk of cn points in s splits (its split-K partials from
+// `part`).
+int launch_wgrad(const float* stash, const Stash& sp, const Dims& d, int cn, int s, float* part,
                  long mstride, cudaStream_t stream) {
-  const int s = splits_for(cn);
-  const int kc = (int)round_up_l((cn + s - 1) / s, KT);
-  wgrad_gemm<<<dim3(wgrad_tiles(d, MT, NT), s), THREADS, 0, stream>>>(stash, sp, d, cn, kc, part,
-                                                                     mstride);
+  const int err = (int)cudaFuncSetAttribute(wgrad_ffma,
+                                            cudaFuncAttributeMaxDynamicSharedMemorySize, W32_SMEM);
+  if (err != 0) return err;
+  const int kc = (int)round_up_l((cn + s - 1) / s, WKT);
+  wgrad_ffma<<<dim3(wgrad_tiles(d, WT, WT), s), W32_THREADS, W32_SMEM, stream>>>(
+      stash, sp, d, cn, kc, part, mstride);
   return (int)cudaGetLastError();
 }
 
@@ -1108,7 +1301,7 @@ int launch_sums(const Workspace& w, const float* vslabs, const float* part, floa
   reduce_slabs<<<(unsigned)((o.mat_total + 255) / 256), 256, 0, stream>>>(
       part, w.mstride, w.parts, out, o.mat_total);
   reduce_slabs<<<(unsigned)((o.vec_total + 255) / 256), 256, 0, stream>>>(
-      vslabs, w.vstride, w.blocks, out + o.mat_total, o.vec_total);
+      vslabs, w.vstride, w.vslabs, out + o.mat_total, o.vec_total);
   return (int)cudaGetLastError();
 }
 
@@ -1143,7 +1336,7 @@ int launch_bf16(const float* pts, const float* dirs, const float* g, const void*
                           2, d.W, dgrad_k(j, d), wgmma_rows(d.W), KCHUNK);
     if (err != 0) return err;
   }
-  const auto kernel = bf16_fixed(d) ? fused_nerf_bwd_wgmma<256, 128, 64, 32>
+  const auto kernel = fixed_widths(d) ? fused_nerf_bwd_wgmma<256, 128, 64, 32>
                                     : fused_nerf_bwd_wgmma<0, 0, 0, 0>;
   if ((err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)pl.total)) != 0)
@@ -1173,26 +1366,33 @@ int launch_fp32(const float* pts, const float* dirs, const float* g, const void*
   int err = plan_workspace(n, d, false, &w);
   if (err != 0) return err;
   if (ws_bytes < w.total) return (int)cudaErrorInvalidValue;
+  const ffma::Plan pl = bwd32_plan(d);
+  if (pl.stages < 3) return (int)cudaErrorInvalidConfiguration;
   unsigned char* base = static_cast<unsigned char*>(ws);
   float* vslabs = reinterpret_cast<float*>(base);
   float* part = reinterpret_cast<float*>(base + w.part_at);
   float* stash = reinterpret_cast<float*>(base + w.stash_at);
-  const Plan32 pl = smem_plan32(d);
   const Stash sp = stash_plan(d, w.rows);
-  if ((err = (int)cudaMemsetAsync(vslabs, 0, (size_t)w.blocks * w.vstride * 4, stream)) != 0)
+  const auto kernel = fixed_widths(d) ? fused_nerf_bwd_ffma<256, 128, 64, 32>
+                                      : fused_nerf_bwd_ffma<0, 0, 0, 0>;
+  if ((err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)pl.total)) != 0)
     return err;
-  int at_part = 0;
+  if ((err = (int)cudaMemsetAsync(vslabs, 0, (size_t)w.vslabs * w.vstride * 4, stream)) != 0)
+    return err;
+  int at_part = 0;  // partials written so far
   for (int p0 = 0; p0 < n; p0 += CHUNK_POINTS) {
     const int cn = n - p0 < CHUNK_POINTS ? n - p0 : CHUNK_POINTS;
-    const int tiles = (cn + TILE32 - 1) / TILE32;
-    fused_nerf_bwd_kernel<<<tiles < w.blocks ? tiles : w.blocks, THREADS, pl.total, stream>>>(
+    const int tiles = (cn + ffma::TILE - 1) / ffma::TILE;
+    kernel<<<tiles < w.blocks ? tiles : w.blocks, ffma::THREADS, pl.total, stream>>>(
         pts + 3L * p0, dirs + 3L * p0, g + 4L * p0, static_cast<const float*>(wmat),
-        static_cast<const float*>(wt), wvec, vslabs, w.vstride, stash, sp, cn, d);
+        static_cast<const float*>(wt), wvec, vslabs, w.vstride, stash, sp, cn, d, tiles);
     if ((err = (int)cudaGetLastError()) != 0) return err;
-    if ((err = launch_wgrad(stash, sp, d, cn, part + (long)at_part * w.mstride, w.mstride,
+    const int s = splits32_for(cn, d, w.sms);
+    if ((err = launch_wgrad(stash, sp, d, cn, s, part + (long)at_part * w.mstride, w.mstride,
                             stream)) != 0)
       return err;
-    at_part += splits_for(cn);
+    at_part += s;
   }
   return launch_sums(w, vslabs, part, out, d, stream);
 }
@@ -1210,21 +1410,29 @@ long cvnerf_fused_nerf_bwd_workspace(int n, int W, int H, int Lx, int Ld, int bf
   return err != 0 ? -(long)err : (long)w.total;
 }
 
-// The bf16 backward's launch for n points on the current device, so the
-// host can check its own arithmetic (ops/fused_mlp_bwd.py::bwd_launch_plan):
-// plan[0..6] = pass 1's blocks, threads and dynamic shared-memory bytes,
-// its weight stages, the stash's rows, the workspace bytes and the split-K
-// partials over all chunks. Returns a cudaError_t value.
-int cvnerf_fused_nerf_bwd_plan(int n, int W, int H, int Lx, int Ld, long* plan) {
+// The backward's launch for n points on the current device, so the host can
+// check its own arithmetic (ops/fused_mlp_bwd.py::bwd_launch_plan, bf16 != 0;
+// bwd32_launch_plan, fp32): plan[0..6] = pass 1's blocks, threads and
+// dynamic shared-memory bytes, its weight stages, the stash's rows, the
+// workspace bytes and the split-K partials over all chunks. Returns a
+// cudaError_t value.
+int cvnerf_fused_nerf_bwd_plan(int n, int W, int H, int Lx, int Ld, int bf16, long* plan) {
   const Dims d = make_dims(W, H, Lx, Ld);
   Workspace w;
-  const int err = plan_workspace(n, d, true, &w);
+  const int err = plan_workspace(n, d, bf16 != 0, &w);
   if (err != 0) return err;
-  const Bf16Plan pl = bwd_plan(d);
   plan[0] = w.blocks;
-  plan[1] = WS_THREADS;
-  plan[2] = (long)pl.total;
-  plan[3] = pl.stages;
+  if (bf16) {
+    const Bf16Plan pl = bwd_plan(d);
+    plan[1] = WS_THREADS;
+    plan[2] = (long)pl.total;
+    plan[3] = pl.stages;
+  } else {
+    const ffma::Plan pl = bwd32_plan(d);
+    plan[1] = ffma::THREADS;
+    plan[2] = (long)pl.total;
+    plan[3] = pl.stages;
+  }
   plan[4] = w.rows;
   plan[5] = (long)w.total;
   plan[6] = w.parts;
@@ -1236,9 +1444,10 @@ int cvnerf_fused_nerf_bwd_plan(int n, int W, int H, int Lx, int Ld, long* plan) 
 // offsets: [in, out] in bf16, which the wgmma input gradients read as their
 // K-major B operand (a TMA tensor per block: 16-byte aligned, rows of
 // 16-byte multiples); [out, in] in fp32, which the FFMA input gradients
-// read. ws holds ws_bytes >= cvnerf_fused_nerf_bwd_workspace bytes of
-// device memory (no initial contents needed). Launches the passes on
-// `stream` and returns a cudaError_t (0 on success); does not synchronise.
+// stream in K-slabs of contiguous rows (16-byte aligned). ws holds
+// ws_bytes >= cvnerf_fused_nerf_bwd_workspace bytes of device memory (no
+// initial contents needed). Launches the passes on `stream` and returns a
+// cudaError_t (0 on success); does not synchronise.
 int cvnerf_fused_nerf_backward(const float* pts, const float* dirs, const float* g,
                                const void* wmat, const void* wt, const float* wvec,
                                void* ws, long ws_bytes, float* out, int n, int W, int H,

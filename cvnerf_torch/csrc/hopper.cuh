@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tile loads, the ring of weight stages a TMA producer fills and wgmma
-// consumers drain, wgmma shared-memory descriptors and products (bf16 and
-// int8) with the A operand in registers, or (bf16) both operands MN-major
-// in shared memory, warpgroup register reallocation,
-// and the host-side encoding of TMA tensor maps. PTX as the ISA defines it;
+// TMA tile loads and 1-D bulk copies, the ring of weight stages a producer
+// fills and consumers drain, wgmma shared-memory descriptors and products
+// (bf16 and int8) with the A operand in registers, or (bf16) both operands
+// MN-major in shared memory, warpgroup register reallocation, and the
+// host-side encoding of TMA tensor maps. PTX as the ISA defines it;
 // nothing here allocates or launches.
 
 #pragma once
@@ -62,6 +62,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Bulk copy: `bytes` (a multiple of 16) from global src (16-byte aligned)
+// into shared memory at dst (16-byte aligned); completion is counted in
+// bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

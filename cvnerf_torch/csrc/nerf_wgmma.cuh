@@ -63,9 +63,9 @@ __device__ __forceinline__ int quad_sum(int v) {
 
 // Encode this warpgroup's 64 points, p0..: emit(dir, row, col, value) for
 // every real column of freq_encode's layout (pad columns are the caller's),
-// dir selecting the view-direction encoding, with the values
-// nerf_common.cuh's encode_tile gives (accurate sinf/cosf; rows past n
-// encode the origin and are never written). The 64 x 6 raw inputs are
+// dir selecting the view-direction encoding (accurate sinf/cosf: 2^k x is
+// exact in fp32, but the phases reach 2^9 |x|, ~3,000 rad at far = 6, where
+// __sinf is wrong; rows past n encode the origin and are never written). The 64 x 6 raw inputs are
 // staged in `raw` by coalesced loads first (read value by value, their
 // latency took half the bf16 kernel's time); then each thread walks the
 // bands of three (row, input) pairs, so the sine and cosine of a phase

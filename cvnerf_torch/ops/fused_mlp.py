@@ -123,6 +123,9 @@ def _bind_forward(lib) -> None:
     lib.cvnerf_fused_nerf_bf16_plan.argtypes = [i, i, i, i, i,
                                                 ctypes.POINTER(ctypes.c_int)]
     lib.cvnerf_fused_nerf_bf16_plan.restype = ctypes.c_int
+    lib.cvnerf_fused_nerf_fp32_plan.argtypes = [i, i, i, i, i,
+                                                ctypes.POINTER(ctypes.c_int)]
+    lib.cvnerf_fused_nerf_fp32_plan.restype = ctypes.c_int
     for fn in (lib.cvnerf_fused_nerf_mat_elems, lib.cvnerf_fused_nerf_vec_elems):
         fn.argtypes = [i, i, i, i]
         fn.restype = ctypes.c_long
@@ -187,6 +190,56 @@ def kernel_bf16_plan(cfg: NerfMLPConfig, n: int) -> dict:
                     plan))
 
 
+# The fp32 kernel (csrc/fused_mlp.cu, fused_nerf_ffma; csrc/nerf_ffma.cuh):
+# eight FFMA consumer warps and one producer warp a block, a persistent grid
+# of one block per SM walking 64-point tiles, weights streamed by bulk
+# copies in K-slabs of 16 rows (16 x trunk width fp32 a stage) into a ring
+# of at most 8 stages beside the activation buffer [trunk, 64], the
+# encodings [KX, 64] and [KD, 64] (fp32), the raw inputs [64 x 6] and the
+# head partials [4, 64, 4] (fp32), then the stages' mbarriers.
+FP32_TILE = 64
+FP32_THREADS = 288
+_FP32_SLAB = 16
+
+
+def fp32_block_plan(cfg: NerfMLPConfig, own: int) -> tuple[int, int]:
+    """The weight stages and dynamic shared-memory bytes of the fp32 kernels'
+    block (csrc/nerf_ffma.cuh ``plan``; the forward and the backward's pass
+    1), given the kernel's ``own`` bytes."""
+    w = cfg.trunk_width
+    kx, kd = _round_up(cfg.xyz_dim, 16), _round_up(cfg.dir_dim, 16)
+    stage = _FP32_SLAB * w * 4
+    fixed = FP32_TILE * (w + kx + kd) * 4 + FP32_TILE * 6 * 4 + own
+    stages = min(_MAX_STAGES,
+                 (SMEM_LIMIT - fixed - 2 * _MAX_STAGES * 8) // stage)
+    return stages, stages * stage + fixed + 2 * stages * 8
+
+
+def fp32_launch_plan(cfg: NerfMLPConfig, n: int, sm_count: int) -> dict:
+    """The fp32 kernel's launch for ``n`` points on a card of ``sm_count``
+    SMs, as ``cvnerf_fused_nerf_fp32_plan`` computes it: blocks, threads,
+    dynamic shared-memory bytes, weight stages, and whether the kernel has
+    the widths at compile time (the lego net's)."""
+    w, h = cfg.trunk_width, cfg.head_width
+    kx, kd = _round_up(cfg.xyz_dim, 16), _round_up(cfg.dir_dim, 16)
+    stages, smem = fp32_block_plan(cfg, 4 * FP32_TILE * 4 * 4)
+    return {"blocks": min(-(-n // FP32_TILE), sm_count),
+            "threads": FP32_THREADS, "smem_bytes": smem, "stages": stages,
+            "fixed": int((w, h, kx, kd) == (256, 128, 64, 32))}
+
+
+def kernel_fp32_plan(cfg: NerfMLPConfig, n: int) -> dict:
+    """The same plan as the built kernel computes it on the current card."""
+    lib = load_library("fused_mlp", _bind_forward)
+    plan = (ctypes.c_int * 5)()
+    err = lib.cvnerf_fused_nerf_fp32_plan(n, cfg.trunk_width, cfg.head_width,
+                                          cfg.xyz_freqs, cfg.dir_freqs, plan)
+    if err != 0:
+        raise RuntimeError(f"cvnerf_fused_nerf_fp32_plan: CUDA error {err}")
+    return dict(zip(("blocks", "threads", "smem_bytes", "stages", "fixed"),
+                    plan))
+
+
 def mat_blocks(cfg: NerfMLPConfig) -> list[tuple[str, int, int]]:
     """The packed matrices in operand order, as ``(name, padded fan-in,
     fan-out)``; the backward kernel's gradients use the same layout."""
@@ -211,7 +264,8 @@ def pack_params(params: dict, cfg: NerfMLPConfig,
     """One net's params → ``(wmat, wvec)`` in the kernel's operand layout,
     on the params' device. Matrices are ``[out, in]`` for bf16 (the wgmma
     K-major B operand, each block a TMA tensor: 16-byte aligned, rows of
-    16-byte multiples) and ``[in, out]`` for fp32."""
+    16-byte multiples) and ``[in, out]`` for fp32 (each K-slab of rows one
+    contiguous bulk copy)."""
     check_kernel_config(cfg)
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "

@@ -12,7 +12,11 @@ them to the params layout. In bf16 its pass 1 is ``fused_nerf_bwd_wgmma``
 (TMA-fed ``wgmma`` with the activations and deltas in registers; launch
 plan :func:`bwd_launch_plan`), which reads the input-gradient weights
 from :func:`in_out_matrices`, and its weight gradients ``wgrad_wgmma``
-(TMA-fed ``wgmma`` on the stashed operands).
+(TMA-fed ``wgmma`` on the stashed operands). In fp32 its pass 1 is
+``fused_nerf_bwd_ffma`` (true fp32 products on the FFMA pipe in register
+micro-tiles, weights streamed by bulk copies; launch plan
+:func:`bwd32_launch_plan`), which reads the input-gradient weights from
+:func:`out_in_matrices`, and its weight gradients ``wgrad_ffma``.
 
 Gradients flow to the **parameters only**. Sample positions enter the loss
 through depths the renderer detaches and ray origins/directions are data,
@@ -29,7 +33,8 @@ import torch
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
 from cvnerf_torch.ops.encoding import freq_encode
-from cvnerf_torch.ops.fused_mlp import (SMEM_LIMIT, FusedNerfWeights,
+from cvnerf_torch.ops.fused_mlp import (FP32_THREADS, SMEM_LIMIT,
+                                        FusedNerfWeights, fp32_block_plan,
                                         forward_flops, fused_nerf_apply,
                                         load_library, mat_blocks, packed_size)
 
@@ -59,7 +64,7 @@ def _bind_backward(lib) -> None:
     lib.cvnerf_fused_nerf_backward.restype = ctypes.c_int
     lib.cvnerf_fused_nerf_bwd_workspace.argtypes = [i, i, i, i, i, i]
     lib.cvnerf_fused_nerf_bwd_workspace.restype = ctypes.c_long
-    lib.cvnerf_fused_nerf_bwd_plan.argtypes = [i, i, i, i, i,
+    lib.cvnerf_fused_nerf_bwd_plan.argtypes = [i, i, i, i, i, i,
                                                ctypes.POINTER(ctypes.c_long)]
     lib.cvnerf_fused_nerf_bwd_plan.restype = ctypes.c_int
 
@@ -79,9 +84,11 @@ def _transposed_blocks(wmat: torch.Tensor, cfg: NerfMLPConfig,
 
 def out_in_matrices(weights: FusedNerfWeights) -> torch.Tensor:
     """``weights.wmat`` with every block in the ``[out, in]`` layout, which
-    the fp32 kernel's input gradients read (adjacent threads, adjacent
-    weights). The bf16 packing already is; the fp32 one is ``[in, out]`` and
-    is transposed here, block by block."""
+    the fp32 kernel's input gradients ``d_prev[64, in] = d[64, out] W[out,
+    in]`` stream in K-slabs of contiguous ``out`` rows (16-byte aligned:
+    every block's size is a multiple of 256 elements). The bf16 packing
+    already is; the fp32 one is ``[in, out]`` and is transposed here, block
+    by block."""
     if weights.compute_dtype == torch.bfloat16:
         return weights.wmat
     return _transposed_blocks(weights.wmat, weights.cfg, rows_are_in=True)
@@ -153,12 +160,78 @@ def bwd_launch_plan(cfg: NerfMLPConfig, n: int, sm_count: int) -> dict:
             "workspace_bytes": workspace, "splits": splits}
 
 
-def kernel_bwd_plan(cfg: NerfMLPConfig, n: int) -> dict:
-    """The same plan as the built kernel computes it on the current card."""
+# The fp32 backward's pass 1 (csrc/fused_mlp_bwd.cu, fused_nerf_bwd_ffma):
+# the fp32 forward's block (eight FFMA consumer warps and one producer warp,
+# one block per SM, at most one per 64-point tile, weight stages of 16 rows)
+# with, beside the activation buffer and the encodings, the tile's upstream
+# g [64, 4] and the ReLU masks of h1..h8 (two 32-bit words a consumer thread
+# a layer). Its stash is fp32, its rows rounded up to 64; vector slabs: one
+# per block and row of four consumer warps; the weight gradients
+# (wgrad_ffma, 128 x 128 output tiles, two blocks an SM) are split-K
+# partials as in bf16, their split count raised until the blocks fill
+# whole waves.
+_BWD32_TILE = 64
+_BWD32_OWN = 64 * 4 * 4 + 8 * 2 * 256 * 4
+_WGRAD32_TILE = 128
+_WGRAD32_PER_SM = 2
+_MIN_SPLIT32 = 1024
+_MAX_SPLITS32 = 32
+
+
+def _wgrad32_tiles(cfg: NerfMLPConfig) -> int:
+    """Output tiles of the fp32 weight gradients: 128 x 128 tiles of every
+    weight block (fan-out x padded fan-in)."""
+    return sum(-(-fout // _WGRAD32_TILE) * -(-fin // _WGRAD32_TILE)
+               for _, fin, fout in mat_blocks(cfg))
+
+
+def _splits32(cn: int, cfg: NerfMLPConfig, sm_count: int) -> int:
+    """The fp32 weight gradients' split count for a chunk of ``cn`` points
+    (``splits32_for``): the least from :func:`_splits` up whose blocks
+    (tiles x splits) fill at least 90% of their waves of two blocks an SM,
+    with at least 1,024 points a split and at most 32 splits."""
+    s0, tiles = _splits(cn), _wgrad32_tiles(cfg)
+    slots = _WGRAD32_PER_SM * sm_count
+    for s in range(s0, min(cn // _MIN_SPLIT32, _MAX_SPLITS32) + 1):
+        blocks = tiles * s
+        if blocks * 10 >= -(-blocks // slots) * slots * 9:
+            return s
+    return s0
+
+
+def bwd32_launch_plan(cfg: NerfMLPConfig, n: int, sm_count: int) -> dict:
+    """The fp32 backward's launch for ``n`` points on a card of
+    ``sm_count`` SMs, as ``cvnerf_fused_nerf_bwd_plan`` computes it with
+    ``bf16 = 0``: the keys of :func:`bwd_launch_plan`."""
+    w, h = cfg.trunk_width, cfg.head_width
+    kx, kd = _r(cfg.xyz_dim, 16), _r(cfg.dir_dim, 16)
+    stages, smem = fp32_block_plan(cfg, _BWD32_OWN)
+    first = min(n, _BWD_CHUNK)
+    blocks = min(-(-first // _BWD32_TILE), sm_count)
+    rows = _r(first, _BWD32_TILE)
+    vec = 9 * w + h + w + 3 * h + 8
+    vstride, mstride = _r(vec, 64), _r(packed_size(cfg) - vec, 64)
+    splits = sum(_splits32(min(_BWD_CHUNK, n - p0), cfg, sm_count)
+                 for p0 in range(0, n, _BWD_CHUNK))
+    stash = rows * (kx + kd + 9 * w + 9 * w + h) * 4
+    workspace = (_r(2 * blocks * vstride * 4, 256)
+                 + _r(splits * mstride * 4, 256) + _r(stash, 256))
+    return {"blocks": blocks, "threads": FP32_THREADS, "smem_bytes": smem,
+            "stages": stages, "stash_rows": rows,
+            "workspace_bytes": workspace, "splits": splits}
+
+
+def kernel_bwd_plan(cfg: NerfMLPConfig, n: int,
+                    compute_dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The plan of :func:`bwd_launch_plan` (bf16) or
+    :func:`bwd32_launch_plan` (fp32) as the built kernel computes it on the
+    current card."""
     lib = load_library("fused_mlp_bwd", _bind_backward)
     plan = (ctypes.c_long * 7)()
     err = lib.cvnerf_fused_nerf_bwd_plan(n, cfg.trunk_width, cfg.head_width,
-                                         cfg.xyz_freqs, cfg.dir_freqs, plan)
+                                         cfg.xyz_freqs, cfg.dir_freqs,
+                                         int(compute_dtype == torch.bfloat16),
+                                         plan)
     if err != 0:
         raise RuntimeError(f"cvnerf_fused_nerf_bwd_plan: CUDA error {err}")
     return dict(zip(("blocks", "threads", "smem_bytes", "stages",

@@ -13,10 +13,16 @@ With ``--bwd``, the bf16 backward (``cvnerf_torch.ops.fused_mlp_bwd.
 fused_nerf_bwd``) at a train step's coarse and fine passes, with seeded
 upstream gradients: the whole backward by CUDA events and, from
 ``torch.profiler`` over 3 more launches, its pass 1 (the kernel whose name
-holds ``fused_nerf_bwd``) and the rest (``wgrad_gemm``, ``reduce_slabs``,
-the workspace's memset).
+holds ``fused_nerf_bwd``) and the rest (the weight gradients,
+``reduce_slabs``, the workspace's memset). With ``--fp32``, the fp32
+forward (the ``--no-bf16`` path) at the four shapes above and a ragged
+n = 65,573; with ``--fp32 --bwd``, the fp32 backward at the train passes
+and n = 65,573. An fp32 kernel's sums may change order between versions,
+so fp32 turns print, beside each hash, the output's distance from the
+plain version on the same inputs (forward: max abs error; backward: the
+largest per-leaf error relative to the leaf's largest gradient).
 
-    python3 scripts/time_forward_kernel.py [--int8 | --bwd] ROOT [ROOT ...]
+    python3 scripts/time_forward_kernel.py [--int8 | --bwd | --fp32 [--bwd]] ROOT [ROOT ...]
 
 Each ROOT is a checkout (for example a parent commit unpacked with
 ``git archive``); each runs in its own process, in the order given, so
@@ -41,6 +47,10 @@ SHAPES = {"serve_coarse": 8192 * 64, "serve_fine": 8192 * 192,
 INT8_SHAPES = {"serve_coarse": 8192 * 64, "serve_fine": 8192 * 192,
                "ragged": 2 ** 16 + 37}
 BWD_SHAPES = {"train_coarse": 1024 * 64, "train_fine": 1024 * 192}
+FP32_SHAPES = {**SHAPES, "ragged": 2 ** 16 + 37}
+FP32_BWD_SHAPES = {**BWD_SHAPES, "ragged": 2 ** 16 + 37}
+KINDS = {("--int8",): "int8", ("--bwd",): "bwd", ("--fp32",): "fp32",
+         ("--fp32", "--bwd"): "fp32_bwd"}
 
 
 def split_ms(apply, reps: int = 3) -> dict:
@@ -68,15 +78,26 @@ def time_one(root: str, kind: str) -> dict:
     from cvnerf_torch.ops import fused_mlp as fm
     if not Path(fm.__file__).resolve().is_relative_to(Path(root).resolve()):
         raise SystemExit(f"imported {fm.__file__}, not the checkout {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = NerfMLPConfig()
     params = init_nerf_params(torch.Generator().manual_seed(0), cfg, "cuda")
-    if kind == "bwd":
+    plain = None
+    if kind in ("bwd", "fp32_bwd"):
         from cvnerf_torch.ops import fused_mlp_bwd as fb
-        w = fm.FusedNerfWeights(params, cfg, torch.bfloat16)
-        shapes = BWD_SHAPES
+        dt = torch.float32 if kind == "fp32_bwd" else torch.bfloat16
+        w = fm.FusedNerfWeights(params, cfg, dt)
+        shapes = FP32_BWD_SHAPES if kind == "fp32_bwd" else BWD_SHAPES
 
         def apply(pts, dirs, g):
             return fb.fused_nerf_bwd(w, pts, dirs, g)
+
+        if kind == "fp32_bwd":
+            def plain(pts, dirs, g, res):
+                got = fb.unpack_grads(res, cfg, dt)
+                want = fb.fused_nerf_bwd_plain(params, pts, dirs, g, cfg, dt)
+                return max(((got[k][p] - want[k][p]).abs().max()
+                            / want[k][p].abs().max().clamp_min(1e-30)).item()
+                           for k in want for p in ("w", "b"))
     elif kind == "int8":
         from cvnerf_torch.ops import fused_mlp_int8 as fq
         from cvnerf_torch.ops import quantize as tq
@@ -94,23 +115,31 @@ def time_one(root: str, kind: str) -> dict:
         def apply(pts, dirs, g):
             return fq.fused_nerf_apply_int8(qw, pts, dirs)
     else:
-        w = fm.FusedNerfWeights(params, cfg, torch.bfloat16)
-        shapes = SHAPES
+        dt = torch.float32 if kind == "fp32" else torch.bfloat16
+        w = fm.FusedNerfWeights(params, cfg, dt)
+        shapes = FP32_SHAPES if kind == "fp32" else SHAPES
 
         def apply(pts, dirs, g):
             return fm.fused_nerf_apply(w, pts, dirs)
+
+        if kind == "fp32":
+            def plain(pts, dirs, g, res):
+                return (res - fm.fused_nerf_plain(params, pts, dirs, cfg, dt)
+                        ).abs().max().item()
     gen = torch.Generator().manual_seed(1)
     grads = torch.Generator().manual_seed(2)
-    out, digest, split = {}, {}, {}
+    out, digest, split, err = {}, {}, {}, {}
     for name, n in shapes.items():
         pts = (torch.randn(n, 3, generator=gen) * 2).cuda()
         dirs = torch.nn.functional.normalize(
             torch.randn(n, 3, generator=gen), dim=-1).cuda()
         g = ((torch.randn(n, 4, generator=grads) * 1e-3).cuda()
-             if kind == "bwd" else None)
+             if kind in ("bwd", "fp32_bwd") else None)
         res = apply(pts, dirs, g)
         digest[name] = hashlib.sha256(res.cpu().numpy().tobytes()
                                       ).hexdigest()[:16]
+        if plain is not None:
+            err[name] = plain(pts, dirs, g, res)
         apply(pts, dirs, g)
         torch.cuda.synchronize()
         times = []
@@ -123,19 +152,23 @@ def time_one(root: str, kind: str) -> dict:
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         out[name] = float(np.median(times))
-        if kind == "bwd":
+        if kind in ("bwd", "fp32_bwd"):
             split[name] = split_ms(lambda: apply(pts, dirs, g))
     res = {"root": root, "kernel": kind, "ms": out, "output_sha256": digest}
     if split:
         res["split_ms"] = split
+    if err:
+        res["err_vs_plain"] = err
     return res
 
 
 def main() -> int:
     args = sys.argv[1:]
     kind = "bf16"
-    if args and args[0] in ("--int8", "--bwd"):
-        kind, args = args[0][2:], args[1:]
+    for flags, name in sorted(KINDS.items(), key=lambda kv: -len(kv[0])):
+        if tuple(args[:len(flags)]) == flags:
+            kind, args = name, args[len(flags):]
+            break
     if len(args) > 1 and args[0] == "--one":
         import torch
         if not torch.cuda.is_available():
@@ -149,8 +182,8 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
     for root in args:
-        res = subprocess.run([sys.executable, __file__]
-                             + [f"--{kind}"] * (kind != "bf16")
+        flags = next((list(f) for f, k in KINDS.items() if k == kind), [])
+        res = subprocess.run([sys.executable, __file__] + flags
                              + ["--one", root],
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:

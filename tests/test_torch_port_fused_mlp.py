@@ -208,6 +208,111 @@ def test_bf16_launch_plan_full_width_and_grid():
     assert fm.bf16_launch_plan(cfg, 10_000, 114)["blocks"] == 79
 
 
+@pytest.mark.parametrize("trunk", range(16, 257, 16))
+def test_fp32_launch_plan_fits_every_accepted_width(trunk):
+    """The FFMA kernel's shared memory (weight stages + activation buffer +
+    encodings + raw inputs + head partials + barriers) fits a block on
+    sm_90 with at least three stages, for every width the kernel accepts."""
+    for w, h in (wh for wh in _WIDTHS if wh[0] == trunk):
+        for lx, ld in _BANDS:
+            cfg = NerfMLPConfig(xyz_freqs=lx, dir_freqs=ld, trunk_width=w,
+                                head_width=h)
+            plan = fm.fp32_launch_plan(cfg, 1000, 132)
+            assert 3 <= plan["stages"] <= 8, (cfg, plan)
+            assert plan["smem_bytes"] <= fm.SMEM_LIMIT, (cfg, plan)
+            assert plan["threads"] == 288
+
+
+def test_fp32_launch_plan_full_width_and_grid():
+    cfg = NerfMLPConfig()
+    plan = fm.fp32_launch_plan(cfg, 8192 * 192, 132)
+    # 8 stages of 16 rows x 256 fp32, the activation buffer [256, 64], the
+    # encodings [64 + 32, 64], the raw inputs [64 x 6], the head partials
+    # [4, 64, 4] (all fp32) and 16 barriers.
+    assert plan == {"blocks": 132, "threads": 288, "stages": 8, "fixed": 1,
+                    "smem_bytes": 8 * 16 * 256 * 4 + 256 * 64 * 4
+                    + 96 * 64 * 4 + 64 * 6 * 4 + 4 * 64 * 4 * 4 + 16 * 8}
+    # Other bands or widths read their widths at run time; the widest bands
+    # still leave five stages.
+    for kw in (dict(xyz_freqs=12), dict(head_width=256), TINY):
+        assert fm.fp32_launch_plan(NerfMLPConfig(**kw), 1, 132)["fixed"] == 0
+    assert fm.fp32_launch_plan(NerfMLPConfig(xyz_freqs=20, dir_freqs=20), 1,
+                               132)["stages"] == 5
+    # One block per 64-point tile, at most one per SM (persistent grid).
+    for n, blocks in ((1, 1), (63, 1), (64, 1), (65, 2), (132 * 64, 132),
+                      (132 * 64 + 1, 132), (65_573, 132)):
+        assert fm.fp32_launch_plan(cfg, n, 132)["blocks"] == blocks, n
+    assert fm.fp32_launch_plan(cfg, 3_000, 114)["blocks"] == 47
+
+
+def _ffma_thread(tid):
+    """(pg, cg) of consumer thread tid (csrc/nerf_ffma.cuh ``thr``)."""
+    warp, lane = divmod(tid, 32)
+    return 4 * (warp >> 2) + (lane >> 3), 8 * (warp & 3) + (lane & 7)
+
+
+def _ffma_point(pg, i):
+    return 4 * pg + (i & 3) + 32 * (i >> 2)
+
+
+def _ffma_col(cg, j):
+    return 4 * cg + (j & 3) + 128 * (j >> 2)
+
+
+def _swz(k, p):
+    """``swz`` of csrc/nerf_ffma.cuh: the float index of (k, p) in a
+    [K][64] buffer."""
+    return k * 64 + (((p >> 2) ^ ((k >> 2) & 7)) << 2) + (p & 3)
+
+
+@pytest.mark.parametrize("n_out", range(16, 257, 16))
+def test_fp32_micro_tiles_cover_each_output_once(n_out):
+    """The 256 consumer threads' 8 x 8 micro-tiles (points point(i),
+    columns col(j), j < 4 NCH, the columns below the layer's width) cover
+    every (point, column) of a 64 x n_out product exactly once, with one
+    column chunk a thread (NCH = 1) at widths up to 128 and two above."""
+    nch = 2 if n_out > 128 else 1
+    seen = {}
+    for tid in range(256):
+        pg, cg = _ffma_thread(tid)
+        for i in range(8):
+            for j in range(4 * nch):
+                col = _ffma_col(cg, j)
+                if col < n_out:
+                    key = (_ffma_point(pg, i), col)
+                    assert key not in seen, (key, tid, seen.get(key))
+                    seen[key] = tid
+    assert sorted(seen) == [(p, c) for p in range(64) for c in range(n_out)]
+
+
+def test_fp32_swizzle_spreads_loads_and_stores_over_the_banks():
+    """The [K][64] swizzle is a permutation within each row that keeps 4
+    points' 16 bytes together; a warp's A loads (4 point groups of one row)
+    fall in 4 distinct 16-byte bank groups, and an epilogue's quarter-warp
+    (lanes 8q .. 8q + 7: one point group, 8 rows 4 apart) stores into 8
+    distinct ones, for every row the layers write."""
+    for k in range(256):
+        idx = [_swz(k, p) for p in range(64)]
+        assert sorted(idx) == list(range(k * 64, k * 64 + 64))
+        for p in range(0, 64, 4):
+            assert idx[p:p + 4] == list(range(idx[p], idx[p] + 4))
+            assert idx[p] % 4 == 0
+    for warp in range(8):
+        threads = [_ffma_thread(32 * warp + lane) for lane in range(32)]
+        for k in range(256):
+            for half in (0, 32):   # the two A loads: point groups pg, pg + 8
+                groups = {(_swz(k, 4 * pg + half) % 32) // 4
+                          for pg, _ in threads}
+                assert len(groups) == 4, (warp, k)
+        for q in range(4):        # quarter-warps
+            quarter = threads[8 * q:8 * q + 8]
+            for j in range(8):
+                for half in (0, 32):
+                    banks = {(_swz(_ffma_col(cg, j), 4 * pg + half) % 32) // 4
+                             for pg, cg in quarter}
+                    assert len(banks) == 8, (warp, q, j)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -218,16 +323,18 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version_on_card(cuda_device, dtype):
-    """TINY and full width, at ragged sizes around the bf16 kernel's
-    128-point tiles and its one-block-per-SM grid; bf16 launches twice and
-    must be bitwise equal, and the kernel's launch plan is the host's."""
+    """TINY and full width, at ragged sizes around the kernels' tiles (fp32
+    64 points, bf16 128) and their one-block-per-SM grids; each launches
+    twice and must be bitwise equal, and the kernel's launch plan is the
+    host's."""
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    tile = 64 if dtype == torch.float32 else 128
     for kw in (TINY, {}):
         cfg = NerfMLPConfig(**kw)
         params = init_nerf_params(torch.Generator().manual_seed(0), cfg,
                                   cuda_device)
         w = fm.FusedNerfWeights(params, cfg, dtype)
-        for n in (1, 127, 129, 300, sms * 128 + 1, 65_573):
+        for n in (1, tile - 1, tile + 1, 300, sms * tile + 1, 65_573):
             pts, dirs = (torch.from_numpy(a).to(cuda_device)
                          for a in _inputs(n))
             before = fm.fused_nerf_apply.launches
@@ -238,7 +345,10 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype):
             want = fm.fused_nerf_plain(params, pts, dirs, cfg, dtype)
             tol = 2e-4 if dtype == torch.float32 else 2e-2
             assert (got - want).abs().max().item() < tol, (kw, n)
+            assert torch.equal(got, again), (kw, n)
             if dtype == torch.bfloat16:
-                assert torch.equal(got, again), (kw, n)
                 assert fm.kernel_bf16_plan(cfg, n) == fm.bf16_launch_plan(
+                    cfg, n, sms)
+            else:
+                assert fm.kernel_fp32_plan(cfg, n) == fm.fp32_launch_plan(
                     cfg, n, sms)

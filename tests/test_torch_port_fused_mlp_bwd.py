@@ -92,8 +92,10 @@ def test_unpack_grads_inverts_the_packing(dtype):
 def test_out_in_matrices_match_the_bf16_packing_layout():
     """The fp32 weights handed to the kernel's input gradients are the
     packed blocks transposed to ``[out, in]``: the bf16 packing's layout
-    (values representable in bf16, so both packings hold the same values).
-    The bf16 packing is passed through unchanged."""
+    (values representable in bf16, so both packings hold the same values),
+    each block starting at a multiple of 256 elements, so every 16-row
+    K-slab the kernel streams starts 16-byte aligned. The bf16 packing is
+    passed through unchanged."""
     cfg = NerfMLPConfig(**TINY)
     gen = torch.Generator().manual_seed(8)
     params = {k: {p: torch.round(t * 64) / 64 for p, t in v.items()}
@@ -105,6 +107,10 @@ def test_out_in_matrices_match_the_bf16_packing_layout():
     torch.testing.assert_close(fb.out_in_matrices(as32), wmat16.float(),
                                rtol=0, atol=0)
     assert fb.out_in_matrices(as16) is wmat16
+    start = 0
+    for _, fan_in, fan_out in fm.mat_blocks(cfg):
+        assert start % 256 == 0
+        start += fan_in * fan_out
 
 
 def test_autograd_function_on_cpu_is_the_plain_backward():
@@ -181,10 +187,14 @@ def test_kernel_matches_plain_on_the_card():
     cfg = NerfMLPConfig()
     params = init_nerf_params(torch.Generator().manual_seed(7), cfg, "cuda")
     pts, dirs, g = (torch.from_numpy(x).cuda() for x in _inputs(5000))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype, tol in ((torch.float32, 1e-2), (torch.bfloat16, 2e-2)):
         w = fm.FusedNerfWeights(params, cfg, dtype)
         first = fb.fused_nerf_bwd(w, pts, dirs, g)
         assert torch.equal(first, fb.fused_nerf_bwd(w, pts, dirs, g))
+        host = (fb.bwd_launch_plan if dtype == torch.bfloat16
+                else fb.bwd32_launch_plan)(cfg, 5000, sms)
+        assert fb.kernel_bwd_plan(cfg, 5000, dtype) == host
         want = fb.fused_nerf_bwd_plain(params, pts, dirs, g, cfg, dtype)
         errs = _leaf_errors({k: {p: t.cpu() for p, t in v.items()} for k, v in
                              fb.unpack_grads(first, cfg, dtype).items()},
@@ -246,6 +256,147 @@ def test_bwd_launch_plan_grid_rows_and_workspace():
         + 1024 * 192 * 9_664)
     # Two chunks: 16 partials (capped) of the first, 3 of the second.
     assert fb.bwd_launch_plan(cfg, 2 ** 18 + 2 ** 15 + 37, 132)["splits"] == 19
+
+
+@pytest.mark.parametrize("trunk", range(16, 257, 16))
+def test_bwd32_launch_plan_fits_every_accepted_width(trunk):
+    """The fp32 backward's pass 1 (weight stages + activation buffer +
+    encodings + raw inputs + g + ReLU masks + barriers) fits a block on
+    sm_90 with at least three ring stages, for every width and band count
+    the kernel accepts."""
+    for w, h in (wh for wh in _WIDTHS if wh[0] == trunk):
+        for lx, ld in _BANDS:
+            cfg = NerfMLPConfig(xyz_freqs=lx, dir_freqs=ld, trunk_width=w,
+                                head_width=h)
+            plan = fb.bwd32_launch_plan(cfg, 1000, 132)
+            assert 3 <= plan["stages"] <= 8, (cfg, plan)
+            assert plan["smem_bytes"] <= fm.SMEM_LIMIT, (cfg, plan)
+            assert plan["threads"] == 288
+
+
+def test_bwd32_launch_plan_grid_rows_and_workspace():
+    """One block per 64-point tile of the first chunk, at most one per SM;
+    stash rows rounded up to the tile; the workspace is two vector slabs a
+    block (one per row of four consumer warps), the split-K partials and
+    the fp32 stash of one chunk."""
+    cfg = NerfMLPConfig()
+    for n, sms, blocks, rows in ((1, 132, 1, 64), (63, 132, 1, 64),
+                                 (65, 132, 2, 128),
+                                 (132 * 64 + 1, 132, 132, 133 * 64),
+                                 (65_573, 114, 114, 1025 * 64),
+                                 (1024 * 192, 132, 132, 1024 * 192),
+                                 (2 ** 18 + 2 ** 15 + 37, 132, 132, 2 ** 18)):
+        plan = fb.bwd32_launch_plan(cfg, n, sms)
+        assert (plan["blocks"], plan["stash_rows"]) == (blocks, rows), n
+    # Full width: 7 stages of 16 rows x 256 fp32 beside the activation
+    # buffer [256, 64], the encodings [64 + 32, 64], the raw inputs, g
+    # [64, 4] and the masks of h1..h8 (2 words a thread a layer).
+    plan = fb.bwd32_launch_plan(cfg, 1024 * 192, 132)
+    assert plan["stages"] == 7
+    assert plan["smem_bytes"] == (7 * 16 * 256 * 4 + (256 + 96) * 64 * 4
+                                  + 64 * 6 * 4 + 64 * 4 * 4
+                                  + 8 * 2 * 256 * 4 + 14 * 8)
+    # 19,328 B a point of fp32 stash: encodings 64 + 32, h1..h8 and feat
+    # 9 x 256, deltas 9 x 256 + 128.
+    mat = fb.packed_size(cfg) - 3080
+    assert plan["splits"] == 13
+    assert plan["workspace_bytes"] == (2 * 132 * 3136 * 4 + 13 * mat * 4
+                                       + 1024 * 192 * 19_328)
+
+
+def test_fp32_wgrad_splits_fill_their_waves():
+    """The fp32 weight gradients' 39 output tiles (128 x 128, full width)
+    times the split count fill at least 90% of their waves of 2 x 132
+    blocks, from the bf16 path's split count up (one split a 16,384
+    points), with at least 1,024 points a split and at most 32 splits; a
+    chunk too small for that keeps the bf16 count."""
+    cfg = NerfMLPConfig()
+    assert fb._wgrad32_tiles(cfg) == 39
+    for cn, want in ((65_573, 13), (65_536, 13), (196_608, 13),
+                     (2 ** 18, 19), (32_805, 13), (5_000, 1), (1, 1)):
+        s = fb._splits32(cn, cfg, 132)
+        assert s == want, (cn, s)
+        assert s >= fb._splits(cn)
+        if s > fb._splits(cn):
+            blocks = 39 * s
+            assert blocks * 10 >= -(-blocks // 264) * 264 * 9
+            assert cn // s >= 1024
+    # Two chunks: 19 partials of the first, 13 of the second.
+    assert fb.bwd32_launch_plan(cfg, 2 ** 18 + 2 ** 15 + 37, 132)[
+        "splits"] == 32
+
+
+def _ffma_thread(tid):
+    """(pg, cg) of consumer thread tid (csrc/nerf_ffma.cuh ``thr``)."""
+    warp, lane = divmod(tid, 32)
+    return 4 * (warp >> 2) + (lane >> 3), 8 * (warp & 3) + (lane & 7)
+
+
+@pytest.mark.parametrize("width", range(16, 257, 16))
+def test_fp32_relu_mask_bit_written_is_the_bit_read(width):
+    """The fp32 pass 1 keeps h_l > 0 for the thread's micro-tile (point i,
+    column j) at bit 8 (i % 4) + j of word i / 4 of its own slot
+    (keep_mask32), and the input-gradient epilogue of d h_l, whose micro-
+    tile covers the same (point, column) (the same thread map, the output
+    width = h_l's), reads the same bit (apply_mask32). Every (point,
+    column) of a layer ``width`` wide has one bit, within 2 words a
+    thread, and with one column chunk (NCH = 1, the lego head) the bits of
+    the second chunk stay unused."""
+    for nch in ((1, 2) if width <= 128 else (2,)):
+        written = {}
+        for tid in range(256):
+            pg, cg = _ffma_thread(tid)
+            for i in range(8):
+                for j in range(4 * nch):
+                    col = 4 * cg + (j & 3) + 128 * (j >> 2)
+                    if col >= width:
+                        continue
+                    point = 4 * pg + (i & 3) + 32 * (i >> 2)
+                    word, bit = i >> 2, 8 * (i & 3) + j
+                    assert bit < 32
+                    slot = (word, tid, bit)
+                    assert slot not in written.values()
+                    written[(point, col)] = slot
+        assert sorted(written) == [(p, c) for p in range(64)
+                                   for c in range(width)]
+        for tid in range(256):   # the reading thread finds its own bits
+            pg, cg = _ffma_thread(tid)
+            for i in range(8):
+                for j in range(4 * nch):
+                    col = 4 * cg + (j & 3) + 128 * (j >> 2)
+                    if col < width:
+                        point = 4 * pg + (i & 3) + 32 * (i >> 2)
+                        assert written[(point, col)] == (
+                            i >> 2, tid, 8 * (i & 3) + j)
+
+
+@pytest.mark.parametrize("width", [16, 48, 128, 256])
+def test_fp32_column_sums_count_every_point_once(width):
+    """``col_sums32``: each thread sums its 8 points of a column, the xor
+    8 and 16 shuffles add the 4 lanes of the warp that share the column
+    group, lanes 0-7 add that to their warp row's slab, and the two warp
+    rows' slabs are summed at the end (reduce_slabs): each column's bias
+    gradient counts every point of the tile exactly once."""
+    counted = {}
+    for warp in range(8):
+        lanes = {}
+        for lane in range(32):
+            pg, cg = _ffma_thread(32 * warp + lane)
+            for j in range(8):
+                col = 4 * cg + (j & 3) + 128 * (j >> 2)
+                pts = [4 * pg + (i & 3) + 32 * (i >> 2) for i in range(8)]
+                lanes[(lane, j)] = (col, pts)
+        for lane in range(8):                       # the writers
+            for j in range(8):
+                col, pts = lanes[(lane, j)]
+                if col >= width:
+                    continue
+                for m in (0, 8, 16, 24):             # xor 8, 16 partners
+                    other_col, other = lanes[(lane ^ m, j)]
+                    assert other_col == col
+                    for p in other:
+                        counted[(p, col)] = counted.get((p, col), 0) + 1
+    assert counted == {(p, c): 1 for p in range(64) for c in range(width)}
 
 
 def test_in_out_matrices_transpose_every_bf16_block():
