@@ -65,13 +65,25 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      plain call), the step time and a profiler split whose pass 1 must be
      ``fused_nerf_bwd_ffma`` alone;
   6. one train step with the kernels and with ``kernels="off"`` from the
-     same state and key, in fp32 and in bf16, compared.
-The launch counts of phases 2, 2b, 3, 3b, 5 and 5b (the main paths) are reset just
-before each phase and read just after: the kernels must have launched
-exactly as often as the chunking implies (40 forward launches per 400x400
-frame at chunk 8192, or 40 int8 launches and no forward launch under
-``--int8``; 2 forward and 2 backward launches per train step), and the
-plain versions not at all.
+     same state and key, in fp32 and in bf16, compared;
+  7. the training entry point (main path): write an 800x800 Blender
+     fixture with the port's generator (lego's camera angle, so
+     ``configs/lego.txt``'s half_res gives 400x400), then through
+     ``cvnerf_torch.cli.main``: 60 bf16 steps with validation at 30 and 60,
+     checkpoints at 30 and 60 and the test eval; a second run stopped at
+     its step-30 checkpoint and resumed to 60, whose final checkpoint must
+     equal the first's bitwise; ``--render_only --render_test`` (the test
+     PSNR logged by the run, exactly); ``--render_only --int8``;
+     ``NerfRenderer.from_run_dir`` serving the run (params bitwise the
+     checkpoint's); 3 steps under ``--no-bf16``; the checkpoint writer's
+     enqueue and drain times.
+The launch counts of phases 2, 2b, 3, 3b, 5, 5b and 7 (the main paths) are
+reset just before each phase (each CLI call of phase 7) and read just
+after: the kernels must have launched exactly as often as the chunking
+implies (40 forward launches per 400x400 frame at chunk 8192, 80 at the
+CLI's chunk 4096, or as many int8 launches and no forward launch under
+``--int8``; 2 forward and 2 backward launches per train step, counted step
+by step in phase 7), and the plain versions not at all.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, the list of kernels exercised, and as its last line
@@ -877,29 +889,291 @@ def phase_step_vs_off(cfg):
             fail(f"train step {dt}: kernels and kernels='off' disagree")
 
 
-def write_run_dir(run: str, cfg, convert, init, gen_seed: int,
+class PerCall:
+    """Launch counts of every call of ``module.name`` while active (the
+    delta of ``read_counts`` across the call); for ``make_train_step``,
+    of every call of the step function it returns."""
+
+    def __init__(self, counts, module, name: str, factory: bool = False):
+        self.counts, self.module, self.name = counts, module, name
+        self.factory = factory
+        self.deltas: list[dict] = []
+
+    def _wrap(self, fn):
+        def call(*a, **kw):
+            before = self.counts()
+            out = fn(*a, **kw)
+            after = self.counts()
+            self.deltas.append({k: after[k] - before[k] for k in after})
+            return out
+        return call
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        if self.factory:
+            def make(*a, **kw):
+                return self._wrap(self.orig(*a, **kw))
+            setattr(self.module, self.name, make)
+        else:
+            setattr(self.module, self.name, self._wrap(self.orig))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def drive_cli(fm, fb, fq, argv: list[str]) -> tuple:
+    """``cvnerf_torch.cli.main(argv)`` with the counts set to 0 just
+    before and read just after; returns (result, counts, per-step launch
+    counts, per-frame launch counts)."""
+    from cvnerf_torch import cli
+    from cvnerf_torch.render import frames
+    from cvnerf_torch.train import loop
+
+    def counts():
+        return read_counts(fm, fb, fq)
+    with PerCall(counts, loop, "make_train_step", factory=True) as steps, \
+            PerCall(counts, frames, "render_image") as frame_calls:
+        torch.cuda.synchronize()
+        reset_counts(fm, fb, fq)
+        result = cli.main(argv)
+        torch.cuda.synchronize()
+        total = read_counts(fm, fb, fq)
+    return result, total, steps.deltas, frame_calls.deltas
+
+
+def check_calls(what: str, deltas: list[dict], n: int, want: dict) -> None:
+    want = {"fwd": 0, "bwd": 0, "int8": 0, "fwd_plain": 0, "bwd_plain": 0,
+            "int8_plain": 0, **want}
+    bad = [d for d in deltas if d != want]
+    if len(deltas) != n or bad:
+        fail(f"{what}: {len(deltas)} calls (expected {n}), launch counts "
+             f"off {want}: {bad[:3]}")
+
+
+def phase_cli(fm, fb, fq, card: str, tmp: str) -> dict:
+    """The training entry point (main path): ``cvnerf_torch.cli.main`` on a
+    lego-shaped fixture written by the port's generator. An uninterrupted
+    bf16 run with validation and test; a second run stopped at its step-30
+    checkpoint and resumed, whose final checkpoint must equal the first's
+    bitwise; ``--render_only --render_test`` (the logged test PSNR again);
+    ``--render_only --int8``; ``from_run_dir`` serving the run; 3 fp32
+    steps. Returns the launch counts and the numbers it printed."""
+    from cvnerf_torch.data.synthetic import make_blender_dataset
+    from cvnerf_torch.serve import NerfRenderer
+    from cvnerf_torch.train.checkpoint import (Checkpointer,
+                                               restore_checkpoint,
+                                               restore_params)
+    from cvnerf_torch.train.state import create_train_state, tree_leaves
+    data = os.path.join(tmp, "lego_fixture")
+    t0 = time.perf_counter()
+    make_blender_dataset(data, n_train=8, n_val=2, n_test=2, h=800, w=800,
+                         camera_angle_x=0.6911112, texture="normals")
+    fixture_s = time.perf_counter() - t0
+    print(f"cli: wrote an 800x800 blender fixture (8 train, 2 val, 2 test "
+          f"views) in {fixture_s:.2f} s", flush=True)
+    logs = os.path.join(tmp, "cli_logs")
+    lego = str(Path(__file__).resolve().parent / "configs" / "lego.txt")
+    base = ["--config", lego, "--data_dir", data,
+            "--base_dir", logs, "--save_dir", logs, "--testskip", "1",
+            "--ckpt_freq", "30", "--val_freq", "30", "--vid_freq", "0",
+            "--print_freq", "10", "--deterministic_resample"]
+    chunk, hw = 4096, SERVE_HW          # lego.txt's chunk default; half_res
+    per_frame = {"fwd": 2 * -(-hw * hw // chunk)}                  # 80
+    total = {k: 0 for k in read_counts(fm, fb, fq)}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # -- uninterrupted run ------------------------------------------------
+    run_a = os.path.join(logs, "lego_a")
+    t0 = time.perf_counter()
+    _, counts, steps, frames = drive_cli(
+        fm, fb, fq, [*base, "--name", "lego_a", "--iters", "61"])
+    cli_wall_s = time.perf_counter() - t0
+    add(counts)
+    check_calls("cli train steps", steps, 60, {"fwd": 2, "bwd": 2})
+    check_calls("cli validation and test frames", frames, 6, per_frame)
+    ckpts = sorted(os.listdir(os.path.join(run_a, "torch_checkpoints")))
+    if ckpts != ["000030.pt", "000060.pt"]:
+        fail(f"cli checkpoints {ckpts}, expected steps 30 and 60")
+    with open(os.path.join(run_a, "metrics.jsonl")) as fp:
+        recs = [json.loads(line) for line in fp]
+    logged = [r for r in recs if "lr" in r]
+    if [r["step"] for r in logged] != [10, 20, 30, 40, 50, 60] or not all(
+            np.isfinite(r["loss"]) for r in logged):
+        fail(f"cli: logged steps or losses wrong: {logged}")
+    test_rec = [r for r in recs if "test_psnr" in r]
+    rays = float(np.median([r["rays_per_sec"] for r in logged]))
+    step_ms = 1024 / rays * 1e3               # lego.txt's n_rays
+    vals = [r["val_psnr"] for r in recs if "val_psnr" in r]
+    from cvnerf_torch.data.datasets import load_scene
+    from cvnerf_torch.utils.image import ssim_images
+    t0 = time.perf_counter()
+    scene = load_scene(data, "blender", half_res=True, testskip=1,
+                       white_bkg=True)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ssim_images(scene.images[0], scene.images[1])
+    ssim_ms = (time.perf_counter() - t0) * 1e3
+    rest_s = cli_wall_s - load_s - 60 * step_ms / 1e3
+    print(f"cli: the uninterrupted run took {cli_wall_s:.2f} s wall: scene "
+          f"loading {load_s:.2f} s (12 PNGs read and resized to 400x400, "
+          f"timed apart), 60 steps ~{60 * step_ms / 1e3:.2f} s, the rest "
+          f"{rest_s:.2f} s (set-up, 2 validations of 2 frames, 2 checkpoint "
+          f"saves, the test eval of 2 frames; one SSIM {ssim_ms:.1f} ms)",
+          flush=True)
+    print(f"cli: 60 lego-shaped bf16 steps through python -m "
+          f"cvnerf_torch.cli: loss {logged[0]['loss']:.4f} -> "
+          f"{logged[-1]['loss']:.4f}, val psnr {vals}, test psnr "
+          f"{test_rec[-1]['test_psnr']:.4f}; median step {step_ms:.3f} ms "
+          f"({rays:.1f} rays/s, metrics.jsonl); launches {counts}; every "
+          f"step 2 + 2, every frame {per_frame['fwd']} forward, plain 0",
+          flush=True)
+
+    # -- stopped at step 30, resumed to 60 ---------------------------------
+    run_b = os.path.join(logs, "lego_b")
+    _, counts, steps, _ = drive_cli(
+        fm, fb, fq, [*base, "--name", "lego_b", "--iters", "31"])
+    add(counts)
+    check_calls("cli first half", steps, 30, {"fwd": 2, "bwd": 2})
+    _, counts, steps, _ = drive_cli(
+        fm, fb, fq, [*base, "--name", "lego_b", "--iters", "61"])
+    add(counts)
+    check_calls("cli resumed half", steps, 30, {"fwd": 2, "bwd": 2})
+    a = torch.load(os.path.join(run_a, "torch_checkpoints", "000060.pt"),
+                   weights_only=True)
+    b = torch.load(os.path.join(run_b, "torch_checkpoints", "000060.pt"),
+                   weights_only=True)
+    diffs = {}
+
+    def walk(x, y, path=""):
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k], f"{path}/{k}")
+        elif isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                diffs[path] = (x - y).abs().max().item()
+        elif x != y:
+            diffs[path] = (x, y)
+    walk(a, b)
+    print(f"cli resume: the run stopped at step 30 and resumed to 60 equals "
+          f"the uninterrupted run bitwise: {not diffs} (params, Adam moments, "
+          f"count, step)", flush=True)
+    if diffs:
+        fail(f"cli resume differs from the uninterrupted run: "
+             f"{dict(list(diffs.items())[:8])}")
+
+    # -- render-only: the test views, then int8 ----------------------------
+    out, counts, steps, frames = drive_cli(
+        fm, fb, fq, [*base, "--name", "lego_a", "--iters", "61",
+                     "--render_only", "--render_test"])
+    add(counts)
+    check_calls("cli --render_only frames", frames, 2, per_frame)
+    if steps or out.get("test_psnr") != test_rec[-1]["test_psnr"]:
+        fail(f"--render_test psnr {out} != the logged {test_rec[-1]}")
+    q, counts, _, frames = drive_cli(
+        fm, fb, fq, [*base, "--name", "lego_a", "--iters", "61",
+                     "--render_only", "--render_test", "--int8"])
+    add(counts)
+    check_calls("cli --render_only --int8 frames", frames, 2,
+                {"int8": per_frame["fwd"]})
+    print(f"cli --render_only --render_test: test psnr {out['test_psnr']:.6f}"
+          f" (logged {test_rec[-1]['test_psnr']:.6f}, equal); --int8 "
+          f"{q['test_psnr']:.4f}, {counts['int8']} int8 launches and no other",
+          flush=True)
+    if not np.isfinite(q["test_psnr"]):
+        fail("int8 render-only test psnr is not finite")
+
+    # -- serve the run -----------------------------------------------------
+    r = NerfRenderer.from_run_dir(run_a, device="cuda")
+    saved, step = restore_params(os.path.join(run_a, "torch_checkpoints"))
+    same = step == r.step == 60 and all(
+        torch.equal(u.cpu(), v) for u, v in zip(tree_leaves(r.params),
+                                                tree_leaves(saved)))
+    r.render_pose(pose(1.5))                                     # warm
+    torch.cuda.synchronize()
+    reset_counts(fm, fb, fq)
+    t0 = time.perf_counter()
+    rgb = r.render_pose(pose(0.5))
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    served = read_counts(fm, fb, fq)
+    add(served)
+    want = {"fwd": 2 * -(-hw * hw // CHUNK), "bwd": 0, "int8": 0,
+            "fwd_plain": 0, "bwd_plain": 0, "int8_plain": 0}
+    print(f"cli: from_run_dir serves step {r.step}, params bitwise the "
+          f"checkpoint's: {same}; a {rgb.shape} frame in {frame_ms:.1f} ms "
+          f"wall, launches {served}", flush=True)
+    if not same or served != want or not np.isfinite(rgb).all() \
+            or rgb.shape != (hw, hw, 3):
+        fail("from_run_dir did not serve the CLI's run as saved")
+
+    # -- the checkpoint writer's enqueue and drain -------------------------
+    template = create_train_state(torch.Generator().manual_seed(SEED),
+                                  device="cuda")
+    state = restore_checkpoint(os.path.join(run_a, "torch_checkpoints"),
+                               template)
+    enq, drain = [], []
+    with Checkpointer(os.path.join(tmp, "ckpt_timing")) as w:
+        for k in range(5):
+            state.step = 100 + k
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w.save(state)
+            t1 = time.perf_counter()
+            w.wait()
+            t2 = time.perf_counter()
+            enq.append((t1 - t0) * 1e3)
+            drain.append((t2 - t1) * 1e3)
+    enqueue_ms, drain_ms = float(np.median(enq)), float(np.median(drain))
+
+    # -- fp32, the --no-bf16 path -----------------------------------------
+    f32, counts, steps, frames = drive_cli(
+        fm, fb, fq, [*base, "--name", "lego_fp32", "--iters", "4",
+                     "--no-bf16", "--val_freq", "0", "--ckpt_freq", "0"])
+    add(counts)
+    check_calls("cli fp32 steps", steps, 3, {"fwd": 2, "bwd": 2})
+    check_calls("cli fp32 test frames", frames, 2, per_frame)
+    if not np.isfinite(f32["loss"]):
+        fail("cli fp32: the loss is not finite")
+
+    print(f"cli summary: median step {step_ms:.3f} ms, {rays:.1f} rays/s "
+          f"(metrics.jsonl of the uninterrupted run); checkpoint save "
+          f"enqueue {enqueue_ms:.2f} ms, drain {drain_ms:.2f} ms (median of "
+          f"5); fixture {fixture_s:.2f} s; launches {total}; card: {card}",
+          flush=True)
+    return {"counts": total, "step_ms": step_ms, "rays_per_sec": rays,
+            "ckpt_enqueue_ms": enqueue_ms, "ckpt_drain_ms": drain_ms,
+            "fixture_s": fixture_s, "cli_wall_s": cli_wall_s,
+            "scene_load_s": load_s, "ssim_ms": ssim_ms,
+            "served_frame_ms": frame_ms,
+            "test_psnr": test_rec[-1]["test_psnr"],
+            "int8_test_psnr": q["test_psnr"], "fp32_loss": f32["loss"]}
+
+
+def write_run_dir(run: str, cfg, init, gen_seed: int,
                   bf16: bool = True) -> None:
-    os.makedirs(os.path.join(run, "torch_checkpoints"))
-    scene = {"height": SERVE_HW, "width": SERVE_HW, "focal": 555.0,
-             "near": 2.0, "far": 6.0, "ndc": False,
-             "ndc_variant": "canonical", "white_bkg": True, "n_coarse": 64,
-             "n_fine": 128, "bf16": bf16, "sorted_resample": True,
-             "pallas": "auto",
-             "mlp": {"xyz_freqs": cfg.xyz_freqs, "dir_freqs": cfg.dir_freqs,
-                     "trunk_width": cfg.trunk_width,
-                     "head_width": cfg.head_width},
-             # The camera set a trained run's snapshot carries (--int8
-             # calibrates on it).
-             "calib_poses": [pose(t).tolist()
-                             for t in np.linspace(0, 2 * np.pi, 8,
-                                                  endpoint=False)]}
-    with open(os.path.join(run, "scene.json"), "w") as fp:
-        json.dump(scene, fp)
+    """A run directory for the lego serving shape written by the port's
+    own writers (``write_scene_snapshot`` and a ``Checkpointer``): seeded
+    random weights (coarse, then fine, from one generator) at step 1000 and
+    a few camera poses, which --int8 calibrates on."""
+    from cvnerf_torch.serve import write_scene_snapshot
+    from cvnerf_torch.train.checkpoint import Checkpointer
+    from cvnerf_torch.train.state import TrainState, make_optimizer
+    write_scene_snapshot(
+        run, height=SERVE_HW, width=SERVE_HW, focal=555.0, near=2.0, far=6.0,
+        ndc=False, ndc_variant="canonical", white_bkg=True, n_coarse=64,
+        n_fine=128, bf16=bf16, mlp=cfg, sorted_resample=True, pallas="auto",
+        calib_poses=np.stack([pose(t) for t in np.linspace(
+            0, 2 * np.pi, 8, endpoint=False)]))
     gen = torch.Generator().manual_seed(gen_seed)
-    blob = {net: convert.torch_state_dict_from_params(init(gen, cfg))
-            for net in ("coarse", "fine")}
-    blob["step"] = 1000
-    torch.save(blob, os.path.join(run, "torch_checkpoints", "001000.pt"))
+    params = {net: init(gen, cfg) for net in ("coarse", "fine")}
+    state = TrainState(params=params,
+                       opt_state=make_optimizer(5e-4, 500).init(params),
+                       step=1000)
+    with Checkpointer(os.path.join(run, "torch_checkpoints")) as ckpt:
+        ckpt.save(state, wait=True)
 
 
 def phase_int8_serve(fm, fb, fq, run: str, c2w, bf16_renderer, rgb_bf16,
@@ -1090,7 +1364,6 @@ def main() -> int:
     from cvnerf_torch.render.frames import render_image
     from cvnerf_torch.render.renderer import RenderConfig
     from cvnerf_torch.server import build_parser, make_server, renderer_from_args
-    from cvnerf_torch.utils import convert
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1107,7 +1380,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         run = os.path.join(tmp, "lego_serve")
-        write_run_dir(run, cfg, convert, init_nerf_params, SEED + 2)
+        write_run_dir(run, cfg, init_nerf_params, SEED + 2)
 
         # -- 2. serve over HTTP (main path) -------------------------------
         args = build_parser().parse_args(["--run", run, "--device", "cuda",
@@ -1192,8 +1465,7 @@ def main() -> int:
 
         # -- 3b. fp32 serving, the --no-bf16 path (main path) -------------
         run32 = os.path.join(tmp, "lego_serve_fp32")
-        write_run_dir(run32, cfg, convert, init_nerf_params, SEED + 2,
-                      bf16=False)
+        write_run_dir(run32, cfg, init_nerf_params, SEED + 2, bf16=False)
         frame32_counts, frame32_ms = phase_frame_fp32(fm, fb, fq, run32)
 
     # -- 4. kernel vs kernels="off", end to end, on the card -------------
@@ -1227,7 +1499,12 @@ def main() -> int:
     # -- 6. one train step, kernels vs kernels="off", on the card ----------
     phase_step_vs_off(cfg)
 
-    main_launches = serve_launches + video_launches + train_counts["fwd"]
+    # -- 7. the training entry point (main path) --------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = phase_cli(fm, fb, fq, card, tmp)
+
+    main_launches = (serve_launches + video_launches + train_counts["fwd"]
+                     + cli["counts"]["fwd"])
     serve_row = next(r for r in rows
                      if r["n"] == CHUNK * 192 and r["dtype"] == "bfloat16")
     fine_row = next(r for r in bwd_rows
@@ -1250,17 +1527,21 @@ def main() -> int:
         "fp32": {"kernel": "fused_nerf_ffma",
                  "launches": frame32_counts["fwd"] + train32_counts["fwd"],
                  "frame_ms": frame32_ms, **fp32_of(rows, CHUNK * 192)},
+        "cli": {k: v for k, v in cli.items() if k != "counts"},
         "note": "ms/plain_ms/bound_ms at the fine-pass chunk "
                 f"(n={CHUNK * 192}, bf16: fused_nerf_wgmma); fp32 (the "
                 "--no-bf16 path, fused_nerf_ffma) at the same chunk, its "
-                "launches from one fp32 frame and the fp32 train steps; no "
-                "single PyTorch call computes this function, so library_ms "
-                "is null",
+                "launches from one fp32 frame and the fp32 train steps; "
+                "launches include phase 7's (the CLI: train steps, "
+                "validation, test, render-only and serving frames, in bf16 "
+                "and fp32), whose numbers stand under cli; no single "
+                "PyTorch call computes this function, so library_ms is "
+                "null",
     }, {
         "name": "fused_nerf_bwd", "route": "cuda",
         "source": "cvnerf_torch/csrc/fused_mlp_bwd.cu",
         "replaces": "cvnerf_tpu/ops/pallas/fused_mlp_bwd.py:207",
-        "launches": train_counts["bwd"],
+        "launches": train_counts["bwd"] + cli["counts"]["bwd"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": fine_row["ms"], "plain_ms": fine_row["plain_ms"],
         "bound_ms": fine_row["bound_ms"], "bound_by": fine_row["bound_by"],
@@ -1284,7 +1565,7 @@ def main() -> int:
         "name": "fused_nerf_apply_int8", "route": "cuda",
         "source": "cvnerf_torch/csrc/fused_mlp_int8.cu",
         "replaces": "cvnerf_tpu/ops/pallas/fused_mlp_int8.py:268",
-        "launches": int8_counts["int8"],
+        "launches": int8_counts["int8"] + cli["counts"]["int8"],
         "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
         "ms": int8_rows[-1]["ms"], "plain_ms": int8_rows[-1]["plain_ms"],
         "bound_ms": int8_rows[-1]["bound_ms"],

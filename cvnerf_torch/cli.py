@@ -1,0 +1,551 @@
+"""The port's command line: config-driven NeRF training and rendering on
+one NVIDIA card (port of the JAX package's ``cli.py``)::
+
+    python -m cvnerf_torch.cli --config configs/lego.txt
+    python -m cvnerf_torch.cli --config configs/demo_sphere.txt --device cpu
+
+The run follows the JAX package's CLI step by step, with the same prints,
+the same ``metrics.jsonl`` records and the same keys (``PRNGKey(seed)``
+for the steps, 123 for validation, 7 for test, ``seed + 1`` for videos):
+load the scene; write ``config_resolved.json`` and ``scene.json``; start
+fresh, fine-tune from ``--ft_path`` or resume from the newest checkpoint
+under ``<run>/torch_checkpoints`` (``train/checkpoint.py``); train through the
+fused kernels with periodic logs, asynchronous checkpoints, spiral videos
+and validation (``--track_best`` keeps the best-validation model); save a
+final checkpoint and score the held-out test views. ``--render_only``
+renders the restored model (``--int8``: through the int8 kernel).
+
+Flags of the JAX CLI that the port does not carry yet are refused by
+name, with the ROADMAP item that brings them, before anything is written
+to the run directory; so is a run directory whose ``scene.json`` recorded
+one, unless ``--no_reload`` starts a fresh run there.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+
+LEVERS_ITEM = "ROADMAP Queue 1 item 9 (flag-gated training levers)"
+EXTRAS_ITEM = "ROADMAP Queue 1 item 10 (serving extras)"
+MESH_ITEM = "ROADMAP Queue 1 item 11 (data parallelism)"
+
+
+def unported(args) -> list[tuple[str, str]]:
+    """``(flag, ROADMAP item)`` for each flag set that the port does not
+    carry yet."""
+    return [(flag, item) for flag, on, item in (
+        ("--ema_decay", (args.ema_decay or 0) > 0, LEVERS_ITEM),
+        ("--freq_anneal", (args.freq_anneal or 0) > 0, LEVERS_ITEM),
+        ("--noise_decay", args.noise_decay > 0, LEVERS_ITEM),
+        ("--distortion_loss", args.distortion_loss > 0, LEVERS_ITEM),
+        ("--occlusion_loss", args.occlusion_loss > 0, LEVERS_ITEM),
+        ("--ray_batching", args.ray_batching, LEVERS_ITEM),
+        ("--pixel_sampling parity", args.pixel_sampling == "parity",
+         LEVERS_ITEM),
+        ("--occ_train", args.occ_train, EXTRAS_ITEM),
+        ("--occupancy", args.occupancy is not None, EXTRAS_ITEM),
+        ("--lpips_weights", args.lpips_weights is not None, EXTRAS_ITEM),
+        ("--coordinator", args.coordinator is not None, MESH_ITEM),
+        ("--num_processes", args.num_processes is not None, MESH_ITEM),
+        ("--process_id", args.process_id is not None, MESH_ITEM)) if on]
+
+
+def _refuse(found: list[tuple[str, str]], where: str = "") -> None:
+    if found:
+        raise NotImplementedError(
+            "not ported yet: " + "; ".join(f"{f} ({i})" for f, i in found)
+            + where)
+
+
+def _recorded(run_dir: str) -> list[tuple[str, str]]:
+    """The unported training levers a run directory's ``scene.json``
+    recorded (read defensively: a missing or foreign file records none)."""
+    try:
+        with open(os.path.join(run_dir, "scene.json")) as fp:
+            snap = json.load(fp)
+    except (OSError, ValueError):
+        return []
+    if not isinstance(snap, dict):
+        return []
+
+    def num(v):
+        return isinstance(v, (int, float)) and not isinstance(v, bool) \
+            and v > 0
+    return [(flag, item) for flag, on, item in (
+        ("--occ_train", isinstance(snap.get("occ_train"), dict), EXTRAS_ITEM),
+        ("--freq_anneal", num(snap.get("freq_anneal")), LEVERS_ITEM),
+        ("--ema_decay", num(snap.get("ema_decay")), LEVERS_ITEM)) if on]
+
+
+def main(argv=None):
+    """Run the CLI; returns the run's final metrics (with the test
+    scores), or under ``--render_only`` the rendered step and, with
+    ``--render_test``, the test scores."""
+    from cvnerf_torch.config import parse_args
+    args = parse_args(argv)
+    _refuse(unported(args))
+    if args.pallas == "interpret":
+        raise ValueError("--pallas interpret is a Pallas mode: the port runs "
+                         "its kernels (auto, on) or the plain PyTorch MLP "
+                         "(off)")
+    run_dir = os.path.join(args.base_dir, args.name)
+    recorded = _recorded(run_dir)
+    if not args.no_reload:
+        _refuse(recorded, f", recorded by {run_dir}/scene.json; pass "
+                          "--no_reload to start a fresh run there")
+
+    import torch
+    from cvnerf_torch import resolve_device
+    dev = resolve_device(args.device)
+    anomaly = torch.is_anomaly_enabled()
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    try:
+        return _run(args, dev, run_dir, recorded)
+    finally:
+        torch.autograd.set_detect_anomaly(anomaly)
+
+
+def _run(args, dev, run_dir: str, recorded: list) -> dict:
+    import dataclasses
+
+    import torch
+
+    from cvnerf_torch.config import snapshot_config
+    from cvnerf_torch.data.datasets import load_scene
+    from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
+    from cvnerf_torch.ops.fused_mlp import FusedNerfWeights
+    from cvnerf_torch.ops.rng import PRNGKey
+    from cvnerf_torch.render.frames import (render_image,
+                                            render_poses_to_frames)
+    from cvnerf_torch.render.renderer import RenderConfig
+    from cvnerf_torch.serve import CKPT_SUBDIR, write_scene_snapshot
+    from cvnerf_torch.train.checkpoint import (Checkpointer, latest_step,
+                                               restore_checkpoint)
+    from cvnerf_torch.train.loop import TrainConfig, Trainer
+    from cvnerf_torch.train.state import create_train_state, make_lr_schedule
+    from cvnerf_torch.utils.image import (psnr_images, ssim_images,
+                                          write_png, write_video)
+    from cvnerf_torch.utils.metrics import MetricsLogger
+
+    # --- data ---
+    scene = load_scene(
+        args.data_dir, args.dtype, half_res=args.half_res,
+        testskip=args.testskip, white_bkg=args.white_bkg,
+        factor=args.factor, no_ndc=args.no_ndc, llffhold=args.llffhold,
+        spherify=args.spherify)
+    print(f"Loaded {args.dtype} scene: {scene.images.shape[0]} images "
+          f"{scene.height}x{scene.width} focal={scene.focal:.2f} "
+          f"near={scene.near:.3f} far={scene.far:.3f} ndc={scene.ndc}")
+
+    render_poses = scene.render_poses
+    if args.render_test:
+        render_poses = scene.poses[scene.test_idx]
+
+    # --- run dirs & config snapshot ---
+    save_dir = os.path.join(args.save_dir, args.name)
+    os.makedirs(run_dir, exist_ok=True)
+    os.makedirs(save_dir, exist_ok=True)
+    # A fresh (--no_reload) run drops what the run dir recorded; the JAX
+    # CLI's messages, for the levers the port refuses to carry on.
+    for flag, _ in recorded:
+        if flag == "--occ_train":
+            print("[WARN] run dir recorded --occ_train but this fresh "
+                  "(--no_reload) run is plain: dropping the occupancy "
+                  "serving metadata from scene.json")
+        else:
+            what = {"--freq_anneal": "freq_anneal: ignoring the run dir's "
+                                     "recorded horizon",
+                    "--ema_decay": "ema: ignoring the run dir's recorded "
+                                   "decay"}[flag]
+            print(f"{what} for this fresh (--no_reload) run")
+    # The values the JAX CLI resolves these to on a plain run, so the two
+    # CLIs snapshot the same config.
+    if args.occ_train_mode is None:
+        args.occ_train_mode = "merge"
+    if args.occ_interp is None:
+        args.occ_interp = "nearest"
+    if args.occ_floor is None:
+        args.occ_floor = 0
+    args.freq_anneal = int(args.freq_anneal or 0)
+    if args.ema_decay is None:
+        args.ema_decay = 0.0
+    snapshot_config(args, run_dir)
+    ckpt_dir = os.path.join(run_dir, CKPT_SUBDIR)
+    if args.steps_per_call != 1 or args.netchunk != 1024 * 64:
+        print(f"--steps_per_call {args.steps_per_call} and --netchunk "
+              f"{args.netchunk} are accepted without effect: the port runs "
+              "one train step at a time (numerically the JAX scan's steps) "
+              "and has no separate network chunking")
+
+    # --- model / state ---
+    mlp = NerfMLPConfig(xyz_freqs=args.xyz_freqs, dir_freqs=args.dir_freqs,
+                        trunk_width=args.trunk_width,
+                        head_width=args.head_width)
+    rcfg_train = RenderConfig(
+        n_coarse=args.n_coarse_samples, n_fine=args.n_fine_samples,
+        perturb=args.perturb > 0, noise_std=args.noise,
+        white_bkg=args.white_bkg, mlp=mlp,
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        sorted_resample=args.sorted_resample,
+        kernels="off" if args.pallas == "off" else "on")
+    rcfg_test = rcfg_train.eval_mode()
+    if args.deterministic_resample:
+        rcfg_test = dataclasses.replace(rcfg_test,
+                                        deterministic_resample=True)
+
+    write_scene_snapshot(
+        run_dir, height=scene.height, width=scene.width, focal=scene.focal,
+        near=scene.near, far=scene.far, ndc=scene.ndc,
+        ndc_variant=args.ndc_variant, white_bkg=args.white_bkg,
+        n_coarse=args.n_coarse_samples, n_fine=args.n_fine_samples,
+        bf16=args.bf16, mlp=mlp, sorted_resample=args.sorted_resample,
+        pallas=args.pallas, calib_poses=scene.poses)
+
+    state = create_train_state(torch.Generator().manual_seed(args.seed),
+                               lr=args.lr, lr_decay=args.lr_decay, mlp=mlp,
+                               device=dev)
+
+    def frame_nets(params: dict) -> dict:
+        """The nets a render takes: packed once for the forward kernel, or
+        as they are for kernels="off"."""
+        if rcfg_test.kernels == "off":
+            return params
+        return {k: FusedNerfWeights(v, mlp, rcfg_test.compute_dtype)
+                for k, v in params.items()}
+
+    best_meta_path = os.path.join(run_dir, "best.json")
+
+    def backup_stale_ckpts(reason: str) -> None:
+        # Move the run dir's existing checkpoints (and the best-val ones
+        # with their best.json) aside so this run's lower-step saves are
+        # neither refused nor shadowed at resume time.
+        best_dir = ckpt_dir + "_best"
+        have_main = os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir)
+        have_best = ((os.path.isdir(best_dir) and os.listdir(best_dir))
+                     or os.path.exists(best_meta_path))
+        if not (have_main or have_best):
+            return
+        step = latest_step(ckpt_dir if have_main else best_dir) or 0
+        base = f"{ckpt_dir}.bak-{step}"
+        backup, k = base, 1
+        while any(os.path.exists(p) for p in
+                  (backup, backup + "_best", backup + ".best.json")):
+            backup = f"{base}.{k}"   # repeated restarts at the same step
+            k += 1
+        if have_main:
+            os.rename(ckpt_dir, backup)
+        for extra, dst in ((best_dir, backup + "_best"),
+                           (best_meta_path, backup + ".best.json")):
+            if os.path.exists(extra):
+                os.rename(extra, dst)
+        print(f"{reason}: moved existing checkpoints to {backup}")
+
+    start = 0
+    if args.ft_path:
+        restored = restore_checkpoint(args.ft_path, state)
+        if restored is None:
+            sys.exit(f"--ft_path {args.ft_path}: no checkpoint found")
+        state, start = restored, int(restored.step)
+        print(f"Restored fine-tune checkpoint at step {start}")
+        newest_here = max(latest_step(ckpt_dir) or -1,
+                          latest_step(ckpt_dir + "_best") or -1)
+        if os.path.abspath(args.ft_path) != os.path.abspath(ckpt_dir) and \
+                newest_here > start:
+            backup_stale_ckpts("--ft_path behind existing checkpoints")
+    elif not args.no_reload:
+        restored = restore_checkpoint(ckpt_dir, state)
+        # Crash recovery: a run that died before its first periodic save
+        # may have left a newer best-val checkpoint (a full TrainState).
+        best_step = latest_step(ckpt_dir + "_best")
+        if best_step is not None and best_step > (
+                int(restored.step) if restored is not None else -1):
+            best_restored = restore_checkpoint(ckpt_dir + "_best", state,
+                                               step=best_step)
+            if best_restored is not None:
+                restored = best_restored
+                print(f"Periodic checkpoints are behind the best-val "
+                      f"checkpoint (step {best_step}) — resuming from best")
+        if restored is not None:
+            state, start = restored, int(restored.step)
+            print(f"Resumed from checkpoint at step {start}")
+    else:
+        backup_stale_ckpts("--no_reload")
+
+    print(f"Device mesh: 1 x {dev.type}")
+
+    render_chunk = args.chunk
+
+    def spiral_video(step: int, nets: dict) -> np.ndarray:
+        frame_dir = os.path.join(save_dir, f"spiral_{step:06d}")
+
+        def on_frame(i, rgb):
+            write_png(os.path.join(frame_dir, f"{i:03d}.png"), rgb)
+
+        keys = ("rgb", "depth", "acc") if args.render_depth else ("rgb",)
+        out_frames = render_poses_to_frames(
+            nets, render_poses, scene.height, scene.width, scene.focal,
+            scene.near, scene.far, rcfg_test, ndc=scene.ndc,
+            ndc_variant=args.ndc_variant, chunk=render_chunk,
+            factor=args.render_factor, on_frame=on_frame, frame_keys=keys,
+            device=dev, key=PRNGKey(args.seed + 1))
+        frames = out_frames if not args.render_depth else out_frames["rgb"]
+        out = write_video(
+            os.path.join(save_dir, f"{args.name}_spiral_{step:06d}_rgb.mp4"),
+            frames, fps=30)
+        print(f"Wrote video: {out} ({frames.shape[0]} frames)")
+        if args.render_depth:
+            # Normalized disparity (1 / opacity-corrected expected depth),
+            # grayscale → 3 channels for the mp4 writer.
+            depth, acc = out_frames["depth"], out_frames["acc"]
+            disp = 1.0 / np.maximum(depth / np.maximum(acc, 1e-6), 1e-6)
+            disp = disp * (acc > 1e-3)           # background → 0
+            disp = disp / max(disp.max(), 1e-6)
+            disp_path = os.path.join(
+                save_dir, f"{args.name}_spiral_{step:06d}_disp.mp4")
+            write_video(disp_path, np.repeat(disp[..., None], 3, -1), fps=30)
+            print(f"Wrote video: {disp_path}")
+        return frames
+
+    def _split_heldout_views() -> tuple[np.ndarray, np.ndarray]:
+        """(val_views, test_views): ≤4 validation and ≤8 test views, split
+        as the JAX CLI splits them (a dataset without a separate val
+        split — LLFF — partitions its held-out views under --track_best,
+        so model selection and the test score never share an image)."""
+        empty = np.zeros((0,), np.int64)
+        vi = np.asarray(scene.val_idx)
+        ti = np.asarray(scene.test_idx)
+        if len(vi) and (len(ti) == 0 or not np.array_equal(vi, ti)):
+            return vi[:4], ti[:8]          # genuinely separate splits
+        held = ti if len(ti) else vi
+        if len(held) == 0:
+            return empty, empty
+        if len(held) == 1:
+            return held.copy(), held.copy()
+        if args.track_best:
+            val = held[1::2][:4]
+            test = np.asarray(
+                [t for t in held if t not in set(val.tolist())])
+            return val, test[:8]
+        return held[1:5], held[:8]
+
+    val_views, test_views = _split_heldout_views()
+
+    def score_views(nets: dict, views, key_seed: int):
+        """Mean PSNR/SSIM over ``views`` rendered with ``PRNGKey
+        (key_seed)``; returns (psnr, ssim, first rgb)."""
+        psnrs, ssims, rgb0 = [], [], None
+        for i in views:
+            out = render_image(
+                nets, scene.height, scene.width, scene.focal,
+                torch.as_tensor(scene.poses[int(i)], device=dev), scene.near,
+                scene.far, rcfg_test, ndc=scene.ndc,
+                ndc_variant=args.ndc_variant, chunk=render_chunk,
+                key=PRNGKey(key_seed))
+            rgb = out["rgb"].cpu().numpy()
+            rgb0 = rgb if rgb0 is None else rgb0
+            psnrs.append(psnr_images(rgb, scene.images[int(i)]))
+            ssims.append(ssim_images(rgb, scene.images[int(i)]))
+        return float(np.mean(psnrs)), float(np.mean(ssims)), rgb0
+
+    # --- render-only mode ---
+    if args.render_only:
+        if args.track_best and not args.ft_path:
+            # The deployable model of a --track_best run is its best-val
+            # checkpoint; --no-track_best renders the last one.
+            best_restored = restore_checkpoint(ckpt_dir + "_best", state)
+            if best_restored is not None and \
+                    int(best_restored.step) != int(state.step):
+                state, start = best_restored, int(best_restored.step)
+                print(f"--render_only on a --track_best run: rendering "
+                      f"the best-val model (step {start}); pass "
+                      f"--no-track_best for the last checkpoint")
+        nets = frame_nets(state.params)
+        if args.int8:
+            from cvnerf_torch.ops.fused_mlp_int8 import QuantizedNerfWeights
+            from cvnerf_torch.ops.quantize import (quantize_nerf,
+                                                   ray_calibration_samples)
+            # Calibrate on real rays through every pose the run knows.
+            pts, dirs = ray_calibration_samples(
+                PRNGKey(0), args.int8_calib, scene.poses, scene.height,
+                scene.width, scene.focal, scene.near, scene.far,
+                ndc=scene.ndc, ndc_variant=args.ndc_variant, device=dev)
+            qs = {k: quantize_nerf(v, mlp, pts, dirs)
+                  for k, v in state.params.items()}
+            nets = (qs if rcfg_test.kernels == "off" else
+                    {k: QuantizedNerfWeights(q, mlp) for k, q in qs.items()})
+            print(f"int8 quantized rendering active "
+                  f"(calibrated on {args.int8_calib} ray samples)")
+        frames = spiral_video(start, nets)
+        result = {"step": start}
+        if args.render_test and not args.render_factor:
+            # The render of the held-out poses is the evaluation.
+            test_idx = np.asarray(scene.test_idx)
+            result["test_psnr"] = float(np.mean(
+                [psnr_images(frames[k], scene.images[int(i)])
+                 for k, i in enumerate(test_idx)]))
+            result["test_ssim"] = float(np.mean(
+                [ssim_images(frames[k], scene.images[int(i)])
+                 for k, i in enumerate(test_idx)]))
+            print(f"render_test @ step {start}: test_psnr="
+                  f"{result['test_psnr']:.3f} "
+                  f"test_ssim={result['test_ssim']:.4f} "
+                  f"({len(test_idx)} views)")
+        return result
+
+    # --- training ---
+    tcfg = TrainConfig(
+        height=scene.height, width=scene.width, focal=scene.focal,
+        near=scene.near, far=scene.far, n_rays=args.n_rays, lr=args.lr,
+        lr_decay=args.lr_decay, precrop_iters=args.precrop_iters,
+        precrop_frac=args.precrop_frac, ndc=scene.ndc,
+        ndc_variant=args.ndc_variant, pixel_sampling=args.pixel_sampling,
+        render=rcfg_train)
+    trainer = Trainer(tcfg, state, scene.images, scene.poses,
+                      scene.train_idx, seed=args.seed,
+                      steps_per_call=args.steps_per_call)
+    logger = MetricsLogger(run_dir)
+
+    lr_sched = make_lr_schedule(args.lr, args.lr_decay)
+    dead_warned = [False]
+
+    def log_cb(i, tr, m):
+        extra = {k: m[k] for k in ("grad_norm",) if m.get(k) is not None}
+        logger.log(i, loss=m["loss"], psnr=m["psnr"],
+                   rays_per_sec=m["rays_per_sec"],
+                   lr=float(lr_sched(i)), **extra)
+        if (not dead_warned[0] and m.get("grad_norm") == 0.0
+                and m.get("loss", 0.0) > 0.0):
+            # An exactly-zero gradient with a nonzero loss: the density
+            # field went non-positive everywhere (dead ReLUs).
+            dead_warned[0] = True
+            print(f"[WARN] zero gradient with nonzero loss at step {i}: "
+                  f"the density field has likely collapsed (dead-ReLU "
+                  f"regime) — try a lower --lr, --noise > 0, or more "
+                  f"training views", flush=True)
+
+    # One writer for the whole run; saves overlap the following steps.
+    if args.ckpt_keep < 1:
+        sys.exit("--ckpt_keep must be >= 1 (retention of zero checkpoints "
+                 "would make every save a no-op)")
+    ckpt_writer = Checkpointer(ckpt_dir, max_to_keep=args.ckpt_keep)
+
+    # Best-validation model selection (--track_best); the best score
+    # persists in best.json, so a resumed run compares against it.
+    best = {"psnr": float("-inf"), "step": None}
+    best_writer = (Checkpointer(ckpt_dir + "_best",
+                                max_to_keep=args.ckpt_keep)
+                   if args.track_best and args.val_freq > 0 else None)
+    if best_writer is not None and os.path.exists(best_meta_path) and \
+            (latest_step(ckpt_dir + "_best") is not None):
+        with open(best_meta_path) as fp:
+            best = json.load(fp)
+        print(f"Resuming best-val tracking: {best['psnr']:.3f} dB at "
+              f"step {best['step']}")
+
+    def ckpt_cb(i, tr, m):
+        ckpt_writer.save(tr.state)
+        print(f"Checkpoint save enqueued at step {i}")
+
+    def _non_fatal(fn):
+        # Eval and render failures must not kill training.
+        def wrapped(i, tr, m):
+            try:
+                fn(i, tr, m)
+            except Exception as e:  # noqa: BLE001
+                print(f"[WARN] callback {fn.__name__} failed at step {i}: "
+                      f"{e!r}", flush=True)
+        return wrapped
+
+    @_non_fatal
+    def vid_cb(i, tr, m):
+        frames = spiral_video(i, frame_nets(tr.state.params))
+        logger.log_image(i, "spiral_frame0", frames[0])
+
+    @_non_fatal
+    def val_cb(i, tr, m):
+        if not len(val_views):
+            return
+        v, s, rgb = score_views(frame_nets(tr.state.params), val_views, 123)
+        logger.log(i, val_psnr=v, val_ssim=s, val_views=len(val_views))
+        logger.log_image(i, "val_render", rgb)
+        if best_writer is not None and v > best["psnr"]:
+            # Save first: best must not advance past the checkpoint that
+            # exists on disk.
+            best_writer.save(tr.state)
+            best.update(psnr=v, step=i)
+            with open(best_meta_path, "w") as fp:
+                json.dump(best, fp)
+            print(f"New best val PSNR {v:.3f} at step {i} "
+                  f"(checkpointed to {ckpt_dir}_best)")
+
+    trainer.add_callback(args.print_freq, log_cb)
+    if args.ckpt_freq > 0:
+        trainer.add_callback(args.ckpt_freq, ckpt_cb)
+    if args.vid_freq > 0:
+        trainer.add_callback(args.vid_freq, vid_cb)
+    if args.val_freq > 0:
+        trainer.add_callback(args.val_freq, val_cb)
+
+    if args.profile_dir:
+        # Bounded profiling window: warm up, then trace 20 steps.
+        from torch.profiler import ProfilerActivity, profile
+        warm = min(start + 10, args.iters - 1)
+        trainer.run(start + 1, warm + 1)
+        acts = [ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            trainer.run(warm + 1, min(warm + 21, args.iters))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        os.makedirs(args.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile_dir,
+                                              "trace.json"))
+        print(f"Profiler trace written to {args.profile_dir}")
+        final = trainer.run(min(warm + 21, args.iters), args.iters)
+    else:
+        final = trainer.run(start + 1, args.iters)
+
+    try:
+        ckpt_writer.save(trainer.state, wait=True)   # final save is durable
+    finally:
+        ckpt_writer.close()
+    logger.log(int(trainer.state.step), **final)
+    result = dict(final)
+
+    if best_writer is not None:
+        best_writer.close()
+    if len(test_views):
+        # Held-out test scores on the test views (disjoint from the
+        # validation views where the dataset allows).
+        p, s, _ = score_views(frame_nets(trainer.state.params), test_views,
+                              7)
+        logger.log(int(trainer.state.step), test_psnr=p, test_ssim=s,
+                   test_views=len(test_views))
+        result.update(test_psnr=p, test_ssim=s)
+        if best_writer is not None and best["step"] is not None:
+            # Score the deployable (best-val) model too.
+            restored = restore_checkpoint(ckpt_dir + "_best", state)
+            if restored is not None:
+                pb, sb, _ = score_views(frame_nets(restored.params),
+                                        test_views, 7)
+                logger.log(int(trainer.state.step), test_psnr_best=pb,
+                           test_ssim_best=sb,
+                           best_step=int(best["step"]),
+                           best_val_psnr=best["psnr"])
+                result.update(test_psnr_best=pb, test_ssim_best=sb)
+                print(f"Best-val model (step {best['step']}): "
+                      f"test_psnr={pb:.3f} test_ssim={sb:.4f} "
+                      f"(final-step model: {p:.3f}/{s:.4f})")
+    logger.close()
+    print("Training complete:", final)
+    return result
+
+
+if __name__ == "__main__":
+    main()

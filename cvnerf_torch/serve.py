@@ -1,11 +1,14 @@
 """Serving: load a checkpoint once, render views on demand (port of
-the JAX package's ``serve.py``'s ``NerfRenderer``).
+the JAX package's ``serve.py``: ``NerfRenderer`` and
+``write_scene_snapshot``).
 
-The port reads the plain-tensor two-net ``.pt`` that the JAX package's
-``cvnerf-import --export <run>/checkpoints <file>.pt`` writes. A run
-directory for :meth:`NerfRenderer.from_run_dir` holds the trainer's
-``scene.json`` and such files under ``torch_checkpoints/`` (and, for a run
-that tracked its best validation model, ``torch_checkpoints_best/``).
+The port reads plain-tensor two-net ``.pt`` files: those its own trainer
+writes (``python -m cvnerf_torch.cli``, ``train/checkpoint.py``) and those
+the JAX package's ``cvnerf-import --export <run>/checkpoints <file>.pt``
+writes. A run directory for :meth:`NerfRenderer.from_run_dir` holds the
+trainer's ``scene.json`` and such files under ``torch_checkpoints/`` (and,
+for a run that tracked its best validation model,
+``torch_checkpoints_best/``).
 
 Example::
 
@@ -45,24 +48,71 @@ from cvnerf_torch.utils.convert import load_torch_checkpoint
 SCENE_SNAPSHOT = "scene.json"
 CKPT_SUBDIR = "torch_checkpoints"
 OCCUPANCY_ITEM = "ROADMAP Queue 1 item 10 (occupancy serving)"
+ANNEAL_ITEM = "ROADMAP Queue 1 item 9 (flag-gated training levers)"
 
 
-def latest_checkpoint(ckpt_dir: str) -> str | None:
+def latest_checkpoint(ckpt_dir: str, step: int | None = None) -> str | None:
     """The newest ``*.pt`` in ``ckpt_dir``: the highest step number in the
     file name (the last run of digits, e.g. ``050000.pt``), then the latest
-    modification time. None when there is none."""
+    modification time; with ``step``, the newest of that step's files.
+    None when there is none."""
     try:
         names = [f for f in os.listdir(ckpt_dir) if f.endswith(".pt")]
     except FileNotFoundError:
-        return None
-    if not names:
         return None
 
     def key(name):
         digits = re.findall(r"\d+", name[:-3])
         path = os.path.join(ckpt_dir, name)
         return (int(digits[-1]) if digits else -1, os.path.getmtime(path))
+    if step is not None:
+        names = [f for f in names if key(f)[0] == step]
+    if not names:
+        return None
     return os.path.join(ckpt_dir, max(names, key=key))
+
+
+def write_scene_snapshot(run_dir: str, *, height: int, width: int,
+                         focal: float, near: float, far: float, ndc: bool,
+                         ndc_variant: str, white_bkg: bool,
+                         n_coarse: int, n_fine: int, bf16: bool,
+                         mlp: NerfMLPConfig,
+                         sorted_resample: bool = True,
+                         pallas: str = "auto",
+                         calib_poses=None) -> str:
+    """Persist everything a renderer needs to serve this run's checkpoints:
+    the JAX package's ``write_scene_snapshot`` of a run without the
+    training levers the port does not carry yet (the same keys and
+    values).
+
+    ``config_resolved.json`` records the raw flags; this records the
+    *derived* values (near/far/H/W/focal come out of the data loader, not
+    the flags — e.g. LLFF NDC runs train with near=0, far=1 regardless of
+    ``poses_bounds.npy``).
+
+    ``calib_poses``: optional ``[P, 3+, 4]`` camera set (the scene's
+    poses). Up to 64 are stored (evenly subsampled) so post-training
+    transforms that need the query distribution — int8 calibration — can
+    sample real rays instead of guessing a bounding cube.
+    """
+    os.makedirs(run_dir, exist_ok=True)
+    path = os.path.join(run_dir, SCENE_SNAPSHOT)
+    payload = {
+        "height": int(height), "width": int(width), "focal": float(focal),
+        "near": float(near), "far": float(far), "ndc": bool(ndc),
+        "ndc_variant": ndc_variant, "white_bkg": bool(white_bkg),
+        "n_coarse": int(n_coarse), "n_fine": int(n_fine), "bf16": bool(bf16),
+        "sorted_resample": bool(sorted_resample), "pallas": pallas,
+        "mlp": dataclasses.asdict(mlp),
+    }
+    if calib_poses is not None:
+        cp = np.asarray(calib_poses, np.float32)[:, :3, :4]
+        if len(cp) > 64:
+            cp = cp[np.linspace(0, len(cp) - 1, 64).round().astype(int)]
+        payload["calib_poses"] = cp.tolist()
+    with open(path, "w") as fp:
+        json.dump(payload, fp, indent=2, sort_keys=True)
+    return path
 
 
 class NerfRenderer:
@@ -123,17 +173,23 @@ class NerfRenderer:
     @classmethod
     def from_run_dir(cls, run_dir: str, *, chunk: int = 8192, seed: int = 0,
                      deterministic: bool = True, which: str = "auto",
+                     step: int | None = None,
                      device: str | torch.device = "cuda") -> "NerfRenderer":
         """Load a renderer from a run directory: geometry, NDC mode,
         architecture, sample counts and compute dtype from ``scene.json``,
         weights from the newest ``.pt`` under ``torch_checkpoints/``.
 
         ``which="auto"`` serves ``torch_checkpoints_best/`` when the run has
-        one, ``"best"`` requires it and ``"last"`` ignores it. A checkpoint
-        from inside a ``freq_anneal`` horizon is served as exported:
-        ``cvnerf-import --export`` writes it with the training-time
-        frequency window applied. An ``occ_train`` snapshot raises
-        (occupancy serving comes in a later slice).
+        one, ``"best"`` requires it and ``"last"`` ignores it. ``step``
+        picks that step's checkpoint (under ``which="auto"``, from
+        ``torch_checkpoints/``, as the JAX package picks it). A checkpoint
+        from inside a ``freq_anneal`` horizon is served as exported when it
+        carries no ``raw_params`` marker: ``cvnerf-import --export`` writes
+        it with the training-time frequency window applied. A raw one (the
+        port's own trainer writes ``"raw_params": True``) would need that
+        window applied here, and raises until the port carries
+        ``freq_anneal``. An ``occ_train`` snapshot raises (occupancy serving
+        comes in a later slice).
         """
         path = os.path.join(run_dir, SCENE_SNAPSHOT)
         try:
@@ -152,28 +208,44 @@ class NerfRenderer:
             n_coarse=geo["n_coarse"], n_fine=geo["n_fine"],
             white_bkg=geo["white_bkg"], mlp=NerfMLPConfig(**geo["mlp"]),
             compute_dtype=torch.bfloat16 if geo.get("bf16") else torch.float32,
+            sorted_resample=geo.get("sorted_resample", True),
             kernels="off" if geo.get("pallas", "auto") == "off" else "on")
-        best = latest_checkpoint(os.path.join(run_dir, CKPT_SUBDIR + "_best"))
-        if which == "best" and best is None:
+        best_dir = os.path.join(run_dir, CKPT_SUBDIR + "_best")
+        has_best = latest_checkpoint(best_dir) is not None
+        if which == "best" and not has_best:
             raise FileNotFoundError(
                 f"no best-val checkpoint under {run_dir}/{CKPT_SUBDIR}_best")
-        ckpt = best if (best is not None and which != "last") else None
-        if ckpt is None:
-            ckpt = latest_checkpoint(os.path.join(run_dir, CKPT_SUBDIR))
+        use_best = has_best and (which == "best"
+                                 or (which == "auto" and step is None))
+        ckpt_dir = best_dir if use_best else os.path.join(run_dir, CKPT_SUBDIR)
+        ckpt = latest_checkpoint(ckpt_dir, step)
+        if ckpt is None and step is not None:
+            raise FileNotFoundError(f"no checkpoint at step {step} under "
+                                    f"{ckpt_dir}")
         if ckpt is None:
             raise FileNotFoundError(
                 f"no .pt checkpoint under {run_dir}/{CKPT_SUBDIR}: export "
                 f"one with `cvnerf-import --export {run_dir}/checkpoints "
                 f"{run_dir}/{CKPT_SUBDIR}/<step>.pt`")
+        fa = int(geo.get("freq_anneal", 0) or 0)
+        if fa > 0:
+            blob = torch.load(ckpt, map_location="cpu", weights_only=True)
+            raw = isinstance(blob, dict) and bool(blob.get("raw_params"))
+            step = int(blob.get("step") or 0) if isinstance(blob, dict) else 0
+            if raw and step < fa:
+                raise NotImplementedError(
+                    f"{ckpt} holds raw weights from inside the run's "
+                    f"freq_anneal horizon (step {step} < {fa}), which must "
+                    f"be served through the training-time frequency window: "
+                    f"{ANNEAL_ITEM}")
         r = cls(ckpt, height=geo["height"], width=geo["width"],
                 focal=geo["focal"], near=geo["near"], far=geo["far"],
                 ndc=geo["ndc"], ndc_variant=geo["ndc_variant"], cfg=cfg,
                 chunk=chunk, seed=seed, deterministic=deterministic,
                 device=device)
-        r.which = "best" if ckpt == best else "last"
+        r.which = "best" if use_best else "last"
         if geo.get("calib_poses"):
             r.calib_poses = np.asarray(geo["calib_poses"], np.float32)
-        fa = int(geo.get("freq_anneal", 0) or 0)
         if fa > 0 and r.step < fa:
             # The JAX package serves its raw orbax weights through the
             # training-time window; its exporter has already applied that

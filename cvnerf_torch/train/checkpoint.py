@@ -1,0 +1,208 @@
+"""Checkpoint save/restore of a whole ``TrainState`` (port of the JAX
+package's ``train/checkpoint.py``, without orbax).
+
+A checkpoint is one plain-tensor file ``<dir>/<step:06d>.pt``::
+
+    {"coarse": state_dict, "fine": state_dict, "step": N,
+     "opt_state": {"count": int, "mu": {"coarse": sd, "fine": sd},
+                   "nu": {"coarse": sd, "fine": sd}},
+     "raw_params": True}
+
+The state dicts are reference-``Model`` ``nn.Linear`` layouts
+(``utils/convert.py::torch_state_dict_from_params``), the Adam moments in
+the same layout, so ``torch.load(weights_only=True)`` reads the file and
+``load_torch_checkpoint`` and ``NerfRenderer`` serve it as they serve an
+exported one. ``raw_params`` marks weights saved as training holds them
+(not windowed for serving, as ``cvnerf-import --export`` writes them).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from concurrent.futures import Future, ThreadPoolExecutor
+
+import torch
+
+from cvnerf_torch.train.state import AdamState, TrainState, tree_leaves
+from cvnerf_torch.utils.convert import (load_torch_checkpoint,
+                                        params_from_torch_state_dict,
+                                        torch_state_dict_from_params)
+
+_NAME = re.compile(r"^(\d+)\.pt$")
+
+
+def _steps(ckpt_dir: str) -> list[int]:
+    """The steps of the ``<step>.pt`` files in ``ckpt_dir``, ascending."""
+    try:
+        names = os.listdir(ckpt_dir)
+    except FileNotFoundError:
+        return []
+    return sorted(int(m.group(1)) for m in map(_NAME.match, names) if m)
+
+
+def checkpoint_path(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"{step:06d}.pt")
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    steps = _steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def _payload(state: TrainState) -> dict:
+    """The checkpoint of ``state``, copied to the host."""
+    def sds(tree):
+        return {net: torch_state_dict_from_params(p)
+                for net, p in tree.items()}
+    opt = state.opt_state
+    return {**sds(state.params), "step": int(state.step),
+            "opt_state": {"count": int(opt.count), "mu": sds(opt.mu),
+                          "nu": sds(opt.nu)},
+            "raw_params": True}
+
+
+class Checkpointer:
+    """A persistent, asynchronous checkpoint writer for a training run.
+
+    ``save`` copies the state to the host and returns; one background
+    thread writes the file (to a temporary name, then renamed, so a reader
+    never sees half a file) while training goes on. At most one save is in
+    flight: a save first waits for the previous one, and raises its error
+    if it failed. ``close`` drains the writer.
+
+    A save at the directory's latest step is a no-op (the final save
+    landing on the last periodic one); a save below it raises, because the
+    newer checkpoint would shadow it at resume time. ``max_to_keep`` keeps
+    the newest checkpoints.
+    """
+
+    def __init__(self, ckpt_dir: str, max_to_keep: int = 3):
+        if max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
+        self.ckpt_dir = ckpt_dir
+        self.max_to_keep = max_to_keep
+        os.makedirs(ckpt_dir, exist_ok=True)
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="checkpoint")
+        self._pending: Future | None = None
+
+    def save(self, state: TrainState, wait: bool = False) -> None:
+        """Enqueue a save of ``state`` at its step; with ``wait`` return
+        only once the file is durable (the final save of a run)."""
+        step = int(state.step)
+        self.wait()
+        existing = latest_step(self.ckpt_dir)
+        if existing is not None:
+            if step == existing:
+                return
+            if step < existing:
+                raise RuntimeError(
+                    f"refusing to save step {step} into {self.ckpt_dir} "
+                    f"whose latest step is {existing}: the newer checkpoint "
+                    "would shadow this one at resume time; remove or move "
+                    "the stale checkpoint directory")
+        self._pending = self._pool.submit(self._write, step, _payload(state))
+        if wait:
+            self.wait()
+
+    def _write(self, step: int, payload: dict) -> None:
+        path = checkpoint_path(self.ckpt_dir, step)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as fp:
+            torch.save(payload, fp)
+            fp.flush()
+            os.fsync(fp.fileno())
+        os.replace(tmp, path)
+        for old in _steps(self.ckpt_dir)[:-self.max_to_keep]:
+            os.remove(checkpoint_path(self.ckpt_dir, old))
+
+    def wait(self) -> None:
+        """Block until the save in flight (if any) is on disk."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown()
+
+    def __enter__(self) -> "Checkpointer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState,
+                    max_to_keep: int = 3) -> None:
+    """One-shot synchronous save."""
+    with Checkpointer(ckpt_dir, max_to_keep) as ckpt:
+        ckpt.save(state, wait=True)
+
+
+def _find(ckpt_dir: str, step: int | None) -> str | None:
+    if step is None:
+        step = latest_step(ckpt_dir)
+    if step is None:
+        return None
+    path = checkpoint_path(ckpt_dir, step)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no checkpoint at step {step} in {ckpt_dir}")
+    return path
+
+
+def restore_params(ckpt_dir: str,
+                   step: int | None = None) -> tuple[dict, int]:
+    """Template-free restore of the params (on the CPU) and their step,
+    from a checkpoint of this module or a params-only exported one.
+    Raises FileNotFoundError when the directory holds no checkpoint."""
+    path = _find(ckpt_dir, step)
+    if path is None:
+        raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}")
+    params, _, found = load_torch_checkpoint(path)
+    return params, int(found or 0)
+
+
+def restore_checkpoint(ckpt_dir: str, template: TrainState,
+                       step: int | None = None) -> TrainState | None:
+    """Restore the latest (or given) step as a ``TrainState`` on the
+    device of ``template``'s params, bitwise the saved state; None if the
+    directory holds no checkpoint. The template's shapes must match."""
+    path = _find(ckpt_dir, step)
+    if path is None:
+        return None
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(blob, dict) or "opt_state" not in blob:
+        raise ValueError(
+            f"{path} holds parameters only, with no optimizer state (as "
+            "cvnerf-import --export writes them): a run cannot resume from "
+            "it. NerfRenderer serves it; to fine-tune from it, start a run "
+            "from a full checkpoint")
+    device = tree_leaves(template.params)[0].device
+
+    def nets(sds: dict, what: str) -> dict:
+        out = {}
+        for net, want in template.params.items():
+            got, _ = params_from_torch_state_dict(sds[net])
+            for layer, leaves in want.items():
+                for q, t in leaves.items():
+                    if got[layer][q].shape != t.shape:
+                        raise ValueError(
+                            f"{path}: {what} {net}.{layer}.{q} has shape "
+                            f"{tuple(got[layer][q].shape)}, the run expects "
+                            f"{tuple(t.shape)}")
+            # The template's leaf order, which the train step follows.
+            out[net] = {layer: {q: got[layer][q].to(device) for q in leaves}
+                        for layer, leaves in want.items()}
+        return out
+
+    opt = blob["opt_state"]
+    return TrainState(
+        params=nets({k: blob[k] for k in template.params}, "params"),
+        opt_state=AdamState(count=int(opt["count"]),
+                            mu=nets(opt["mu"], "mu"),
+                            nu=nets(opt["nu"], "nu")),
+        step=int(blob["step"]))

@@ -97,6 +97,13 @@ class Adam:
         return new, AdamState(count=c1, mu=mu, nu=nu)
 
 
+def make_lr_schedule(lr: float, lr_decay: int):
+    """``lr · 0.1^(k / (1000 · lr_decay))`` as a function of the update
+    count ``k``: the float32 step size Adam takes (the JAX package's
+    ``make_lr_schedule``)."""
+    return Adam(lr=lr, lr_decay=lr_decay).learning_rate
+
+
 def make_optimizer(lr: float, lr_decay: int) -> Adam:
     return Adam(lr=lr, lr_decay=lr_decay)
 

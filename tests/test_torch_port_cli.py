@@ -1,0 +1,399 @@
+"""The port's training entry point (``python -m cvnerf_torch.cli``) on the
+CPU: train, checkpoint, resume and render; fresh runs and their backups;
+best-validation tracking; crash recovery from the best checkpoint; serving
+the run; the refused flags; and parity with the JAX package's CLI.
+
+Parity (fp32, the kernels' plain versions here, JAX with its Pallas kernels
+off): both CLIs fine-tune the same JAX state (saved by each package's
+own checkpoint writer) for three steps with validation and test on. The
+logged ``loss`` and ``psnr`` agree at rtol 1e-4 at every step (the
+three-step test's bound, ``test_torch_port_train.py``), validation and test
+PSNR within 1e-3 dB, and the final params and Adam moments per leaf at
+``test_three_train_steps_match_jax``'s tolerances.
+"""
+
+import json
+import os
+import threading
+import urllib.request
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from cvnerf_torch import cli
+from cvnerf_torch.data.synthetic import make_blender_dataset
+from cvnerf_torch.serve import NerfRenderer
+from cvnerf_torch.train import checkpoint as tckpt
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Torch on one thread: these runs are many tiny ops, as fast on one
+    thread, and the suite's other workers keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+TINY_FLAGS = [
+    "--device", "cpu", "--no-bf16",
+    "--dtype", "blender", "--white_bkg", "--testskip", "1",
+    "--n_rays", "64", "--n_coarse_samples", "8", "--n_fine_samples", "8",
+    "--trunk_width", "32", "--head_width", "16",
+    "--xyz_freqs", "4", "--dir_freqs", "2",
+    "--noise", "1.0",
+    "--chunk", "256", "--print_freq", "5", "--vid_freq", "0",
+    "--val_freq", "0", "--lr", "5e-3",
+]
+
+
+@pytest.fixture(scope="module")
+def blender_dir(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("scene"))
+    make_blender_dataset(d, n_train=4, n_val=1, n_test=1, h=24, w=24)
+    return d
+
+
+def _base(blender_dir, logdir, name):
+    return ["--data_dir", blender_dir, "--base_dir", logdir,
+            "--save_dir", logdir, "--name", name, *TINY_FLAGS]
+
+
+def _records(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fp:
+        return [json.loads(line) for line in fp]
+
+
+def test_train_checkpoint_resume_render(blender_dir, tmp_path):
+    logdir = str(tmp_path / "logs")
+    base = _base(blender_dir, logdir, "e2e")
+    cli.main([*base, "--iters", "16", "--ckpt_freq", "10"])
+    run_dir = os.path.join(logdir, "e2e")
+    assert os.path.exists(os.path.join(run_dir, "config_resolved.json"))
+    assert any("loss" in r for r in _records(run_dir))
+    ckpt_dir = os.path.join(run_dir, "torch_checkpoints")
+    assert sorted(os.listdir(ckpt_dir)) == ["000010.pt", "000015.pt"]
+
+    # Resume from step 15 and train to 20.
+    cli.main([*base, "--iters", "21", "--ckpt_freq", "0"])
+    steps = [r["step"] for r in _records(run_dir) if "loss" in r]
+    assert max(steps) == 20 and [s for s in steps if s > 15]
+    assert tckpt.latest_step(ckpt_dir) == 20
+
+    # Render-only from the checkpoint, with the disparity video.
+    out = cli.main([*base, "--render_only", "--render_factor", "4",
+                    "--render_depth", "--iters", "21"])
+    assert out == {"step": 20}
+    names = os.listdir(run_dir)
+    assert [f for f in names if "spiral" in f], names
+    assert [f for f in names if "_disp" in f], names
+
+
+def test_render_test_scores_the_logged_test_psnr(blender_dir, tmp_path):
+    """``--render_only --render_test`` renders the test views with the
+    test eval's chunking; with the evenly spaced resample the frames do not
+    depend on the key, so the score equals the one logged at the end of
+    training. ``--int8`` renders the same views through the int8 path."""
+    logdir = str(tmp_path / "logs")
+    base = [*_base(blender_dir, logdir, "rt"), "--deterministic_resample",
+            "--iters", "6", "--ckpt_freq", "0"]
+    final = cli.main(base)
+    logged = [r for r in _records(os.path.join(logdir, "rt"))
+              if "test_psnr" in r][-1]
+    assert final["test_psnr"] == logged["test_psnr"]
+    out = cli.main([*base, "--render_only", "--render_test"])
+    assert out == {"step": 5, "test_psnr": logged["test_psnr"],
+                   "test_ssim": logged["test_ssim"]}
+    q = cli.main([*base, "--render_only", "--render_test", "--int8",
+                  "--int8_calib", "4096"])
+    assert q["step"] == 5 and abs(q["test_psnr"] - out["test_psnr"]) < 1.0
+
+
+def test_no_reload_starts_fresh(blender_dir, tmp_path):
+    logdir = str(tmp_path / "logs")
+    base = _base(blender_dir, logdir, "fresh")
+    cli.main([*base, "--iters", "6", "--ckpt_freq", "5"])
+    cli.main([*base, "--iters", "6", "--ckpt_freq", "0", "--no_reload"])
+    steps = [r["step"] for r in _records(os.path.join(logdir, "fresh"))
+             if "loss" in r]
+    assert steps.count(5) >= 2
+
+
+def test_no_reload_backup_does_not_collide(blender_dir, tmp_path):
+    logdir = str(tmp_path / "logs")
+    base = _base(blender_dir, logdir, "bak")
+    for extra in ([], ["--no_reload"], ["--no_reload"]):
+        cli.main([*base, "--iters", "6", "--ckpt_freq", "5", *extra])
+    run_dir = os.path.join(logdir, "bak")
+    baks = sorted(d for d in os.listdir(run_dir)
+                  if d.startswith("torch_checkpoints.bak"))
+    assert baks == ["torch_checkpoints.bak-5", "torch_checkpoints.bak-5.1"]
+
+
+def test_profile_dir_writes_a_trace(blender_dir, tmp_path):
+    logdir = str(tmp_path / "logs")
+    prof = str(tmp_path / "trace")
+    cli.main([*_base(blender_dir, logdir, "prof"), "--iters", "25",
+              "--ckpt_freq", "0", "--profile_dir", prof])
+    assert os.path.getsize(os.path.join(prof, "trace.json")) > 0
+    steps = [r["step"] for r in _records(os.path.join(logdir, "prof"))
+             if "loss" in r]
+    assert max(steps) == 24
+
+
+def test_train_then_serve_from_run_dir(blender_dir, tmp_path):
+    """Train, then serve the run with ``cvnerf_torch.server --run`` (no
+    geometry flags): the HTTP render equals a direct render of the
+    renderer's own nets."""
+    from cvnerf_torch.render.frames import render_image
+    from cvnerf_torch.server import build_parser, make_server, \
+        renderer_from_args
+    logdir = str(tmp_path / "logs")
+    cli.main([*_base(blender_dir, logdir, "srv"), "--iters", "8",
+              "--ckpt_freq", "5"])
+    run_dir = os.path.join(logdir, "srv")
+    args = build_parser().parse_args(["--run", run_dir, "--chunk", "256",
+                                      "--device", "cpu"])
+    r = renderer_from_args(args)
+    assert r.step == 7
+    saved = tckpt.restore_params(os.path.join(run_dir, "torch_checkpoints"))
+    for net in ("coarse", "fine"):
+        for layer, leaves in saved[0][net].items():
+            for q, t in leaves.items():
+                assert torch.equal(r.params[net][layer][q], t)
+    srv = make_server(r, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        from cvnerf_torch.data.datasets import load_scene
+        scene = load_scene(blender_dir, "blender", testskip=1,
+                           white_bkg=True)
+        pose = np.asarray(scene.poses[0])[:3, :4]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/render",
+            data=json.dumps({"c2w": pose.tolist(),
+                             "format": "json"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            served = np.asarray(json.loads(resp.read())["rgb"], np.float32)
+        direct = render_image(r._nets, r.height, r.width, r.focal,
+                              torch.as_tensor(pose), r.near, r.far, r.cfg,
+                              chunk=r.chunk)["rgb"].numpy()
+        assert served.shape == direct.shape == (24, 24, 3)
+        np.testing.assert_allclose(served, direct, atol=1e-6)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+
+
+def test_track_best_checkpoint_and_metrics(blender_dir, tmp_path, capsys):
+    logdir = str(tmp_path / "logs")
+    base = [*_base(blender_dir, logdir, "tb"), "--val_freq", "5",
+            "--track_best"]
+    cli.main([*base, "--iters", "11", "--ckpt_freq", "0"])
+    run_dir = os.path.join(logdir, "tb")
+    assert os.path.isdir(os.path.join(run_dir, "torch_checkpoints_best"))
+    best = [r for r in _records(run_dir) if "test_psnr_best" in r]
+    assert best and best[-1]["best_step"] in (5, 10)
+    assert "best_val_psnr" in best[-1] and "test_ssim_best" in best[-1]
+    best_step = int(best[-1]["best_step"])
+    assert json.load(open(os.path.join(run_dir, "best.json")))["step"] == \
+        best_step
+
+    r_auto = NerfRenderer.from_run_dir(run_dir, chunk=128, device="cpu")
+    assert r_auto.step == best_step and r_auto.which == "best"
+    assert NerfRenderer.from_run_dir(run_dir, chunk=128, device="cpu",
+                                     which="best").step == best_step
+    r_last = NerfRenderer.from_run_dir(run_dir, chunk=128, device="cpu",
+                                       which="last")
+    assert r_last.step == 10 and r_last.which == "last"
+
+    capsys.readouterr()
+    out = cli.main([*base, "--iters", "11", "--render_only",
+                    "--render_factor", "4"])
+    assert out["step"] == best_step
+    if best_step != 10:
+        assert f"rendering the best-val model (step {best_step})" in \
+            capsys.readouterr().out
+
+
+def test_resume_falls_back_to_best_checkpoint(blender_dir, tmp_path, capsys):
+    import shutil
+    logdir = str(tmp_path / "logs")
+    base = [*_base(blender_dir, logdir, "fb"), "--val_freq", "5",
+            "--track_best"]
+    cli.main([*base, "--iters", "11", "--ckpt_freq", "5"])
+    run_dir = os.path.join(logdir, "fb")
+    shutil.rmtree(os.path.join(run_dir, "torch_checkpoints"))  # the crash
+    best_step = json.load(open(os.path.join(run_dir, "best.json")))["step"]
+    capsys.readouterr()
+    cli.main([*base, "--iters", "16", "--ckpt_freq", "0"])
+    out = capsys.readouterr().out
+    assert "resuming from best" in out
+    assert f"Resumed from checkpoint at step {best_step}" in out
+    assert max(r["step"] for r in _records(run_dir) if "loss" in r) == 15
+
+
+def test_no_reload_backs_up_an_orphan_best_checkpoint(blender_dir, tmp_path):
+    import shutil
+    logdir = str(tmp_path / "logs")
+    base = [*_base(blender_dir, logdir, "orph"), "--ckpt_freq", "5",
+            "--val_freq", "5", "--track_best"]
+    cli.main([*base, "--iters", "11"])
+    run_dir = os.path.join(logdir, "orph")
+    shutil.rmtree(os.path.join(run_dir, "torch_checkpoints"))
+    cli.main([*base, "--iters", "11", "--no_reload"])
+    names = os.listdir(run_dir)
+    assert any(n.startswith("torch_checkpoints.bak") and n.endswith("_best")
+               for n in names), names
+    assert json.load(open(os.path.join(run_dir, "best.json")))["step"] <= 10
+    assert [r for r in _records(run_dir) if "test_psnr_best" in r]
+
+
+REFUSED = [
+    (["--ema_decay", "0.99"], "--ema_decay", "item 9"),
+    (["--freq_anneal", "0.08"], "--freq_anneal", "item 9"),
+    (["--noise_decay", "100"], "--noise_decay", "item 9"),
+    (["--distortion_loss", "0.01"], "--distortion_loss", "item 9"),
+    (["--occlusion_loss", "0.01"], "--occlusion_loss", "item 9"),
+    (["--ray_batching"], "--ray_batching", "item 9"),
+    (["--pixel_sampling", "parity"], "--pixel_sampling parity", "item 9"),
+    (["--occ_train"], "--occ_train", "item 10"),
+    (["--occupancy", "merge"], "--occupancy", "item 10"),
+    (["--lpips_weights", "w.npz"], "--lpips_weights", "item 10"),
+    (["--coordinator", "localhost:1234"], "--coordinator", "item 11"),
+    (["--num_processes", "2"], "--num_processes", "item 11"),
+    (["--process_id", "0"], "--process_id", "item 11"),
+]
+
+
+@pytest.mark.parametrize("flags,name,item", REFUSED,
+                         ids=[r[1].split()[0][2:] + ("_parity" if "parity"
+                                                     in r[1] else "")
+                              for r in REFUSED])
+def test_unported_flags_are_refused_before_anything_is_written(
+        blender_dir, tmp_path, flags, name, item):
+    logdir = str(tmp_path / "logs")
+    with pytest.raises(NotImplementedError) as e:
+        cli.main([*_base(blender_dir, logdir, "x"), "--iters", "3",
+                  *flags])
+    assert f"not ported yet: {name} (ROADMAP Queue 1 {item}" in str(e.value)
+    assert not os.path.exists(logdir)
+
+
+@pytest.mark.parametrize("record,name", [
+    ({"freq_anneal": 240}, "--freq_anneal"),
+    ({"ema_decay": 0.995}, "--ema_decay"),
+    ({"occ_train": {"resolution": 64, "bound": 1.5, "mode": "merge",
+                    "interp": "nearest", "floor": 0}}, "--occ_train")],
+    ids=["freq_anneal", "ema_decay", "occ_train"])
+def test_a_run_dir_that_recorded_a_lever_is_refused_unless_fresh(
+        blender_dir, tmp_path, record, name):
+    logdir = str(tmp_path / "logs")
+    base = [*_base(blender_dir, logdir, "rec"), "--iters", "3",
+            "--ckpt_freq", "0"]
+    cli.main(base)
+    run_dir = os.path.join(logdir, "rec")
+    snap_path = os.path.join(run_dir, "scene.json")
+    snap = json.load(open(snap_path))
+    json.dump({**snap, **record}, open(snap_path, "w"))
+    before = open(os.path.join(run_dir, "metrics.jsonl")).read()
+    with pytest.raises(NotImplementedError,
+                       match=f"not ported yet: {name} .*recorded by"):
+        cli.main(base)
+    assert open(os.path.join(run_dir, "metrics.jsonl")).read() == before
+    cli.main([*base, "--no_reload"])
+    assert name[2:] not in json.load(open(snap_path))
+
+
+def test_pallas_interpret_and_a_missing_card_are_refused(blender_dir,
+                                                         tmp_path,
+                                                         monkeypatch):
+    logdir = str(tmp_path / "logs")
+    with pytest.raises(ValueError, match="interpret"):
+        cli.main([*_base(blender_dir, logdir, "x"), "--pallas",
+                  "interpret"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [a for a in _base(blender_dir, logdir, "x")
+            if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main([*argv, "--iters", "3"])
+    assert not os.path.exists(logdir)
+
+
+# ---------- parity with the JAX CLI ----------
+
+PARITY_FLAGS = ["--no-bf16", "--dtype", "blender", "--white_bkg",
+                "--testskip", "1", "--n_rays", "64",
+                "--n_coarse_samples", "8", "--n_fine_samples", "8",
+                "--trunk_width", "32", "--head_width", "16",
+                "--xyz_freqs", "4", "--dir_freqs", "2", "--noise", "1.0",
+                "--chunk", "256", "--print_freq", "1", "--vid_freq", "0",
+                "--val_freq", "2", "--ckpt_freq", "0", "--lr", "5e-4",
+                "--lr_decay", "1", "--iters", "4"]
+
+
+def test_cli_matches_the_jax_cli_in_fp32(tmp_path):
+    from cvnerf_tpu.cli import main as jax_main
+    from cvnerf_tpu.data.synthetic import make_blender_dataset as jax_make
+    from cvnerf_tpu.models.nerf_mlp import NerfMLPConfig as JaxCfg
+    from cvnerf_tpu.train.checkpoint import restore_checkpoint as jax_restore
+    from cvnerf_tpu.train.checkpoint import save_checkpoint as jax_save
+    from cvnerf_tpu.train.state import create_train_state as jax_create
+    from cvnerf_torch.train.state import create_train_state
+    from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
+    from cvnerf_torch.utils.convert import train_state_from_jax
+    from test_torch_port_train import TINY, _compare_states
+
+    data = str(tmp_path / "scene")
+    jax_make(data, n_train=4, n_val=2, n_test=2, h=24, w=24)
+    jstate = jax_create(jax.random.PRNGKey(2), lr=5e-4, lr_decay=1,
+                        mlp=JaxCfg(**TINY))
+    jax_save(str(tmp_path / "jax_ft"), jstate)
+    tckpt.save_checkpoint(str(tmp_path / "torch_ft"), train_state_from_jax(
+        jax.tree.map(np.asarray, jstate)))
+
+    def run(main, name, extra):
+        logdir = str(tmp_path / name)
+        main(["--data_dir", data, "--base_dir", logdir, "--save_dir",
+              logdir, "--name", "p", *PARITY_FLAGS,
+              "--ft_path", str(tmp_path / f"{name}_ft"), *extra])
+        return os.path.join(logdir, "p")
+
+    jrun = run(jax_main, "jax", [])
+    trun = run(cli.main, "torch", ["--device", "cpu"])
+    jrec, trec = _records(jrun), _records(trun)
+    assert [sorted(r) for r in trec] == [sorted(r) for r in jrec]
+    logged = 0
+    for t, j in zip(trec, jrec):
+        assert t["step"] == j["step"]
+        for k in ("loss", "psnr", "mse_fine", "grad_norm"):
+            if k in j:
+                np.testing.assert_allclose(t[k], j[k], rtol=1e-4, err_msg=k)
+                logged += k == "loss"
+        for k in ("val_psnr", "test_psnr"):
+            if k in j:
+                assert abs(t[k] - j[k]) <= 1e-3, (k, t[k], j[k])
+        for k in ("lr", "val_views", "test_views"):
+            if k in j:
+                assert t[k] == pytest.approx(j[k], rel=1e-6), k
+    assert logged == 4          # steps 1-3 and the final record
+    assert any("test_psnr" in r for r in trec)
+
+    tfinal = tckpt.restore_checkpoint(
+        os.path.join(trun, "torch_checkpoints"), create_train_state(
+            torch.Generator().manual_seed(0), mlp=NerfMLPConfig(**TINY),
+            device="cpu"))
+    jfinal = jax_restore(os.path.join(jrun, "checkpoints"), jstate)
+    assert tfinal.step == int(jfinal.step) == 3
+    _compare_states(jfinal, tfinal, 5e-4, 3)
+    for name in ("config_resolved.json", "scene.json"):
+        got = json.load(open(os.path.join(trun, name)))
+        want = json.load(open(os.path.join(jrun, name)))
+        got.pop("device", None)
+        for k in ("ft_path", "base_dir", "save_dir"):
+            want.pop(k, None), got.pop(k, None)
+        assert got == want, name

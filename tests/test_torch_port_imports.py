@@ -1,4 +1,6 @@
-"""The port imports neither ``jax`` nor the JAX package.
+"""The port imports neither ``jax`` nor the JAX package, and imports
+``imageio``, ``cv2``, ``PIL`` and ``tensorboardX`` only inside functions
+(the card's host has none of them).
 
 ``tests/conftest.py`` imports jax into this process, so the import check
 runs in a fresh subprocess. A static scan backs it up for code paths no
@@ -24,6 +26,8 @@ for name in names:
 import chip_smoke   # its __main__ guard keeps it from running
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "cvnerf_tpu")))
+bad += sorted(m for m in sys.modules
+              if m.split(".")[0] in ("imageio", "cv2", "PIL", "tensorboardX"))
 print(len(names), bad)
 sys.exit(1 if bad else 0)
 """
@@ -35,7 +39,7 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 26   # every module of the port was imported
+    assert n_modules >= 37   # every module of the port was imported
 
 
 def _sources():
@@ -49,6 +53,17 @@ def test_port_sources_never_name_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax)|cvnerf_tpu", re.M)
     hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
             for p in _sources() for m in pattern.finditer(p.read_text())]
+    assert not hits, hits
+
+
+def test_optional_libraries_are_imported_only_inside_functions():
+    pattern = re.compile(
+        r"^(import|from)\s+(imageio|cv2|PIL|tensorboardX)\b", re.M)
+    hits = [f"{p.relative_to(ROOT)}: {m.group(0)}"
+            for p in _sources() if p.suffix == ".py"
+            for m in pattern.finditer(p.read_text())]
+    text = (ROOT / "chip_smoke.py").read_text()
+    hits += [m.group(0) for m in pattern.finditer(text)]
     assert not hits, hits
 
 
