@@ -76,8 +76,26 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      PSNR logged by the run, exactly); ``--render_only --int8``;
      ``NerfRenderer.from_run_dir`` serving the run (params bitwise the
      checkpoint's); 3 steps under ``--no-bf16``; the checkpoint writer's
-     enqueue and drain times.
-The launch counts of phases 2, 2b, 3, 3b, 5, 5b and 7 (the main paths) are
+     enqueue and drain times;
+  8. the training levers (main path), each alone at phase 5's lego shape
+     in bf16: ``ema_decay`` 0.999, ``noise_decay`` 100 (with density noise
+     1.0), ``freq_anneal`` 100, ``distortion_loss`` 0.01 (start 1, ramp
+     2), ``occlusion_loss`` 0.01, ``ray_batching``, ``pixel_sampling=
+     "parity"``: 3 steps through the kernels, each held against the same
+     step with ``kernels="off"`` at phase 6's bf16 tolerances, exactly 2 +
+     2 launches a step; 4 rounds of 8 steps with each lever and 8 plain
+     steps (density noise 1.0 in ``noise_decay``'s plain step), the order
+     alternating each round, with the medians, the spread of the rounds
+     and the ops a profiled step of the lever grew most; the pixel draws'
+     cost; then through the CLI,
+     ``--ema_decay 0.999 --freq_anneal 40`` on phase 7's fixture, a run
+     stopped at step 30 and resumed equal bitwise (the EMA slot included)
+     to an uninterrupted one, and ``from_run_dir`` at the mid-anneal step
+     30 serving the average through the window;
+  9. a quality band (main path): ``sphere_hi_3000`` through
+     ``cvnerf_torch.quality_run`` at full width, passing at or above the
+     band's floor (29.24 dB; the JAX package measured 30.24).
+The launch counts of phases 2, 2b, 3, 3b, 5, 5b, 7, 8 and 9 (the main paths) are
 reset just before each phase (each CLI call of phase 7) and read just
 after: the kernels must have launched exactly as often as the chunking
 implies (40 forward launches per 400x400 frame at chunk 8192, 80 at the
@@ -625,11 +643,12 @@ def phase_train(fm, fb, fq, card: str):
     render a frame of the trained params; returns the launch counts."""
     from cvnerf_torch.data.synthetic import bench_scene
     from cvnerf_torch.render.frames import render_image
+    from cvnerf_torch.ops.rng import PRNGKey
     from cvnerf_torch.train.loop import Trainer
     from cvnerf_torch.train.state import create_train_state
     images, poses = bench_scene(TRAIN_HW, TRAIN_HW)
     tcfg = lego_train_config(torch.bfloat16)
-    state = create_train_state(torch.Generator().manual_seed(SEED),
+    state = create_train_state(PRNGKey(SEED),
                                lr=tcfg.lr, lr_decay=tcfg.lr_decay,
                                mlp=tcfg.render.mlp, device="cuda")
     tr = Trainer(tcfg, state, images, poses, [0, 1], seed=SEED)
@@ -758,11 +777,12 @@ def phase_train_fp32(fm, fb, fq, card: str):
     split whose pass 1 is ``fused_nerf_bwd_ffma`` alone. Returns the launch
     counts, the median step and the split."""
     from cvnerf_torch.data.synthetic import bench_scene
+    from cvnerf_torch.ops.rng import PRNGKey
     from cvnerf_torch.train.loop import Trainer
     from cvnerf_torch.train.state import create_train_state
     images, poses = bench_scene(TRAIN_HW, TRAIN_HW)
     tcfg = lego_train_config(torch.float32)
-    state = create_train_state(torch.Generator().manual_seed(SEED),
+    state = create_train_state(PRNGKey(SEED),
                                lr=tcfg.lr, lr_decay=tcfg.lr_decay,
                                mlp=tcfg.render.mlp, device="cuda")
     tr = Trainer(tcfg, state, images, poses, [0, 1], seed=SEED)
@@ -858,7 +878,7 @@ def phase_step_vs_off(cfg):
         outs = []
         for kernels in ("on", "off"):
             tcfg = lego_train_config(dt, kernels)
-            state = create_train_state(torch.Generator().manual_seed(SEED + 5),
+            state = create_train_state(PRNGKey(SEED + 5),
                                        lr=tcfg.lr, lr_decay=tcfg.lr_decay,
                                        device="cuda")
             new, m = make_train_step(tcfg)(state, key, images, poses, idx,
@@ -960,6 +980,7 @@ def phase_cli(fm, fb, fq, card: str, tmp: str) -> dict:
     ``--render_only --int8``; ``from_run_dir`` serving the run; 3 fp32
     steps. Returns the launch counts and the numbers it printed."""
     from cvnerf_torch.data.synthetic import make_blender_dataset
+    from cvnerf_torch.ops.rng import PRNGKey
     from cvnerf_torch.serve import NerfRenderer
     from cvnerf_torch.train.checkpoint import (Checkpointer,
                                                restore_checkpoint,
@@ -1046,18 +1067,7 @@ def phase_cli(fm, fb, fq, card: str, tmp: str) -> dict:
                    weights_only=True)
     b = torch.load(os.path.join(run_b, "torch_checkpoints", "000060.pt"),
                    weights_only=True)
-    diffs = {}
-
-    def walk(x, y, path=""):
-        if isinstance(x, dict):
-            for k in x:
-                walk(x[k], y[k], f"{path}/{k}")
-        elif isinstance(x, torch.Tensor):
-            if not torch.equal(x, y):
-                diffs[path] = (x - y).abs().max().item()
-        elif x != y:
-            diffs[path] = (x, y)
-    walk(a, b)
+    diffs = walk_diffs(a, b)
     print(f"cli resume: the run stopped at step 30 and resumed to 60 equals "
           f"the uninterrupted run bitwise: {not diffs} (params, Adam moments, "
           f"count, step)", flush=True)
@@ -1110,7 +1120,7 @@ def phase_cli(fm, fb, fq, card: str, tmp: str) -> dict:
         fail("from_run_dir did not serve the CLI's run as saved")
 
     # -- the checkpoint writer's enqueue and drain -------------------------
-    template = create_train_state(torch.Generator().manual_seed(SEED),
+    template = create_train_state(PRNGKey(SEED),
                                   device="cuda")
     state = restore_checkpoint(os.path.join(run_a, "torch_checkpoints"),
                                template)
@@ -1152,6 +1162,423 @@ def phase_cli(fm, fb, fq, card: str, tmp: str) -> dict:
             "int8_test_psnr": q["test_psnr"], "fp32_loss": f32["loss"]}
 
 
+# Each lever alone on phase 5's lego-shaped bf16 configuration; the
+# density-noise schedule needs density noise, so its case trains with
+# noise_std 1.0 (the fern and llff bands' noise).
+LEVERS = (
+    ("ema_decay", dict(ema_decay=0.999)),
+    ("noise_decay", dict(noise_decay=100)),
+    ("freq_anneal", dict(freq_anneal=100)),
+    ("distortion_loss", dict(distortion_loss=0.01, distortion_start=1,
+                             distortion_ramp=2)),
+    ("occlusion_loss", dict(occlusion_loss=0.01)),
+    ("ray_batching", dict(ray_batching=True)),
+    ("parity", dict(pixel_sampling="parity")),
+)
+LEVER_STEPS = 3
+LEVER_TIMED = 8
+LEVER_ROUNDS = 4
+
+
+def plain_config(change: dict, kernels: str = "on"):
+    """The step a lever is timed against: phase 5's, with density noise
+    1.0 where the lever's case trains with it (a constant scale)."""
+    tcfg = lego_train_config(torch.bfloat16, kernels)
+    if "noise_decay" in change:
+        tcfg = dataclasses.replace(tcfg, render=dataclasses.replace(
+            tcfg.render, noise_std=1.0))
+    return tcfg
+
+
+def lever_config(change: dict, kernels: str = "on"):
+    return dataclasses.replace(plain_config(change, kernels), **change)
+
+
+def compare_steps(what: str, old, on, off, m_on: dict, m_off: dict,
+                  lr: float) -> dict:
+    """One step with the kernels against kernels="off" from the same
+    state, at phase 6's bf16 tolerances: loss rel 2e-2; the gradients,
+    read from Adam's first moment as (mu - 0.9 mu_old) / 0.1, within 0.15
+    of each leaf's largest; params (and the EMA slot) within 2·lr; on an
+    update count of 0, where Adam's step is ~lr·sign(g), within 1e-6 where
+    |g| exceeds 0.3 of its leaf's largest."""
+    from cvnerf_torch.train.state import tree_leaves
+    first = old.opt_state.count == 0
+    loss_err = abs(m_on["loss"] - m_off["loss"]) / abs(m_off["loss"])
+    g_err, p_any, p_big = 0.0, 0.0, 0.0
+    for a, b, m0, pa, pb in zip(tree_leaves(on.opt_state.mu),
+                                tree_leaves(off.opt_state.mu),
+                                tree_leaves(old.opt_state.mu),
+                                tree_leaves(on.params),
+                                tree_leaves(off.params)):
+        g = (b - 0.9 * m0) / 0.1
+        g_err = max(g_err, ((a - b).abs().max() / 0.1
+                            / g.abs().max()).item())
+        d = (pa - pb).abs()
+        p_any = max(p_any, d.max().item())
+        big = (g.abs() > 0.3 * g.abs().max()) & (g.abs() > 1e-6)
+        if first and big.any():
+            p_big = max(p_big, d[big].max().item())
+    e_any = 0.0
+    if on.ema_params is not None:
+        e_any = max((a - b).abs().max().item() for a, b in zip(
+            tree_leaves(on.ema_params), tree_leaves(off.ema_params)))
+    ok = (loss_err <= 2e-2 and g_err <= 0.15 and p_any <= 2 * lr + 1e-6
+          and p_big <= 1e-6 and e_any <= 2 * lr + 1e-6)
+    if not ok:
+        fail(f"levers {what}: kernels and kernels='off' disagree: loss rel "
+             f"{loss_err:.2e}, grads {g_err:.2e}, params {p_any:.2e} "
+             f"(large-|g| {p_big:.2e}), ema {e_any:.2e}")
+    return {"loss_rel": loss_err, "grad_rel": g_err, "param_max": p_any,
+            "param_big": p_big, "ema_max": e_any}
+
+
+def time_trainer(tcfg, state, images, poses, steps: int) -> float:
+    """Median ms between consecutive steps of ``Trainer.run`` (CUDA events
+    recorded in a per-step callback, as phase 5 times its steps)."""
+    from cvnerf_torch.train.loop import Trainer
+    tr = Trainer(tcfg, state, images, poses, [0, 1], seed=SEED)
+    events = []
+
+    def on_step(i, trainer, m):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    tr.add_callback(1, on_step)
+    tr.run(1, steps + 2)
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b)
+                            for a, b in zip(events, events[1:])]))
+
+
+def live_density(params: dict, tcfg, c2w) -> dict:
+    """Each net's share of points with a positive raw density: every 25th
+    pixel of the view ``c2w``, 64 depths from near to far, through the
+    plain forward (uncounted). A net whose share is near 0 passes almost
+    no gradient, so a step from it compares next to nothing."""
+    from cvnerf_torch.ops.fused_mlp import fused_nerf_plain
+    from cvnerf_torch.ops.rays import ray_grid
+    o, d = ray_grid(tcfg.height, tcfg.width, tcfg.focal, c2w)
+    o, d = o.reshape(-1, 3)[::25], d.reshape(-1, 3)[::25]
+    t = torch.linspace(tcfg.near, tcfg.far, 64, device=o.device)
+    pts = (o[:, None] + d[:, None] * t[None, :, None]).reshape(-1, 3)
+    dirs = torch.nn.functional.normalize(d, dim=-1)[:, None].expand(
+        -1, 64, 3).reshape(-1, 3)
+    return {k: (fused_nerf_plain(p, pts, dirs, tcfg.render.mlp)[:, 3] > 0
+                ).float().mean().item() for k, p in params.items()}
+
+
+def op_times(tcfg, state, images, poses, n: int = 3) -> dict:
+    """Host and device microseconds a step by op name, from
+    ``torch.profiler`` over ``n`` steps of ``Trainer.run`` after two
+    unprofiled ones: an op's self time on the host, a kernel's on the
+    card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvnerf_torch.train.loop import Trainer
+    tr = Trainer(tcfg, state, images, poses, [0, 1], seed=SEED)
+    tr.run(1, 3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run(3, 3 + n)
+        torch.cuda.synchronize()
+    host, dev = {}, {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total / n
+        else:
+            host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total / n
+    return {"host": host, "device": dev}
+
+
+def top_growth(lever: dict, plain: dict, k: int = 3) -> list:
+    """The ``k`` names whose time a step grew most from ``plain`` to
+    ``lever``, as ``[name, microseconds added]``."""
+    grown = {n: lever.get(n, 0.0) - plain.get(n, 0.0)
+             for n in set(lever) | set(plain)}
+    return [[n[:60], round(d, 1)] for n, d in
+            sorted(grown.items(), key=lambda kv: -kv[1])[:k]]
+
+
+def phase_levers(fm, fb, fq, card: str) -> dict:
+    """Each training lever alone at the lego training shape (main path):
+    LEVER_STEPS steps through the kernels, each held against the same step
+    with kernels="off" from the same state, exactly 2 + 2 launches a step
+    and no plain call; then LEVER_ROUNDS rounds of LEVER_TIMED steps with
+    the lever and LEVER_TIMED plain steps (the order alternating each
+    round), their medians and spread; a profile of a few steps of each,
+    naming the ops that grew most; and the cost of the pixel draws at the
+    lego shape."""
+    from cvnerf_torch.data.synthetic import bench_scene
+    from cvnerf_torch.ops.rng import (PRNGKey, choice_without_replacement,
+                                      fold_in, sample_without_replacement)
+    from cvnerf_torch.train.loop import make_train_step
+    from cvnerf_torch.train.state import create_train_state
+    images_np, poses_np = bench_scene(TRAIN_HW, TRAIN_HW)
+    images = torch.as_tensor(images_np, device="cuda")
+    poses = torch.as_tensor(poses_np, device="cuda")
+    idx = torch.tensor([0, 1])
+
+    # Every config has phase 5's lr and networks; a step leaves its input
+    # state as it was, so one fresh state serves every run: phase 6's
+    # (key SEED + 5), whose nets must put a positive density on a good
+    # share of the training rays' points.
+    base = lego_train_config(torch.bfloat16)
+    start = create_train_state(PRNGKey(SEED + 5), lr=base.lr,
+                               lr_decay=base.lr_decay, mlp=base.render.mlp,
+                               device="cuda", ema=True)
+    live = live_density(start.params, base, poses[0])
+    print(f"levers: the starting nets' share of points with a positive "
+          f"density along the first view's rays: {live}", flush=True)
+    if min(live.values()) < 0.1:
+        fail(f"levers: the starting state's density is <= 0 almost "
+             f"everywhere ({live}); its steps would compare almost no "
+             f"gradient")
+
+    def fresh(tcfg):
+        return dataclasses.replace(
+            start, ema_params=start.ema_params if tcfg.ema_decay > 0
+            else None)
+
+    total = {k: 0 for k in read_counts(fm, fb, fq)}
+    out, plain_ops = {}, {}
+    for name, change in LEVERS:
+        tcfg = lever_config(change)
+        step_on = make_train_step(tcfg)
+        step_off = make_train_step(lever_config(change, "off"))
+        state, errs = fresh(tcfg), []
+        for i in range(1, LEVER_STEPS + 1):
+            key = fold_in(PRNGKey(SEED), i)
+            torch.cuda.synchronize()
+            reset_counts(fm, fb, fq)
+            on, m_on = step_on(state, key, images, poses, idx, False)
+            torch.cuda.synchronize()
+            counts = read_counts(fm, fb, fq)
+            for k, v in counts.items():
+                total[k] += v
+            if counts != {"fwd": 2, "bwd": 2, "int8": 0, "fwd_plain": 0,
+                          "bwd_plain": 0, "int8_plain": 0}:
+                fail(f"levers {name}: step {i} launched {counts}, not "
+                     f"2 + 2 kernels and no plain call")
+            off, m_off = step_off(state, key, images, poses, idx, False)
+            m_on = {k: float(v) for k, v in m_on.items()}
+            m_off = {k: float(v) for k, v in m_off.items()}
+            if not all(np.isfinite(v) for v in m_on.values()):
+                fail(f"levers {name}: non-finite metrics {m_on}")
+            errs.append(compare_steps(name, state, on, off, m_on, m_off,
+                                      tcfg.lr))
+            state = on
+        pcfg = plain_config(change)
+        times = {"lever": [], "plain": []}
+        for r in range(LEVER_ROUNDS):
+            turns = (("plain", pcfg), ("lever", tcfg))
+            for arm, cfg in turns if r % 2 == 0 else turns[::-1]:
+                times[arm].append(time_trainer(cfg, fresh(cfg), images_np,
+                                               poses_np, LEVER_TIMED))
+        diffs = [a - b for a, b in zip(times["lever"], times["plain"])]
+        noisy = "noise_decay" in change
+        if noisy not in plain_ops:
+            plain_ops[noisy] = op_times(pcfg, fresh(pcfg), images_np,
+                                        poses_np)
+        ops = op_times(tcfg, fresh(tcfg), images_np, poses_np)
+        worst = {k: max(e[k] for e in errs) for k in errs[0]}
+        out[name] = {
+            "step_ms": float(np.median(times["lever"])),
+            "plain_step_ms": float(np.median(times["plain"])),
+            "step_ms_rounds": times["lever"],
+            "plain_step_ms_rounds": times["plain"],
+            "added_ms": float(np.median(diffs)),
+            "added_ms_range": [min(diffs), max(diffs)],
+            "host_growth_us": top_growth(ops["host"],
+                                         plain_ops[noisy]["host"]),
+            "device_growth_us": top_growth(ops["device"],
+                                           plain_ops[noisy]["device"]),
+            **worst}
+        o = out[name]
+        print(f"levers {name} ({change}): {LEVER_STEPS} steps 2 + 2 "
+              f"launches each, plain 0; vs kernels='off' loss rel "
+              f"{worst['loss_rel']:.2e}, grads {worst['grad_rel']:.2e}, "
+              f"params {worst['param_max']:.2e} (large-|g| "
+              f"{worst['param_big']:.2e}), ema {worst['ema_max']:.2e}; "
+              f"{LEVER_ROUNDS} interleaved rounds of {LEVER_TIMED} steps: "
+              f"lever {o['step_ms']:.3f} ms (rounds "
+              f"{[round(t, 3) for t in times['lever']]}), plain "
+              f"{o['plain_step_ms']:.3f} ms (rounds "
+              f"{[round(t, 3) for t in times['plain']]}{', noise 1.0' if noisy else ''}), "
+              f"added {o['added_ms']:+.3f} ms (rounds {min(diffs):+.3f} "
+              f"to {max(diffs):+.3f}); profiler, most grown a step: host "
+              f"{o['host_growth_us']} us, device {o['device_growth_us']} "
+              f"us", flush=True)
+
+    # The pixel draws at the lego shape: the Feistel draw on the host, the
+    # parity permutation of all 160,000 pixels on the card.
+    key, n_rays = PRNGKey(SEED), lever_config({}).n_rays
+    walls = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        sample_without_replacement(key, n_rays, TRAIN_HW * TRAIN_HW)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prp_ms = float(np.median(walls))
+    parity_ms = time_ms(lambda: choice_without_replacement(
+        key, n_rays, TRAIN_HW * TRAIN_HW, "cuda"))
+    walls = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        choice_without_replacement(key, n_rays, TRAIN_HW * TRAIN_HW, "cuda")
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    parity_wall_ms = float(np.median(walls))
+    print(f"levers: pixel draw at {TRAIN_HW}x{TRAIN_HW}: prp (Feistel, "
+          f"host) {prp_ms:.3f} ms wall; parity (2-round sort of "
+          f"{TRAIN_HW * TRAIN_HW} keys, card) {parity_ms:.3f} ms by CUDA "
+          f"events, {parity_wall_ms:.3f} ms wall; launches {total}; card: "
+          f"{card}", flush=True)
+    return {"counts": total, "levers": out, "live_density": live,
+            "prp_draw_ms": prp_ms, "parity_draw_ms": parity_ms,
+            "parity_draw_wall_ms": parity_wall_ms}
+
+
+def walk_diffs(a, b) -> dict:
+    """Leaves of two nested checkpoint dicts that are not bitwise equal."""
+    diffs = {}
+
+    def walk(x, y, path=""):
+        if isinstance(x, dict):
+            if sorted(x) != sorted(y):
+                diffs[path] = (sorted(x), sorted(y))
+                return
+            for k in x:
+                walk(x[k], y[k], f"{path}/{k}")
+        elif isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                diffs[path] = (x - y).abs().max().item()
+        elif x != y:
+            diffs[path] = (x, y)
+    walk(a, b)
+    return diffs
+
+
+def phase_lever_cli(fm, fb, fq, card: str, tmp: str, data: str) -> dict:
+    """EMA and the frequency anneal through the training entry point (main
+    path): ``--ema_decay 0.999 --freq_anneal 40`` on phase 7's fixture, an
+    uninterrupted run to step 60 and one stopped at its step-30 checkpoint
+    and resumed, whose final checkpoints (the EMA slot included) must be
+    bitwise equal; then ``from_run_dir`` at the mid-anneal step 30 must
+    serve the average through the window at 30 / 40, frame for frame."""
+    from cvnerf_torch.models.nerf_mlp import (NerfMLPConfig,
+                                              anneal_model_params)
+    from cvnerf_torch.render.frames import render_image
+    from cvnerf_torch.serve import NerfRenderer
+    from cvnerf_torch.train.checkpoint import restore_params
+    from cvnerf_torch.train.state import tree_leaves
+    logs = os.path.join(tmp, "lever_logs")
+    lego = str(Path(__file__).resolve().parent / "configs" / "lego.txt")
+    base = ["--config", lego, "--data_dir", data,
+            "--base_dir", logs, "--save_dir", logs, "--testskip", "1",
+            "--ckpt_freq", "30", "--val_freq", "30", "--vid_freq", "0",
+            "--print_freq", "10", "--deterministic_resample",
+            "--ema_decay", "0.999", "--freq_anneal", "40"]
+    per_frame = {"fwd": 2 * -(-SERVE_HW * SERVE_HW // 4096)}
+    total = {k: 0 for k in read_counts(fm, fb, fq)}
+
+    def drive(argv, n_steps, n_frames):
+        _, counts, steps, frames = drive_cli(fm, fb, fq, argv)
+        check_calls(f"lever cli {argv[-4:]} steps", steps, n_steps,
+                    {"fwd": 2, "bwd": 2})
+        check_calls(f"lever cli {argv[-4:]} frames", frames, n_frames,
+                    per_frame)
+        for k, v in counts.items():
+            total[k] += v
+
+    drive([*base, "--name", "a", "--iters", "61"], 60, 6)
+    drive([*base, "--name", "b", "--iters", "31"], 30, 4)
+    drive([*base, "--name", "b", "--iters", "61"], 30, 4)
+    ck = {r: os.path.join(logs, r, "torch_checkpoints") for r in "ab"}
+    a = torch.load(os.path.join(ck["a"], "000060.pt"), weights_only=True)
+    b = torch.load(os.path.join(ck["b"], "000060.pt"), weights_only=True)
+    diffs = walk_diffs(a, b)
+    if "ema_params" not in a or diffs:
+        fail(f"lever cli: the resumed EMA run differs from the "
+             f"uninterrupted one (EMA slot saved: {'ema_params' in a}): "
+             f"{dict(list(diffs.items())[:8])}")
+    # Step 30 lies inside the anneal horizon of 40.
+    r = NerfRenderer.from_run_dir(os.path.join(logs, "b"), step=30,
+                                  device="cuda")
+    ema, _ = restore_params(ck["b"], step=30)
+    raw, _ = restore_params(ck["b"], step=30, prefer_ema=False)
+    want = anneal_model_params(ema, NerfMLPConfig(), 30 / 40)
+    same = r.step == 30 and all(
+        torch.equal(u.cpu(), v) for u, v in zip(tree_leaves(r.params),
+                                                tree_leaves(want)))
+    differs_from_raw = any(not torch.equal(u, v) for u, v in zip(
+        tree_leaves(ema), tree_leaves(raw)))
+    c2w = torch.as_tensor(pose(0.5)[:3], device="cuda")
+    reset_counts(fm, fb, fq)
+    got = r.render_pose(pose(0.5))
+    served = read_counts(fm, fb, fq)
+    for k, v in served.items():
+        total[k] += v
+    nets = {k: fm.FusedNerfWeights({n: {q: t.to(r.device) for q, t in lay.items()}
+                                    for n, lay in v.items()},
+                                   NerfMLPConfig(), torch.bfloat16)
+            for k, v in want.items()}
+    ref = render_image(nets, r.height, r.width, r.focal, c2w, r.near, r.far,
+                       r.cfg, chunk=r.chunk)["rgb"].cpu().numpy()
+    frame_equal = bool(np.array_equal(got, ref))
+    print(f"lever cli: --ema_decay 0.999 --freq_anneal 40, stopped at 30 "
+          f"and resumed to 60, bitwise the uninterrupted run (params, Adam "
+          f"moments, EMA slot, count, step): True; from_run_dir at the "
+          f"mid-anneal step 30 serves the average through the window "
+          f"30/40 (params bitwise: {same}; the average differs from the raw "
+          f"params: {differs_from_raw}; its frame equals that of the "
+          f"windowed average: {frame_equal}); launches {total}, every step "
+          f"2 + 2, every frame {per_frame['fwd']} forward, plain 0; card: "
+          f"{card}", flush=True)
+    if not (same and differs_from_raw and frame_equal
+            and served["fwd"] == 2 * -(-SERVE_HW * SERVE_HW // CHUNK)
+            and served["fwd_plain"] == 0):
+        fail("lever cli: from_run_dir does not serve the windowed average")
+    return {"counts": total}
+
+
+def phase_band(fm, fb, fq, card: str, tmp: str) -> dict:
+    """A quality band on the card (main path): ``sphere_hi_3000`` through
+    ``cvnerf_torch.quality_run`` at full width, every train step 2 + 2
+    launches and every frame through the forward kernel; passes at or
+    above the band's floor."""
+    from cvnerf_torch import quality_run
+    from cvnerf_torch.render import frames
+    from cvnerf_torch.train import loop
+
+    def counts():
+        return read_counts(fm, fb, fq)
+    with PerCall(counts, loop, "make_train_step", factory=True) as steps, \
+            PerCall(counts, frames, "render_image") as frame_calls:
+        torch.cuda.synchronize()
+        reset_counts(fm, fb, fq)
+        res = quality_run.run(["--scene", "sphere_hi", "--iters", "3000",
+                               "--workdir", os.path.join(tmp, "band")])
+        torch.cuda.synchronize()
+        total = read_counts(fm, fb, fq)
+    per_frame = {"fwd": 2 * -(-200 * 200 // 4096)}           # 20
+    check_calls("band steps", steps.deltas, 2999, {"fwd": 2, "bwd": 2})
+    check_calls("band frames", frame_calls.deltas, len(frame_calls.deltas),
+                per_frame)
+    print(f"band {res['key']}: test PSNR {res['psnr']:.4f} dB against the "
+          f"floor {res['floor']} dB (the JAX package measured "
+          f"{res['jax_measured']} dB); {res['steps']} steps in "
+          f"{res['seconds']:.1f} s wall; launches {total} (every step "
+          f"2 + 2, {len(frame_calls.deltas)} frames of {per_frame['fwd']}); "
+          f"card: {card}", flush=True)
+    if not res["passed"]:
+        fail(f"band {res['key']}: {res['psnr']:.4f} dB is below the floor "
+             f"{res['floor']} dB")
+    return {"counts": total, **res}
+
+
 def write_run_dir(run: str, cfg, init, gen_seed: int,
                   bf16: bool = True) -> None:
     """A run directory for the lego serving shape written by the port's
@@ -1167,8 +1594,9 @@ def write_run_dir(run: str, cfg, init, gen_seed: int,
         n_fine=128, bf16=bf16, mlp=cfg, sorted_resample=True, pallas="auto",
         calib_poses=np.stack([pose(t) for t in np.linspace(
             0, 2 * np.pi, 8, endpoint=False)]))
-    gen = torch.Generator().manual_seed(gen_seed)
-    params = {net: init(gen, cfg) for net in ("coarse", "fine")}
+    from cvnerf_torch.ops.rng import PRNGKey, split
+    params = {net: init(key, cfg)
+              for net, key in zip(("coarse", "fine"), split(PRNGKey(gen_seed)))}
     state = TrainState(params=params,
                        opt_state=make_optimizer(5e-4, 500).init(params),
                        step=1000)
@@ -1369,7 +1797,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
     cfg = NerfMLPConfig()
-    params = init_nerf_params(torch.Generator().manual_seed(SEED), cfg, "cuda")
+    params = init_nerf_params(rng.PRNGKey(SEED), cfg, "cuda")
 
     # -- 1. kernels against their plain versions --------------------------
     rows = phase_kernels(fm, cfg, params)
@@ -1469,7 +1897,7 @@ def main() -> int:
         frame32_counts, frame32_ms = phase_frame_fp32(fm, fb, fq, run32)
 
     # -- 4. kernel vs kernels="off", end to end, on the card -------------
-    nets = {k: init_nerf_params(torch.Generator().manual_seed(SEED + 3 + i),
+    nets = {k: init_nerf_params(rng.PRNGKey(SEED + 3 + i),
                                 cfg, "cuda")
             for i, k in enumerate(("coarse", "fine"))}
     c2w = torch.as_tensor(pose(0.7)[:3], device="cuda")
@@ -1499,12 +1927,19 @@ def main() -> int:
     # -- 6. one train step, kernels vs kernels="off", on the card ----------
     phase_step_vs_off(cfg)
 
-    # -- 7. the training entry point (main path) --------------------------
     with tempfile.TemporaryDirectory() as tmp:
+        # -- 7. the training entry point (main path) ----------------------
         cli = phase_cli(fm, fb, fq, card, tmp)
+        # -- 8. the training levers (main path) ---------------------------
+        levers = phase_levers(fm, fb, fq, card)
+        lever_cli = phase_lever_cli(fm, fb, fq, card, tmp,
+                                    os.path.join(tmp, "lego_fixture"))
+        # -- 9. a quality band (main path) --------------------------------
+        band = phase_band(fm, fb, fq, card, tmp)
+    late = [levers["counts"], lever_cli["counts"], band["counts"]]
 
     main_launches = (serve_launches + video_launches + train_counts["fwd"]
-                     + cli["counts"]["fwd"])
+                     + cli["counts"]["fwd"] + sum(c["fwd"] for c in late))
     serve_row = next(r for r in rows
                      if r["n"] == CHUNK * 192 and r["dtype"] == "bfloat16")
     fine_row = next(r for r in bwd_rows
@@ -1534,14 +1969,16 @@ def main() -> int:
                 "launches from one fp32 frame and the fp32 train steps; "
                 "launches include phase 7's (the CLI: train steps, "
                 "validation, test, render-only and serving frames, in bf16 "
-                "and fp32), whose numbers stand under cli; no single "
+                "and fp32), whose numbers stand under cli, and phases 8-9's "
+                "(the levers and the sphere_hi_3000 band); no single "
                 "PyTorch call computes this function, so library_ms is "
                 "null",
     }, {
         "name": "fused_nerf_bwd", "route": "cuda",
         "source": "cvnerf_torch/csrc/fused_mlp_bwd.cu",
         "replaces": "cvnerf_tpu/ops/pallas/fused_mlp_bwd.py:207",
-        "launches": train_counts["bwd"] + cli["counts"]["bwd"],
+        "launches": (train_counts["bwd"] + cli["counts"]["bwd"]
+                     + sum(c["bwd"] for c in late)),
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": fine_row["ms"], "plain_ms": fine_row["plain_ms"],
         "bound_ms": fine_row["bound_ms"], "bound_by": fine_row["bound_by"],
@@ -1549,6 +1986,8 @@ def main() -> int:
         "shapes": bwd_rows,
         "step_ms": step_ms,
         "step_split_ms": split,
+        "levers": {k: v for k, v in levers.items() if k != "counts"},
+        "band": {k: v for k, v in band.items() if k != "counts"},
         "fp32": {"kernels": ["fused_nerf_bwd_ffma", "wgrad_ffma"],
                  "launches": train32_counts["bwd"], "step_ms": step32_ms,
                  "step_split_ms": split32, **fp32_of(bwd_rows, 1024 * 192)},
@@ -1556,6 +1995,9 @@ def main() -> int:
                 "(n=196608, bf16), pass1_ms the pass-1 kernel "
                 "fused_nerf_bwd_wgmma alone (profiler; in fp32, the "
                 "--no-bf16 path, fused_nerf_bwd_ffma, then wgrad_ffma); "
+                "levers: phase 8 (each lever's median step against the "
+                "plain step, its worst distance from kernels='off', the "
+                "pixel draws' cost); band: phase 9 (sphere_hi_3000); "
                 "max_abs_err is the largest per-leaf error "
                 "relative to the leaf's largest gradient; the bound counts "
                 "the least work (wgrad of 12 layers + dgrad of 11), not the "

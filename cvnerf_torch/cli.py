@@ -15,10 +15,20 @@ and validation (``--track_best`` keeps the best-validation model); save a
 final checkpoint and score the held-out test views. ``--render_only``
 renders the restored model (``--int8``: through the int8 kernel).
 
-Flags of the JAX CLI that the port does not carry yet are refused by
-name, with the ROADMAP item that brings them, before anything is written
-to the run directory; so is a run directory whose ``scene.json`` recorded
-one, unless ``--no_reload`` starts a fresh run there.
+The JAX trainer's levers run as there: ``--ema_decay`` (validation,
+videos, the test eval and ``--render_only`` read the Polyak average),
+``--noise_decay``, ``--freq_anneal`` (those renders go through the step's
+frequency window), ``--distortion_loss`` with ``--distortion_start`` and
+``--distortion_ramp``, ``--occlusion_loss`` with ``--occlusion_frac``,
+``--ray_batching`` and ``--pixel_sampling parity``. A run directory's
+recorded ``freq_anneal`` and ``ema_decay`` stay in force when a later
+invocation omits the flag, with the JAX CLI's messages.
+
+Flags of the JAX CLI that the port does not carry yet (occupancy, LPIPS,
+several processes) are refused by name, with the ROADMAP item that brings
+them, before anything is written to the run directory; so is a run
+directory whose ``scene.json`` recorded occupancy training, unless
+``--no_reload`` starts a fresh run there.
 """
 
 from __future__ import annotations
@@ -29,7 +39,6 @@ import sys
 
 import numpy as np
 
-LEVERS_ITEM = "ROADMAP Queue 1 item 9 (flag-gated training levers)"
 EXTRAS_ITEM = "ROADMAP Queue 1 item 10 (serving extras)"
 MESH_ITEM = "ROADMAP Queue 1 item 11 (data parallelism)"
 
@@ -38,14 +47,6 @@ def unported(args) -> list[tuple[str, str]]:
     """``(flag, ROADMAP item)`` for each flag set that the port does not
     carry yet."""
     return [(flag, item) for flag, on, item in (
-        ("--ema_decay", (args.ema_decay or 0) > 0, LEVERS_ITEM),
-        ("--freq_anneal", (args.freq_anneal or 0) > 0, LEVERS_ITEM),
-        ("--noise_decay", args.noise_decay > 0, LEVERS_ITEM),
-        ("--distortion_loss", args.distortion_loss > 0, LEVERS_ITEM),
-        ("--occlusion_loss", args.occlusion_loss > 0, LEVERS_ITEM),
-        ("--ray_batching", args.ray_batching, LEVERS_ITEM),
-        ("--pixel_sampling parity", args.pixel_sampling == "parity",
-         LEVERS_ITEM),
         ("--occ_train", args.occ_train, EXTRAS_ITEM),
         ("--occupancy", args.occupancy is not None, EXTRAS_ITEM),
         ("--lpips_weights", args.lpips_weights is not None, EXTRAS_ITEM),
@@ -61,24 +62,103 @@ def _refuse(found: list[tuple[str, str]], where: str = "") -> None:
             + where)
 
 
-def _recorded(run_dir: str) -> list[tuple[str, str]]:
-    """The unported training levers a run directory's ``scene.json``
-    recorded (read defensively: a missing or foreign file records none)."""
+def _snapshot(run_dir: str) -> dict:
+    """The run directory's ``scene.json``, read defensively: a missing or
+    foreign file gives an empty dict."""
     try:
         with open(os.path.join(run_dir, "scene.json")) as fp:
             snap = json.load(fp)
     except (OSError, ValueError):
-        return []
-    if not isinstance(snap, dict):
-        return []
+        return {}
+    return snap if isinstance(snap, dict) else {}
+
+
+def _recorded(run_dir: str) -> list[tuple[str, str]]:
+    """The unported training modes a run directory's ``scene.json``
+    recorded (occupancy training)."""
+    snap = _snapshot(run_dir)
+    return [(flag, item) for flag, on, item in (
+        ("--occ_train", isinstance(snap.get("occ_train"), dict),
+         EXTRAS_ITEM),) if on]
+
+
+def _recorded_levers(run_dir: str) -> tuple[int | None, float | None]:
+    """``(freq_anneal, ema_decay)`` as the run directory recorded them, or
+    None each (a JSON boolean counts as missing)."""
+    snap = _snapshot(run_dir)
 
     def num(v):
-        return isinstance(v, (int, float)) and not isinstance(v, bool) \
-            and v > 0
-    return [(flag, item) for flag, on, item in (
-        ("--occ_train", isinstance(snap.get("occ_train"), dict), EXTRAS_ITEM),
-        ("--freq_anneal", num(snap.get("freq_anneal")), LEVERS_ITEM),
-        ("--ema_decay", num(snap.get("ema_decay")), LEVERS_ITEM)) if on]
+        return isinstance(v, (int, float)) and not isinstance(v, bool)
+    fa, ema = snap.get("freq_anneal"), snap.get("ema_decay")
+    return (int(fa) if num(fa) else None,
+            float(ema) if num(ema) else None)
+
+
+def resolve_levers(args, run_dir: str) -> None:
+    """Resolve ``--freq_anneal`` and ``--ema_decay`` against what the run
+    directory recorded, with the JAX CLI's rules and messages: an omitted
+    flag keeps the recorded value; a fraction of ``--iters`` resolves to
+    steps, but a recorded horizon stays when the fraction would move it;
+    an explicit 0 drops the record, loudly; ``--no_reload`` ignores the
+    record. Then validates ``--ema_decay`` and ``--occlusion_frac`` before
+    anything is recorded."""
+    from cvnerf_torch.config import resolve_freq_anneal
+    recorded_fa, recorded_ema = _recorded_levers(run_dir)
+    if args.no_reload:
+        if recorded_fa:
+            print(f"freq_anneal: ignoring the run dir's recorded horizon "
+                  f"{recorded_fa} for this fresh (--no_reload) run")
+        if recorded_ema:
+            print(f"ema: ignoring the run dir's recorded decay "
+                  f"{recorded_ema} for this fresh (--no_reload) run")
+        recorded_fa = recorded_ema = None
+    if args.freq_anneal is not None:
+        given = args.freq_anneal
+        args.freq_anneal = resolve_freq_anneal(given, args.iters)
+        if 0 < given < 1:
+            if recorded_fa and args.freq_anneal != recorded_fa:
+                # The fraction states the rule, not a new horizon: moving
+                # it would re-window every existing checkpoint.
+                print(f"freq_anneal: fractional horizon {given} would "
+                      f"resolve to {args.freq_anneal} at --iters "
+                      f"{args.iters}, but this run dir recorded "
+                      f"{recorded_fa} — keeping the recorded horizon "
+                      f"(pass an explicit step count to re-window)")
+                args.freq_anneal = recorded_fa
+            else:
+                print(f"freq_anneal: fractional horizon {given} resolved "
+                      f"to {args.freq_anneal} steps ({args.iters} iters)")
+    if args.freq_anneal is None:
+        args.freq_anneal = recorded_fa or 0
+        if recorded_fa:
+            print(f"freq_anneal: using the run dir's recorded anneal "
+                  f"horizon {recorded_fa} (pass --freq_anneal 0 to "
+                  f"override)")
+    elif args.freq_anneal == 0 and recorded_fa:
+        print(f"WARNING: --freq_anneal 0 drops this run dir's recorded "
+              f"anneal horizon ({recorded_fa}) from scene.json; "
+              f"checkpoints trained mid-anneal will render un-windowed "
+              f"from now on. Re-pass --freq_anneal {recorded_fa} to "
+              f"restore the record.")
+    if args.ema_decay is None:
+        args.ema_decay = recorded_ema or 0.0
+        if recorded_ema:
+            print(f"ema: using the run dir's recorded decay "
+                  f"{recorded_ema} (pass --ema_decay 0 to override)")
+    elif args.ema_decay == 0 and recorded_ema:
+        print(f"WARNING: --ema_decay 0 on a run dir that recorded decay "
+              f"{recorded_ema}: the stored running average is dropped and "
+              f"later checkpoints serve the raw params. Re-pass "
+              f"--ema_decay {recorded_ema} to keep averaging.")
+    if not 0.0 <= args.ema_decay < 1.0:
+        raise SystemExit(f"--ema_decay must be in [0, 1), got "
+                         f"{args.ema_decay}")
+    if args.occlusion_loss > 0 and not 0.0 < args.occlusion_frac < 1.0:
+        raise SystemExit(
+            f"--occlusion_frac must be in (0, 1), got "
+            f"{args.occlusion_frac}: at frac >= 1 the near-window penalty "
+            f"covers the whole ray and becomes the empty-scene objective "
+            f"the distortion regularizer was measured to collapse into")
 
 
 def main(argv=None):
@@ -117,7 +197,8 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
 
     from cvnerf_torch.config import snapshot_config
     from cvnerf_torch.data.datasets import load_scene
-    from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
+    from cvnerf_torch.models.nerf_mlp import (NerfMLPConfig,
+                                              anneal_model_params)
     from cvnerf_torch.ops.fused_mlp import FusedNerfWeights
     from cvnerf_torch.ops.rng import PRNGKey
     from cvnerf_torch.render.frames import (render_image,
@@ -150,19 +231,13 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
     save_dir = os.path.join(args.save_dir, args.name)
     os.makedirs(run_dir, exist_ok=True)
     os.makedirs(save_dir, exist_ok=True)
-    # A fresh (--no_reload) run drops what the run dir recorded; the JAX
-    # CLI's messages, for the levers the port refuses to carry on.
-    for flag, _ in recorded:
-        if flag == "--occ_train":
-            print("[WARN] run dir recorded --occ_train but this fresh "
-                  "(--no_reload) run is plain: dropping the occupancy "
-                  "serving metadata from scene.json")
-        else:
-            what = {"--freq_anneal": "freq_anneal: ignoring the run dir's "
-                                     "recorded horizon",
-                    "--ema_decay": "ema: ignoring the run dir's recorded "
-                                   "decay"}[flag]
-            print(f"{what} for this fresh (--no_reload) run")
+    resolve_levers(args, run_dir)
+    # A fresh (--no_reload) run drops a recorded occupancy mode, which the
+    # port does not carry on; the JAX CLI's message.
+    if recorded:
+        print("[WARN] run dir recorded --occ_train but this fresh "
+              "(--no_reload) run is plain: dropping the occupancy "
+              "serving metadata from scene.json")
     # The values the JAX CLI resolves these to on a plain run, so the two
     # CLIs snapshot the same config.
     if args.occ_train_mode is None:
@@ -171,9 +246,6 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
         args.occ_interp = "nearest"
     if args.occ_floor is None:
         args.occ_floor = 0
-    args.freq_anneal = int(args.freq_anneal or 0)
-    if args.ema_decay is None:
-        args.ema_decay = 0.0
     snapshot_config(args, run_dir)
     ckpt_dir = os.path.join(run_dir, CKPT_SUBDIR)
     if args.steps_per_call != 1 or args.netchunk != 1024 * 64:
@@ -204,11 +276,26 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
         ndc_variant=args.ndc_variant, white_bkg=args.white_bkg,
         n_coarse=args.n_coarse_samples, n_fine=args.n_fine_samples,
         bf16=args.bf16, mlp=mlp, sorted_resample=args.sorted_resample,
-        pallas=args.pallas, calib_poses=scene.poses)
+        pallas=args.pallas, calib_poses=scene.poses,
+        freq_anneal=args.freq_anneal, ema_decay=args.ema_decay)
 
-    state = create_train_state(torch.Generator().manual_seed(args.seed),
-                               lr=args.lr, lr_decay=args.lr_decay, mlp=mlp,
-                               device=dev)
+    # The JAX CLI's nets for the same --seed, bit for bit.
+    state = create_train_state(PRNGKey(args.seed), lr=args.lr,
+                               lr_decay=args.lr_decay, mlp=mlp, device=dev,
+                               ema=args.ema_decay > 0)
+
+    def deploy_params(st) -> dict:
+        """The deployable weights of a state: the Polyak average of an EMA
+        run, else the params. Validation, videos, the test eval and
+        --render_only read them."""
+        return st.ema_params if st.ema_params is not None else st.params
+
+    def render_params(params: dict, step: int) -> dict:
+        """The weights as the loss saw them at ``step``: through the
+        frequency window inside the anneal horizon, else as they are."""
+        if args.freq_anneal > 0 and step < args.freq_anneal:
+            return anneal_model_params(params, mlp, step / args.freq_anneal)
+        return params
 
     def frame_nets(params: dict) -> dict:
         """The nets a render takes: packed once for the forward kernel, or
@@ -364,7 +451,8 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
                 print(f"--render_only on a --track_best run: rendering "
                       f"the best-val model (step {start}); pass "
                       f"--no-track_best for the last checkpoint")
-        nets = frame_nets(state.params)
+        params = render_params(deploy_params(state), start)
+        nets = frame_nets(params)
         if args.int8:
             from cvnerf_torch.ops.fused_mlp_int8 import QuantizedNerfWeights
             from cvnerf_torch.ops.quantize import (quantize_nerf,
@@ -375,7 +463,7 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
                 scene.width, scene.focal, scene.near, scene.far,
                 ndc=scene.ndc, ndc_variant=args.ndc_variant, device=dev)
             qs = {k: quantize_nerf(v, mlp, pts, dirs)
-                  for k, v in state.params.items()}
+                  for k, v in params.items()}
             nets = (qs if rcfg_test.kernels == "off" else
                     {k: QuantizedNerfWeights(q, mlp) for k, q in qs.items()})
             print(f"int8 quantized rendering active "
@@ -404,6 +492,12 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
         lr_decay=args.lr_decay, precrop_iters=args.precrop_iters,
         precrop_frac=args.precrop_frac, ndc=scene.ndc,
         ndc_variant=args.ndc_variant, pixel_sampling=args.pixel_sampling,
+        noise_decay=args.noise_decay, ray_batching=args.ray_batching,
+        freq_anneal=args.freq_anneal, distortion_loss=args.distortion_loss,
+        distortion_start=args.distortion_start,
+        distortion_ramp=args.distortion_ramp,
+        occlusion_loss=args.occlusion_loss,
+        occlusion_frac=args.occlusion_frac, ema_decay=args.ema_decay,
         render=rcfg_train)
     trainer = Trainer(tcfg, state, scene.images, scene.poses,
                       scene.train_idx, seed=args.seed,
@@ -463,14 +557,17 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
 
     @_non_fatal
     def vid_cb(i, tr, m):
-        frames = spiral_video(i, frame_nets(tr.state.params))
+        frames = spiral_video(
+            i, frame_nets(render_params(deploy_params(tr.state), i)))
         logger.log_image(i, "spiral_frame0", frames[0])
 
     @_non_fatal
     def val_cb(i, tr, m):
         if not len(val_views):
             return
-        v, s, rgb = score_views(frame_nets(tr.state.params), val_views, 123)
+        v, s, rgb = score_views(
+            frame_nets(render_params(deploy_params(tr.state), i)), val_views,
+            123)
         logger.log(i, val_psnr=v, val_ssim=s, val_views=len(val_views))
         logger.log_image(i, "val_render", rgb)
         if best_writer is not None and v > best["psnr"]:
@@ -523,8 +620,10 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
     if len(test_views):
         # Held-out test scores on the test views (disjoint from the
         # validation views where the dataset allows).
-        p, s, _ = score_views(frame_nets(trainer.state.params), test_views,
-                              7)
+        step = int(trainer.state.step)
+        p, s, _ = score_views(
+            frame_nets(render_params(deploy_params(trainer.state), step)),
+            test_views, 7)
         logger.log(int(trainer.state.step), test_psnr=p, test_ssim=s,
                    test_views=len(test_views))
         result.update(test_psnr=p, test_ssim=s)
@@ -532,8 +631,10 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
             # Score the deployable (best-val) model too.
             restored = restore_checkpoint(ckpt_dir + "_best", state)
             if restored is not None:
-                pb, sb, _ = score_views(frame_nets(restored.params),
-                                        test_views, 7)
+                pb, sb, _ = score_views(
+                    frame_nets(render_params(deploy_params(restored),
+                                             int(restored.step))),
+                    test_views, 7)
                 logger.log(int(trainer.state.step), test_psnr_best=pb,
                            test_ssim_best=sb,
                            best_step=int(best["step"]),

@@ -4,7 +4,10 @@ of the JAX package's ``eval.py``).
 Scores a run directory's checkpoint (``torch_checkpoints/``, written by
 ``python -m cvnerf_torch.cli`` or exported by ``cvnerf-import --export``)
 against the views of a dataset split, rendered through
-``NerfRenderer.from_run_dir`` on the card (``--device cpu`` for the CPU).
+``NerfRenderer.from_run_dir`` on the card (``--device cpu`` for the CPU):
+the Polyak average of an EMA run, and a raw checkpoint from inside a
+``freq_anneal`` horizon through the training-time window, as the JAX
+eval scores them.
 
 Usage:
     python -m cvnerf_torch.eval --run logs/lego --data_dir data/lego \

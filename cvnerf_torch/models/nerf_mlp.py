@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from cvnerf_torch.ops.encoding import encoding_dim
@@ -54,20 +55,24 @@ def _layer_dims(cfg: NerfMLPConfig) -> list[tuple[str, int, int]]:
     ]
 
 
-def init_nerf_params(generator: torch.Generator,
+def init_nerf_params(key: torch.Tensor,
                      cfg: NerfMLPConfig = NerfMLPConfig(),
                      device: str | torch.device = "cpu") -> dict:
     """One network's params: ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for
-    weight and bias (``nn.Linear``'s default), drawn from ``generator`` on
-    the CPU and then moved to ``device`` so a seed gives the same weights on
-    every device."""
+    weight and bias (``nn.Linear``'s default), drawn from the ``PRNGKey``
+    ``key`` (``ops/rng.py``) on the CPU and then moved to ``device``. The
+    draws are the JAX package's ``init_nerf_params(key)`` bit for bit (a key
+    per weight and per bias, ``jax.random.uniform`` with the bound in
+    float32), so a key gives the same weights on every device."""
+    from cvnerf_torch.ops.rng import split, uniform
+    dims = _layer_dims(cfg)
+    keys = split(key, 2 * len(dims))
     params = {}
-    for name, fan_in, fan_out in _layer_dims(cfg):
-        bound = fan_in ** -0.5
-        w = torch.rand((fan_in, fan_out), generator=generator) * 2 - 1
-        b = torch.rand((fan_out,), generator=generator) * 2 - 1
-        params[name] = {"w": (w * bound).to(device),
-                        "b": (b * bound).to(device)}
+    for i, (name, fan_in, fan_out) in enumerate(dims):
+        bound = float(np.float32(1.0) / np.sqrt(np.float32(fan_in)))
+        w = uniform(keys[2 * i], (fan_in, fan_out), "cpu", -bound, bound)
+        b = uniform(keys[2 * i + 1], (fan_out,), "cpu", -bound, bound)
+        params[name] = {"w": w.to(device), "b": b.to(device)}
     return params
 
 
@@ -90,8 +95,10 @@ def anneal_nerf_params(params: dict, cfg: NerfMLPConfig,
     """Coarse-to-fine frequency annealing as a weight-row transform: scale
     the encoding-facing rows of ``l1``, of ``l6``'s skip part and of
     ``l10``'s dir part. Identical to masking the encodings themselves, so
-    the kernel and the plain version anneal alike."""
-    progress = float(progress)
+    the kernel and the plain version anneal alike. ``progress`` is rounded
+    to float32 first and ``alpha = progress · L`` formed in float32, as
+    the JAX transform forms them."""
+    progress = float(np.float32(progress))
     w1 = params["l1"]["w"]
     mx = encoding_mask(3, cfg.xyz_freqs,
                        progress * cfg.xyz_freqs).to(w1.device, w1.dtype)

@@ -1,5 +1,6 @@
-"""Volume rendering: alpha compositing of raw network outputs along rays
-(port of the JAX package's ``ops/compositing.py::volume_render``)."""
+"""Volume rendering: alpha compositing of raw network outputs along rays,
+and the two weight-space training regularizers (port of the JAX package's
+``ops/compositing.py``)."""
 
 from __future__ import annotations
 
@@ -45,3 +46,40 @@ def volume_render(raw_rgba: torch.Tensor, t_vals: torch.Tensor,
     if white_bkg:
         rgb_map = rgb_map + (1.0 - acc[..., None])
     return {"rgb": rgb_map, "weights": weights, "acc": acc, "depth": depth}
+
+
+def _normalized_depth(t_vals: torch.Tensor, near: torch.Tensor,
+                      far: torch.Tensor) -> torch.Tensor:
+    return (t_vals - near[..., None]) / (far - near)[..., None]
+
+
+def distortion_loss(weights: torch.Tensor, t_vals: torch.Tensor,
+                    near: torch.Tensor, far: torch.Tensor) -> torch.Tensor:
+    """Per-ray mip-NeRF 360 distortion regularizer over normalized depths
+    ``s = (t - near) / (far - near)``::
+
+        L = sum_ij w_i w_j |s_i - s_j| + (1/3) sum_i w_i^2 (s_{i+1} - s_i)
+
+    with the pairwise sum in O(S) through exclusive prefix sums over the
+    ascending samples, ``2 sum_i w_i (s_i W_i - S_i)`` (``W_i``, ``S_i``
+    the sums of ``w_j`` and ``w_j s_j`` over ``j < i``). The terminal
+    sample has no interval. ``weights`` and ``t_vals`` are ``[...,
+    n_samples]``, ``near``/``far`` ``[...]``; returns ``[...]``."""
+    s = _normalized_depth(t_vals, near, far)
+    ws = weights * s
+    w_before = torch.cumsum(weights, dim=-1) - weights
+    ws_before = torch.cumsum(ws, dim=-1) - ws
+    pairwise = 2.0 * torch.sum(ws * w_before - weights * ws_before, dim=-1)
+    delta = s[..., 1:] - s[..., :-1]
+    self_term = torch.sum(weights[..., :-1] ** 2 * delta, dim=-1) / 3.0
+    return pairwise + self_term
+
+
+def occlusion_loss(weights: torch.Tensor, t_vals: torch.Tensor,
+                   near: torch.Tensor, far: torch.Tensor,
+                   frac: float) -> torch.Tensor:
+    """Per-ray FreeNeRF occlusion regularizer: the compositing weight that
+    lies in the first ``frac`` of each ray's normalized depth range
+    (``[...]`` from ``[..., n_samples]``)."""
+    s = _normalized_depth(t_vals, near, far)
+    return torch.sum(weights * (s < frac).to(weights.dtype), dim=-1)

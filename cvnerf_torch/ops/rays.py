@@ -29,6 +29,20 @@ def rays_for_pixels(px_x: torch.Tensor, px_y: torch.Tensor,
     return origins, dirs_world
 
 
+def rays_for_pixels_batched(px_x: torch.Tensor, px_y: torch.Tensor,
+                            width: float, height: float, focal: float,
+                            c2w: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rays_for_pixels` with a camera per ray: ``c2w`` is ``[..., 3,
+    4]`` (or ``[..., 4, 4]``) batched like the pixels (cross-image ray
+    batching). The intrinsics are shared."""
+    dirs_cam = camera_ray_directions(px_x, px_y, width, height, focal)
+    dirs_world = torch.einsum("...k,...jk->...j", dirs_cam,
+                              c2w[..., :3, :3].float())
+    origins = c2w[..., :3, -1].float().expand(dirs_world.shape)
+    return origins, dirs_world
+
+
 def ray_grid(height: int, width: int, focal: float,
              c2w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-image ray grid ``([H, W, 3], [H, W, 3])``, row-major, on

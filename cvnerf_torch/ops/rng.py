@@ -6,7 +6,8 @@ A key is a CPU ``int64`` tensor of its two 32-bit words, exactly the
 the JAX package draws from the same key: the renderer's per-ray jitter,
 resample and noise (``ray_uniform`` / ``ray_sorted_uniform`` /
 ``ray_normal``, keyed by ``(key, tag, global ray id)``), the trainer's pixel
-permutation (``sample_without_replacement``), the key derivations the
+draws (``sample_without_replacement``, and ``permutation`` /
+``choice_without_replacement`` for its ``"parity"`` sampling), the key derivations the
 train step uses (``PRNGKey``, ``fold_in``, ``split``, ``randint``,
 ``bernoulli``) and the int8 calibration's draws (``uniform``, ``randint``,
 ``normal``), as JAX 0.9.0 computes them with
@@ -115,11 +116,15 @@ def uniform(key: torch.Tensor, shape: tuple[int, ...],
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` over ``[minval, maxval)`` in float32: the unit
     floats as ``floats * (maxval - minval) + minval``, held at ``minval``
-    from below, the bounds and their difference in float32."""
+    from below, the bounds and their difference in float32. XLA fuses the
+    multiply-add into one FMA (one rounding); the product and the sum are
+    exact in float64, so forming them there and rounding once is that
+    FMA."""
     floats = _bits_to_unit_float(random_bits(key, shape, device))
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    fma = floats.double() * (hi - lo).double() + lo.double()
+    return torch.maximum(lo, fma.float())
 
 
 _BELOW_ONE = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
@@ -251,3 +256,32 @@ def sample_without_replacement(key: torch.Tensor, n: int, m: int,
             break
         y = torch.where(out, encrypt(y), y)
     return torch.where(y < m, y, base)
+
+
+def permutation(key: torch.Tensor, n: int,
+                device: str | torch.device = "cpu") -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (int64): JAX's ``_shuffle`` of
+    ``arange(n)``, ``ceil(3·ln n / ln(2^32 - 1))`` rounds (1 up to n =
+    1,625, 2 up to about 2.6 M, 3 beyond), each splitting the key, drawing
+    one 32-bit word per element and sorting the elements by their words
+    with a stable sort, so equal words keep their order as in
+    ``lax.sort_key_val``. The words are compared as unsigned (they are held
+    in int64). Runs on ``device``."""
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        words = random_bits(sub, (n,), device)
+        x = x[torch.sort(words, stable=True).indices]
+    return x
+
+
+def choice_without_replacement(key: torch.Tensor, n: int, m: int,
+                               device: str | torch.device = "cpu"
+                               ) -> torch.Tensor:
+    """``jax.random.choice(key, m, (n,), replace=False)``: the first ``n``
+    entries of ``permutation(key, m)`` (int64, on ``device``)."""
+    if n > m:
+        raise ValueError(f"cannot draw {n} distinct values from [0, {m})")
+    return permutation(key, m, device)[:n]

@@ -38,7 +38,7 @@ from cvnerf_torch.ops.sampling import (merge_sorted, sample_pdf,
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Render-time configuration (the JAX ``RenderConfig`` minus the
-    occupancy and training-only fields, which later slices bring)."""
+    occupancy fields, which a later slice brings)."""
     n_coarse: int = 64
     n_fine: int = 128
     perturb: bool = True
@@ -49,6 +49,10 @@ class RenderConfig:
     # spacings, ops/rng.ray_sorted_uniform); False draws iid uniforms and
     # sorts the merged depths (the reference-shaped stream).
     sorted_resample: bool = True
+    # Also return the fine pass's compositing weights and depths
+    # ("weights", "t"), for the training regularizers; off by default, so
+    # the chunked frame path stacks nothing extra.
+    return_weights: bool = False
     mlp: NerfMLPConfig = NerfMLPConfig()
     compute_dtype: torch.dtype = torch.float32
     # MLP execution path: "on" runs the fused CUDA kernel for CUDA tensors
@@ -154,7 +158,9 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
             ``arange``); a chunk or shard passes its rays' global positions.
         noise_scale: multiplier on the density-noise std.
     Returns:
-        ``rgb`` (fine), ``rgb_coarse``, ``acc`` and ``depth`` (fine pass).
+        ``rgb`` (fine), ``rgb_coarse``, ``acc`` and ``depth`` (fine pass);
+        with ``cfg.return_weights`` also the fine pass's ``weights`` and
+        depths ``t``.
     """
     cfg.check_supported()
     if key is None and cfg.needs_key():
@@ -199,8 +205,12 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
                if cfg.noise_std > 0 else None)
     fine = volume_render(raw, t_fine, rays_d, noise_std=cfg.noise_std,
                          white_bkg=cfg.white_bkg, noise=noise_f)
-    return {"rgb": fine["rgb"], "rgb_coarse": coarse["rgb"],
-            "acc": fine["acc"], "depth": fine["depth"]}
+    out = {"rgb": fine["rgb"], "rgb_coarse": coarse["rgb"],
+           "acc": fine["acc"], "depth": fine["depth"]}
+    if cfg.return_weights:
+        out["weights"] = fine["weights"]
+        out["t"] = t_fine
+    return out
 
 
 @torch.no_grad()

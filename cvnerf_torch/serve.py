@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from cvnerf_torch import resolve_device
-from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
+from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, anneal_model_params
 from cvnerf_torch.ops.fused_mlp import FusedNerfWeights
 from cvnerf_torch.ops.fused_mlp_int8 import QuantizedNerfWeights
 from cvnerf_torch.ops.quantize import (calibration_samples, quantize_nerf,
@@ -48,7 +48,6 @@ from cvnerf_torch.utils.convert import load_torch_checkpoint
 SCENE_SNAPSHOT = "scene.json"
 CKPT_SUBDIR = "torch_checkpoints"
 OCCUPANCY_ITEM = "ROADMAP Queue 1 item 10 (occupancy serving)"
-ANNEAL_ITEM = "ROADMAP Queue 1 item 9 (flag-gated training levers)"
 
 
 def latest_checkpoint(ckpt_dir: str, step: int | None = None) -> str | None:
@@ -79,11 +78,12 @@ def write_scene_snapshot(run_dir: str, *, height: int, width: int,
                          mlp: NerfMLPConfig,
                          sorted_resample: bool = True,
                          pallas: str = "auto",
-                         calib_poses=None) -> str:
+                         calib_poses=None,
+                         freq_anneal: int = 0,
+                         ema_decay: float = 0.0) -> str:
     """Persist everything a renderer needs to serve this run's checkpoints:
-    the JAX package's ``write_scene_snapshot`` of a run without the
-    training levers the port does not carry yet (the same keys and
-    values).
+    the JAX package's ``write_scene_snapshot`` of a run without occupancy
+    training (the same keys and values).
 
     ``config_resolved.json`` records the raw flags; this records the
     *derived* values (near/far/H/W/focal come out of the data loader, not
@@ -94,6 +94,10 @@ def write_scene_snapshot(run_dir: str, *, height: int, width: int,
     poses). Up to 64 are stored (evenly subsampled) so post-training
     transforms that need the query distribution — int8 calibration — can
     sample real rays instead of guessing a bounding cube.
+
+    ``ema_decay`` (an EMA run) is recorded so a resume keeps averaging;
+    ``freq_anneal`` so a checkpoint from inside the anneal horizon is
+    served through the training-time frequency window.
     """
     os.makedirs(run_dir, exist_ok=True)
     path = os.path.join(run_dir, SCENE_SNAPSHOT)
@@ -105,6 +109,10 @@ def write_scene_snapshot(run_dir: str, *, height: int, width: int,
         "sorted_resample": bool(sorted_resample), "pallas": pallas,
         "mlp": dataclasses.asdict(mlp),
     }
+    if ema_decay > 0:
+        payload["ema_decay"] = float(ema_decay)
+    if freq_anneal > 0:
+        payload["freq_anneal"] = int(freq_anneal)
     if calib_poses is not None:
         cp = np.asarray(calib_poses, np.float32)[:, :3, :4]
         if len(cp) > 64:
@@ -116,7 +124,11 @@ def write_scene_snapshot(run_dir: str, *, height: int, width: int,
 
 
 class NerfRenderer:
-    """A checkpoint loaded for repeated novel-view rendering on one device."""
+    """A checkpoint loaded for repeated novel-view rendering on one device:
+    the Polyak average of an EMA run, else the params. ``anneal`` applies
+    the ``freq_anneal`` window at that progress to the weights, in
+    float32, before they are packed (``from_run_dir`` passes it for a raw
+    mid-anneal checkpoint)."""
 
     which: str = "last"
 
@@ -130,7 +142,8 @@ class NerfRenderer:
                  chunk: int = 8192,
                  seed: int = 0,
                  deterministic: bool = True,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 anneal: float | None = None):
         self.device = resolve_device(device)
         if cfg is None:
             cfg = RenderConfig(mlp=mlp if mlp is not None
@@ -153,6 +166,10 @@ class NerfRenderer:
             raise ValueError(f"{ckpt_path} holds architecture {found}, the "
                              f"render config expects {self.cfg.mlp}")
         self.step = 0 if step is None else step
+        if anneal is not None:
+            # A raw checkpoint from inside a freq_anneal horizon: its
+            # weights were only ever trained through this window.
+            params = anneal_model_params(params, self.cfg.mlp, anneal)
         self.params = {k: {n: {p: t.to(self.device) for p, t in layer.items()}
                            for n, layer in net.items()}
                        for k, net in params.items()}
@@ -182,14 +199,14 @@ class NerfRenderer:
         ``which="auto"`` serves ``torch_checkpoints_best/`` when the run has
         one, ``"best"`` requires it and ``"last"`` ignores it. ``step``
         picks that step's checkpoint (under ``which="auto"``, from
-        ``torch_checkpoints/``, as the JAX package picks it). A checkpoint
-        from inside a ``freq_anneal`` horizon is served as exported when it
-        carries no ``raw_params`` marker: ``cvnerf-import --export`` writes
-        it with the training-time frequency window applied. A raw one (the
-        port's own trainer writes ``"raw_params": True``) would need that
-        window applied here, and raises until the port carries
-        ``freq_anneal``. An ``occ_train`` snapshot raises (occupancy serving
-        comes in a later slice).
+        ``torch_checkpoints/``, as the JAX package picks it). An EMA run
+        serves its average. A raw checkpoint (the port's trainer writes
+        ``"raw_params": True``) from inside the run's ``freq_anneal``
+        horizon is served through the training-time frequency window at
+        ``step / freq_anneal``, as the JAX package serves its own; one
+        with no such marker is served as exported, since ``cvnerf-import
+        --export`` writes it with the window applied. An ``occ_train``
+        snapshot raises (occupancy serving comes in a later slice).
         """
         path = os.path.join(run_dir, SCENE_SNAPSHOT)
         try:
@@ -228,30 +245,29 @@ class NerfRenderer:
                 f"one with `cvnerf-import --export {run_dir}/checkpoints "
                 f"{run_dir}/{CKPT_SUBDIR}/<step>.pt`")
         fa = int(geo.get("freq_anneal", 0) or 0)
+        anneal = None
         if fa > 0:
             blob = torch.load(ckpt, map_location="cpu", weights_only=True)
             raw = isinstance(blob, dict) and bool(blob.get("raw_params"))
-            step = int(blob.get("step") or 0) if isinstance(blob, dict) else 0
-            if raw and step < fa:
-                raise NotImplementedError(
-                    f"{ckpt} holds raw weights from inside the run's "
-                    f"freq_anneal horizon (step {step} < {fa}), which must "
-                    f"be served through the training-time frequency window: "
-                    f"{ANNEAL_ITEM}")
+            at = int(blob.get("step") or 0) if isinstance(blob, dict) else 0
+            if raw and at < fa:
+                anneal = at / fa
         r = cls(ckpt, height=geo["height"], width=geo["width"],
                 focal=geo["focal"], near=geo["near"], far=geo["far"],
                 ndc=geo["ndc"], ndc_variant=geo["ndc_variant"], cfg=cfg,
                 chunk=chunk, seed=seed, deterministic=deterministic,
-                device=device)
+                device=device, anneal=anneal)
         r.which = "best" if use_best else "last"
         if geo.get("calib_poses"):
             r.calib_poses = np.asarray(geo["calib_poses"], np.float32)
-        if fa > 0 and r.step < fa:
-            # The JAX package serves its raw orbax weights through the
-            # training-time window; its exporter has already applied that
-            # same window to the .pt (it reads this scene.json), so the
-            # weights are served as they are — a second window would square
-            # the partly open band.
+        if anneal is not None:
+            print(f"serving a mid-anneal checkpoint (step {r.step} < "
+                  f"freq_anneal {fa}): applying the training-time "
+                  f"frequency window")
+        elif fa > 0 and r.step < fa:
+            # The exporter has already applied the window to the .pt (it
+            # reads this scene.json): a second window would square the
+            # partly open band.
             print(f"serving a mid-anneal checkpoint (step {r.step} < "
                   f"freq_anneal {fa}): its exported weights already carry "
                   f"the training-time frequency window")

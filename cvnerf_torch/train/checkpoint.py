@@ -8,7 +8,10 @@ A checkpoint is one plain-tensor file ``<dir>/<step:06d>.pt``::
                    "nu": {"coarse": sd, "fine": sd}},
      "raw_params": True}
 
-The state dicts are reference-``Model`` ``nn.Linear`` layouts
+and, for a state with the EMA slot, ``"ema_params": {"coarse": sd,
+"fine": sd}``, the Polyak average (the deployable weights, which
+``restore_params`` and serving prefer). The state dicts are
+reference-``Model`` ``nn.Linear`` layouts
 (``utils/convert.py::torch_state_dict_from_params``), the Adam moments in
 the same layout, so ``torch.load(weights_only=True)`` reads the file and
 ``load_torch_checkpoint`` and ``NerfRenderer`` serve it as they serve an
@@ -24,7 +27,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 
 import torch
 
-from cvnerf_torch.train.state import AdamState, TrainState, tree_leaves
+from cvnerf_torch.train.state import (AdamState, TrainState, clone_tree,
+                                      tree_leaves)
 from cvnerf_torch.utils.convert import (load_torch_checkpoint,
                                         params_from_torch_state_dict,
                                         torch_state_dict_from_params)
@@ -56,10 +60,13 @@ def _payload(state: TrainState) -> dict:
         return {net: torch_state_dict_from_params(p)
                 for net, p in tree.items()}
     opt = state.opt_state
-    return {**sds(state.params), "step": int(state.step),
-            "opt_state": {"count": int(opt.count), "mu": sds(opt.mu),
-                          "nu": sds(opt.nu)},
-            "raw_params": True}
+    out = {**sds(state.params), "step": int(state.step),
+           "opt_state": {"count": int(opt.count), "mu": sds(opt.mu),
+                         "nu": sds(opt.nu)},
+           "raw_params": True}
+    if state.ema_params is not None:
+        out["ema_params"] = sds(state.ema_params)
+    return out
 
 
 class Checkpointer:
@@ -154,15 +161,17 @@ def _find(ckpt_dir: str, step: int | None) -> str | None:
     return path
 
 
-def restore_params(ckpt_dir: str,
-                   step: int | None = None) -> tuple[dict, int]:
+def restore_params(ckpt_dir: str, step: int | None = None,
+                   prefer_ema: bool = True) -> tuple[dict, int]:
     """Template-free restore of the params (on the CPU) and their step,
-    from a checkpoint of this module or a params-only exported one.
-    Raises FileNotFoundError when the directory holds no checkpoint."""
+    from a checkpoint of this module or a params-only exported one: the
+    Polyak average of an EMA run unless ``prefer_ema=False``, which reads
+    the raw last iterate. Raises FileNotFoundError when the directory
+    holds no checkpoint."""
     path = _find(ckpt_dir, step)
     if path is None:
         raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}")
-    params, _, found = load_torch_checkpoint(path)
+    params, _, found = load_torch_checkpoint(path, prefer_ema=prefer_ema)
     return params, int(found or 0)
 
 
@@ -170,7 +179,12 @@ def restore_checkpoint(ckpt_dir: str, template: TrainState,
                        step: int | None = None) -> TrainState | None:
     """Restore the latest (or given) step as a ``TrainState`` on the
     device of ``template``'s params, bitwise the saved state; None if the
-    directory holds no checkpoint. The template's shapes must match."""
+    directory holds no checkpoint. The template's shapes must match.
+
+    The template decides the EMA slot: a template with one restores the
+    stored average, or, from a checkpoint without one, starts it as a copy
+    of the restored params (the fresh-state warm start); a template
+    without one drops a stored average, with a warning."""
     path = _find(ckpt_dir, step)
     if path is None:
         return None
@@ -200,9 +214,20 @@ def restore_checkpoint(ckpt_dir: str, template: TrainState,
         return out
 
     opt = blob["opt_state"]
+    params = nets({k: blob[k] for k in template.params}, "params")
+    stored = blob.get("ema_params")
+    ema = None
+    if template.ema_params is not None:
+        ema = (nets(stored, "ema_params") if stored is not None
+               else clone_tree(params))
+    elif stored is not None:
+        print(f"[WARN] checkpoint at step {int(blob['step'])} carries an "
+              f"EMA average but this invocation disables --ema_decay: "
+              f"dropping it — later checkpoints will serve the raw "
+              f"params", flush=True)
     return TrainState(
-        params=nets({k: blob[k] for k in template.params}, "params"),
+        params=params,
         opt_state=AdamState(count=int(opt["count"]),
                             mu=nets(opt["mu"], "mu"),
                             nu=nets(opt["nu"], "nu")),
-        step=int(blob["step"]))
+        step=int(blob["step"]), ema_params=ema)

@@ -1,20 +1,33 @@
-"""The train step and the host-side training loop (port of the plain
-branch of the JAX package's ``train/loop.py``).
+"""The train step and the host-side training loop (port of the JAX
+package's ``train/loop.py``, single device, without occupancy training).
 
 One step, as the JAX step computes it: split the step key into image,
 pixel and render keys; draw one training image (``randint``) and
 ``n_rays`` of its pixels without replacement (a keyed Feistel permutation,
-or with replacement), with the centre crop during the precrop warm-up;
-build those pixels' rays; render them (coarse and fine MLP through the
-fused kernels and their backward); loss MSE(fine) + MSE(coarse); backward;
-Adam. The random draws are the JAX package's bit for bit (``ops/rng.py``),
-so a step from the same state and key matches the JAX step.
+a uniform random permutation for ``"parity"``, or with replacement), with
+the centre crop during the precrop warm-up, or under ``ray_batching``
+``n_rays`` (image, pixel) pairs over the whole train split; build those
+pixels' rays; render them (coarse and fine MLP through the fused kernels
+and their backward); loss MSE(fine) + MSE(coarse), plus the distortion and
+occlusion regularizers when they are on; backward; Adam; the Polyak
+average when ``ema_decay`` is on. The random draws are the JAX package's
+bit for bit (``ops/rng.py``), so a step from the same state and key
+matches the JAX step.
 
-The step runs eagerly: the pixel permutation is drawn on the host and
-copied to the card without waiting for it; the render and the backward are
-the device's work. Options of the JAX trainer that this slice does not
-carry raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+The levers of the JAX trainer, each off by default: ``noise_decay`` (the
+density noise scaled by ``clip(1 - step/noise_decay, 0, 1)``),
+``freq_anneal`` (the encoding bands opened by ``clip(step/freq_anneal, 0,
+1)``, applied to the weights inside the loss, so a closed band's gradient
+is exactly 0), ``distortion_loss`` with its delay and ramp,
+``occlusion_loss``, ``ema_decay``, ``ray_batching`` and
+``pixel_sampling="parity"``. Every schedule is formed in float32 from the
+step, as the JAX step forms it.
+
+The step runs eagerly: the Feistel pixel draw runs on the host and is
+copied to the card without waiting for it, the parity draw (a sort over
+the whole grid) runs on the card; the render and the backward are the
+device's work. Data parallelism raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -23,20 +36,26 @@ import dataclasses
 import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
-from cvnerf_torch.ops.rays import ndc_rays, rays_for_pixels
-from cvnerf_torch.ops.rng import (PRNGKey, fold_in, randint,
+from cvnerf_torch.models.nerf_mlp import anneal_model_params
+from cvnerf_torch.ops.compositing import distortion_loss, occlusion_loss
+from cvnerf_torch.ops.rays import (ndc_rays, rays_for_pixels,
+                                   rays_for_pixels_batched)
+from cvnerf_torch.ops.rng import (PRNGKey, choice_without_replacement,
+                                  fold_in, randint,
                                   sample_without_replacement, split)
 from cvnerf_torch.render.renderer import RenderConfig, render_rays
-from cvnerf_torch.train.state import TrainState, make_optimizer, tree_leaves
+from cvnerf_torch.train.state import (TrainState, ema_update, make_optimizer,
+                                      tree_leaves)
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training configuration: the JAX ``TrainConfig``'s fields and
-    defaults (see its notes). The fields after ``pixel_sampling`` are
-    flag-gated levers that this slice refuses unless they are off."""
+    defaults (see its notes). ``fused_allreduce`` belongs to data
+    parallelism, which this port does not carry yet."""
     height: int
     width: int
     focal: float
@@ -49,7 +68,7 @@ class TrainConfig:
     precrop_frac: float = 0.5
     ndc: bool = False
     ndc_variant: str = "canonical"
-    pixel_sampling: str = "prp"   # "prp" | "replace" ("parity": not yet)
+    pixel_sampling: str = "prp"   # "prp" | "parity" | "replace"
     noise_decay: int = 0
     freq_anneal: int = 0
     distortion_loss: float = 0.0
@@ -63,32 +82,28 @@ class TrainConfig:
     render: RenderConfig = RenderConfig()
 
 
-LEVERS_ITEM = "ROADMAP Queue 1 item 9 (flag-gated training levers)"
 MESH_ITEM = "ROADMAP Queue 1 item 11 (data parallelism)"
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise for options this slice does not carry, and for the JAX step's
-    invalid configurations."""
-    unported = [(name, item) for name, on, item in (
-        ("pixel_sampling='parity'", cfg.pixel_sampling == "parity",
-         LEVERS_ITEM),
-        ("ray_batching", cfg.ray_batching, LEVERS_ITEM),
-        ("ema_decay", cfg.ema_decay > 0, LEVERS_ITEM),
-        ("noise_decay", cfg.noise_decay > 0, LEVERS_ITEM),
-        ("freq_anneal", cfg.freq_anneal > 0, LEVERS_ITEM),
-        ("distortion_loss", cfg.distortion_loss > 0, LEVERS_ITEM),
-        ("occlusion_loss", cfg.occlusion_loss > 0, LEVERS_ITEM),
-        ("fused_allreduce", cfg.fused_allreduce, MESH_ITEM)) if on]
-    if unported:
+    """Raise for what this port does not carry (``fused_allreduce``) and
+    for the JAX step's invalid configurations."""
+    if cfg.fused_allreduce:
         raise NotImplementedError(
-            "not ported yet: " + "; ".join(f"{n} ({i})" for n, i in unported))
-    if cfg.pixel_sampling not in ("prp", "replace"):
+            f"not ported yet: fused_allreduce ({MESH_ITEM})")
+    if cfg.pixel_sampling not in ("prp", "parity", "replace"):
         raise ValueError(f"bad pixel_sampling: {cfg.pixel_sampling!r}")
-    if cfg.n_rays > cfg.height * cfg.width:
+    if cfg.n_rays > cfg.height * cfg.width and not cfg.ray_batching:
         raise ValueError(
             f"n_rays={cfg.n_rays} exceeds the {cfg.height}x{cfg.width} "
-            "pixel grid (sampling is without replacement)")
+            "pixel grid (sampling is without replacement; --ray_batching "
+            "samples over the whole train split instead)")
+    if cfg.ray_batching and cfg.pixel_sampling != "prp":
+        raise ValueError(
+            "ray_batching draws the joint (image, pixel) sample with the "
+            "Feistel PRP only — pixel_sampling="
+            f"{cfg.pixel_sampling!r} is not implemented over the "
+            "cross-image pool")
     if cfg.precrop_iters > 0:
         crop = (2 * int(cfg.height // 2 * cfg.precrop_frac)
                 * 2 * int(cfg.width // 2 * cfg.precrop_frac))
@@ -98,10 +113,12 @@ def check_supported(cfg: TrainConfig) -> None:
                 f"pixels (precrop_frac={cfg.precrop_frac})")
 
 
-def _sample_pixels(key: torch.Tensor, cfg: TrainConfig,
-                   precrop: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """``n_rays`` (py, px) pixel coordinates (int64, on the CPU): the
-    centre-crop grid during warm-up, then the whole image."""
+def _sample_pixels(key: torch.Tensor, cfg: TrainConfig, precrop: bool,
+                   device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``n_rays`` (py, px) pixel coordinates (int64, on ``device``): the
+    centre-crop grid during warm-up, then the whole image. The Feistel and
+    with-replacement draws run on the host, the parity permutation on
+    ``device``."""
     h, w = cfg.height, cfg.width
     if precrop:
         dh = int(h // 2 * cfg.precrop_frac)
@@ -111,10 +128,14 @@ def _sample_pixels(key: torch.Tensor, cfg: TrainConfig,
     else:
         y0 = x0 = 0
         gh, gw = h, w
-    if cfg.pixel_sampling == "prp":
-        flat = sample_without_replacement(key, cfg.n_rays, gh * gw)
+    if cfg.pixel_sampling == "parity":
+        flat = choice_without_replacement(key, cfg.n_rays, gh * gw, device)
     else:
-        flat = randint(key, (cfg.n_rays,), 0, gh * gw).to(torch.int64)
+        if cfg.pixel_sampling == "prp":
+            flat = sample_without_replacement(key, cfg.n_rays, gh * gw)
+        else:
+            flat = randint(key, (cfg.n_rays,), 0, gh * gw).to(torch.int64)
+        flat = _to(flat, device)
     return y0 + flat // gw, x0 + flat % gw
 
 
@@ -131,42 +152,108 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(x * x) for x in tree_leaves(tree)))
 
 
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def schedules(cfg: TrainConfig, step: int) -> tuple[float, float, float]:
+    """``(noise_scale, anneal, dist_scale)`` at ``step``, each formed in
+    float32 as the JAX step forms it: ``clip(1 - step/noise_decay, 0, 1)``,
+    ``clip(step/freq_anneal, 0, 1)`` and ``clip((step - start) / max(ramp,
+    1), 0, 1)``; 1.0 where the lever is off."""
+    t = np.float32(step)
+    one, zero = np.float32(1.0), np.float32(0.0)
+    noise = one
+    if cfg.noise_decay > 0:
+        noise = np.clip(one - t / np.float32(cfg.noise_decay), zero, one)
+    anneal = one
+    if cfg.freq_anneal > 0:
+        anneal = np.clip(t / np.float32(cfg.freq_anneal), zero, one)
+    dist = one
+    if cfg.distortion_start > 0 or cfg.distortion_ramp > 0:
+        dist = np.clip((t - np.float32(cfg.distortion_start))
+                       / np.float32(max(cfg.distortion_ramp, 1)), zero, one)
+    return float(noise), float(anneal), float(dist)
+
+
 def make_train_step(cfg: TrainConfig, mesh=None) -> Callable:
     """``step_fn(state, key, images, poses, train_idx, precrop) ->
     (new_state, metrics)``: the JAX ``make_train_step(cfg, mesh=None)``.
-    ``images [N, H, W, 3]``, ``poses [N, 3, 4]`` and ``train_idx`` (int64)
-    lie on the params' device; the metrics are 0-d tensors there."""
+    ``images [N, H, W, 3]`` and ``poses [N, 3, 4]`` lie on the params'
+    device, ``train_idx`` (int64) on any; the metrics are 0-d tensors on
+    the params' device."""
     if mesh is not None:
         raise NotImplementedError(f"device meshes: {MESH_ITEM}")
     check_supported(cfg)
     opt = make_optimizer(cfg.lr, cfg.lr_decay)
     rcfg = cfg.render
+    if cfg.distortion_loss > 0.0 or cfg.occlusion_loss > 0.0:
+        # The regularizers read the fine pass's weights and depths.
+        rcfg = dataclasses.replace(rcfg, return_weights=True)
+
+    def pick_rays(key, images, poses, train_idx, precrop):
+        """The step's rays and their target colours."""
+        k_img, k_pix = key
+        dev = images.device
+        if cfg.ray_batching and not precrop:
+            # n_rays (image, pixel) pairs over the whole train split, one
+            # Feistel draw over n_train·H·W.
+            h, w = cfg.height, cfg.width
+            flat = _to(sample_without_replacement(
+                k_pix, cfg.n_rays, train_idx.shape[0] * h * w), dev)
+            im_idx = train_idx.to(dev)[flat // (h * w)]
+            pix = flat % (h * w)
+            py, px = pix // w, pix % w
+            target = images[im_idx, py, px]
+            rays_o, rays_d = rays_for_pixels_batched(
+                px, py, w, h, cfg.focal, poses[im_idx])
+            return rays_o, rays_d, target
+        j = int(randint(k_img, (), 0, train_idx.shape[0]))
+        im = int(train_idx[j])
+        py, px = _sample_pixels(k_pix, cfg, precrop, dev)
+        target = images[im][py, px]
+        rays_o, rays_d = rays_for_pixels(px, py, cfg.width, cfg.height,
+                                         cfg.focal, poses[im])
+        return rays_o, rays_d, target
 
     def step_fn(state: TrainState, key: torch.Tensor, images: torch.Tensor,
                 poses: torch.Tensor, train_idx: torch.Tensor, precrop: bool):
         k_img, k_pix, k_render = split(key, 3)
         dev = images.device
-        j = int(randint(k_img, (), 0, train_idx.shape[0]))
-        im = int(train_idx[j])
-        py, px = _sample_pixels(k_pix, cfg, precrop)
-        py, px = _to(py, dev), _to(px, dev)
-        target = images[im][py, px]
-        rays_o, rays_d = rays_for_pixels(px, py, cfg.width, cfg.height,
-                                         cfg.focal, poses[im])
+        rays_o, rays_d, target = pick_rays((k_img, k_pix), images, poses,
+                                           train_idx, precrop)
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         if cfg.ndc:
             rays_o, rays_d = ndc_rays(cfg.height, cfg.width, cfg.focal, 1.0,
                                       rays_o, rays_d, variant=cfg.ndc_variant)
-        ray_ids = torch.arange(cfg.n_rays, dtype=torch.int64, device=dev)
+        n = cfg.n_rays
+        ray_ids = torch.arange(n, dtype=torch.int64, device=dev)
+        near = torch.full((n,), cfg.near, dtype=torch.float32, device=dev)
+        far = torch.full((n,), cfg.far, dtype=torch.float32, device=dev)
+        noise_scale, anneal, dist_scale = schedules(cfg, state.step)
         params = {net: {name: {p: t.detach().requires_grad_()
                                for p, t in layer.items()}
                         for name, layer in tree.items()}
                   for net, tree in state.params.items()}
-        out = render_rays(params, rays_o, rays_d, viewdirs, cfg.near,
-                          cfg.far, rcfg, key=k_render, ray_ids=ray_ids,
-                          noise_scale=1.0)
+        # The anneal transforms the weights inside the loss, so autograd
+        # gives grad(raw) = window · grad(windowed): a closed band's
+        # gradient is exactly 0.
+        used = (anneal_model_params(params, rcfg.mlp, anneal)
+                if cfg.freq_anneal > 0 else params)
+        out = render_rays(used, rays_o, rays_d, viewdirs, near, far, rcfg,
+                          key=k_render, ray_ids=ray_ids,
+                          noise_scale=noise_scale)
         mse_fine = torch.mean((out["rgb"] - target) ** 2)
         loss = mse_fine + torch.mean((out["rgb_coarse"] - target) ** 2)
+        if cfg.distortion_loss > 0.0:
+            coef = _f32(np.float32(cfg.distortion_loss)
+                        * np.float32(dist_scale))
+            loss = loss + coef * torch.mean(
+                distortion_loss(out["weights"], out["t"], near, far))
+        if cfg.occlusion_loss > 0.0:
+            loss = loss + _f32(cfg.occlusion_loss) * torch.mean(
+                occlusion_loss(out["weights"], out["t"], near, far,
+                               _f32(cfg.occlusion_frac)))
         leaves = tree_leaves(params)
         flat = torch.autograd.grad(loss, leaves)
         it = iter(flat)
@@ -174,11 +261,14 @@ def make_train_step(cfg: TrainConfig, mesh=None) -> Callable:
                        for name, layer in tree.items()}
                  for net, tree in params.items()}
         new_params, opt_state = opt.update(grads, state.opt_state, params)
+        ema = state.ema_params
+        if cfg.ema_decay > 0.0:
+            ema = ema_update(ema, new_params, cfg.ema_decay)
         metrics = {"loss": loss.detach(), "mse_fine": mse_fine.detach(),
                    "psnr": -10.0 * torch.log10(mse_fine.detach()),
                    "grad_norm": global_norm(grads)}
         return TrainState(params=new_params, opt_state=opt_state,
-                          step=state.step + 1), metrics
+                          step=state.step + 1, ema_params=ema), metrics
 
     return step_fn
 
@@ -194,6 +284,29 @@ class Trainer:
                  train_idx, seed: int = 0, mesh=None, steps_per_call: int = 1):
         if mesh is not None:
             raise NotImplementedError(f"device meshes: {MESH_ITEM}")
+        if not 0.0 <= cfg.ema_decay < 1.0:
+            raise ValueError(f"ema_decay must be in [0, 1), got "
+                             f"{cfg.ema_decay}")
+        if cfg.ema_decay > 0.0 and state.ema_params is None:
+            raise ValueError("ema_decay > 0 needs a state with the EMA "
+                             "slot — create_train_state(ema=True)")
+        if cfg.ema_decay == 0.0 and state.ema_params is not None:
+            # Silent otherwise: the step would carry the stale average
+            # along, checkpoints would keep it and serving prefers it.
+            raise ValueError("state carries an EMA average but "
+                             "TrainConfig.ema_decay is 0 — the average "
+                             "would freeze silently")
+        if cfg.occlusion_loss > 0.0 and not 0.0 < cfg.occlusion_frac < 1.0:
+            # At frac >= 1 the window is the whole ray: the empty-scene
+            # objective.
+            raise ValueError(f"occlusion_frac must be in (0, 1), got "
+                             f"{cfg.occlusion_frac}")
+        if cfg.ray_batching:
+            pool = len(np.asarray(train_idx)) * cfg.height * cfg.width
+            if cfg.n_rays > pool:
+                raise ValueError(
+                    f"n_rays={cfg.n_rays} exceeds the ray-batching pool of "
+                    f"{pool} pixels across the train split")
         self.cfg = cfg
         self.state = state
         self.step_fn = make_train_step(cfg)

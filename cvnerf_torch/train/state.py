@@ -7,16 +7,20 @@ float32: ``k`` is the update count, 0 at the first update; the moments are
 ``(1 - b) · g^p + b · m``, bias-corrected by ``1 - b^(k+1)``; the update is
 ``-lr(k) · m̂ / (sqrt(v̂) + eps)`` (eps outside the root). The optimizer
 returns new tensors and leaves its inputs as they were, like the JAX one.
+An EMA run (``--ema_decay``) also carries the Polyak average of the params
+(``ema_update``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from cvnerf_torch import resolve_device
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
+from cvnerf_torch.ops.rng import split
 
 
 @dataclasses.dataclass
@@ -29,10 +33,13 @@ class AdamState:
 
 @dataclasses.dataclass
 class TrainState:
-    """Everything that changes during training."""
+    """Everything that changes during training. ``ema_params`` is the
+    Polyak average of the params (``--ema_decay``), the deployable weights
+    of an EMA run; None when EMA is off."""
     params: dict      # {"coarse": net, "fine": net}
     opt_state: AdamState
     step: int
+    ema_params: dict | None = None
 
 
 def _tree_map(fn, *trees):
@@ -108,15 +115,36 @@ def make_optimizer(lr: float, lr_decay: int) -> Adam:
     return Adam(lr=lr, lr_decay=lr_decay)
 
 
-def create_train_state(generator: torch.Generator, lr: float = 5e-4,
+def clone_tree(tree: dict) -> dict:
+    """A copy of a nested dict of tensors, no tensor shared."""
+    return _tree_map(lambda t: t.detach().clone(), tree)
+
+
+def ema_update(ema: dict, params: dict, decay: float) -> dict:
+    """The Polyak average after one update, ``e·d + p·(1 - d)`` over
+    every leaf with ``d`` and ``1 - d`` in float32 (the JAX step's order of
+    operations), in three multi-tensor launches."""
+    d = np.float32(decay)
+    e, p = tree_leaves(ema), [t.detach() for t in tree_leaves(params)]
+    new = iter(torch._foreach_add(torch._foreach_mul(e, float(d)),
+                                  torch._foreach_mul(p, float(1 - d))))
+    return _tree_map(lambda _: next(new), ema)
+
+
+def create_train_state(key: torch.Tensor, lr: float = 5e-4,
                        lr_decay: int = 250,
                        mlp: NerfMLPConfig = NerfMLPConfig(),
-                       device: str | torch.device = "cuda") -> TrainState:
-    """Fresh coarse+fine networks (drawn from ``generator`` on the CPU,
-    coarse first) and a zeroed Adam state, on ``device``."""
+                       device: str | torch.device = "cuda",
+                       ema: bool = False) -> TrainState:
+    """Fresh coarse+fine networks and a zeroed Adam state, on ``device``.
+    The nets are the JAX package's ``create_train_state(key)`` nets bit for
+    bit: the ``PRNGKey`` ``key`` is split into a coarse and a fine key.
+    ``ema=True`` allocates the Polyak-average slot as a copy of the fresh
+    params (pair it with ``TrainConfig.ema_decay > 0``)."""
     dev = resolve_device(device)
-    params = {"coarse": init_nerf_params(generator, mlp, dev),
-              "fine": init_nerf_params(generator, mlp, dev)}
+    kc, kf = split(key)
+    params = {"coarse": init_nerf_params(kc, mlp, dev),
+              "fine": init_nerf_params(kf, mlp, dev)}
     return TrainState(params=params,
                       opt_state=make_optimizer(lr, lr_decay).init(params),
-                      step=0)
+                      step=0, ema_params=clone_tree(params) if ema else None)

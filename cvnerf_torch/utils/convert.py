@@ -85,12 +85,15 @@ def params_from_torch_state_dict(sd: dict) -> tuple[dict, NerfMLPConfig]:
     return params, cfg
 
 
-def load_torch_checkpoint(path: str) -> tuple[dict, NerfMLPConfig, int | None]:
+def load_torch_checkpoint(path: str, prefer_ema: bool = True
+                          ) -> tuple[dict, NerfMLPConfig, int | None]:
     """A ``.pt`` file → ``({"coarse": ..., "fine": ...}, cfg, step)``.
 
     Loads with ``weights_only=True``: only plain tensors, no pickled code.
     ``step`` is the file's ``"step"`` entry, or None when it has none. A
-    single-net checkpoint serves as both nets.
+    single-net checkpoint serves as both nets. A checkpoint of an EMA run
+    (the port's trainer stores the Polyak average under ``"ema_params"``)
+    gives the average, its deployable model, unless ``prefer_ema=False``.
     """
     try:
         blob = torch.load(path, map_location="cpu", weights_only=True)
@@ -98,6 +101,9 @@ def load_torch_checkpoint(path: str) -> tuple[dict, NerfMLPConfig, int | None]:
         raise ValueError(
             f"{path} is not a plain-tensor checkpoint (weights_only load "
             f"failed: {e})") from e
+    if prefer_ema and isinstance(blob, dict) and \
+            isinstance(blob.get("ema_params"), dict):
+        blob = {**blob["ema_params"], "step": blob.get("step")}
     coarse = fine = None
     if isinstance(blob, dict):
         for ck, fk in _NET_KEY_PAIRS:
@@ -165,12 +171,14 @@ def quantized_params_from_jax(qp, device: str | torch.device = "cpu"
 def train_state_from_jax(state, device: str | torch.device = "cpu"):
     """A JAX package ``TrainState`` (arrays or numpy) → the port's
     ``TrainState`` on ``device``: params, the Adam moments ``mu``/``nu``
-    and count of its ``optax.adam`` state, and the step. Lets both
+    and count of its ``optax.adam`` state, the step and the EMA slot. Lets both
     frameworks continue from one mid-run state."""
     adam = state.opt_state[0]
+    ema = getattr(state, "ema_params", None)
     return TrainState(
         params=params_from_jax(state.params, device),
         opt_state=AdamState(count=int(np.asarray(adam.count)),
                             mu=params_from_jax(adam.mu, device),
                             nu=params_from_jax(adam.nu, device)),
-        step=int(np.asarray(state.step)))
+        step=int(np.asarray(state.step)),
+        ema_params=None if ema is None else params_from_jax(ema, device))

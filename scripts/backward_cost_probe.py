@@ -43,6 +43,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params  # noqa: E402
 from cvnerf_torch.ops import fused_mlp as fm  # noqa: E402
+from cvnerf_torch.ops.rng import PRNGKey  # noqa: E402
 from cvnerf_torch.ops import fused_mlp_bwd as fb  # noqa: E402
 
 CSRC = ROOT / "cvnerf_torch" / "csrc"
@@ -124,7 +125,7 @@ def main() -> int:
         libs = dict(zip(variants(), pool.map(lambda kv: build(*kv),
                                              variants().items())))
     cfg = NerfMLPConfig()
-    params = init_nerf_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    params = init_nerf_params(PRNGKey(0), cfg, "cuda")
     w = fm.FusedNerfWeights(params, cfg, torch.bfloat16)
     wt = fb.in_out_matrices(w)
     size = fm.packed_size(cfg)

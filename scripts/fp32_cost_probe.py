@@ -44,6 +44,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params  # noqa: E402
 from cvnerf_torch.ops import fused_mlp as fm  # noqa: E402
+from cvnerf_torch.ops.rng import PRNGKey  # noqa: E402
 from cvnerf_torch.ops import fused_mlp_bwd as fb  # noqa: E402
 
 CSRC = ROOT / "cvnerf_torch" / "csrc"
@@ -159,7 +160,7 @@ def main() -> int:
         (fm._bind_forward if src == "fused_mlp.cu" else fb._bind_backward)(lib)
         libs.setdefault(name, {})[src] = lib
     cfg = NerfMLPConfig()
-    params = init_nerf_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    params = init_nerf_params(PRNGKey(0), cfg, "cuda")
     w = fm.FusedNerfWeights(params, cfg, torch.float32)
     wt = fb.out_in_matrices(w)
     size = fm.packed_size(cfg)

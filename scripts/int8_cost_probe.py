@@ -131,7 +131,7 @@ def main() -> int:
     for name, so in libs.items():
         print(f"ptxas {name}: {ptxas_summary(so)}", flush=True)
     cfg = NerfMLPConfig()
-    params = init_nerf_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    params = init_nerf_params(rng.PRNGKey(0), cfg, "cuda")
     cpts, cdirs = tq.calibration_samples(rng.PRNGKey(6), 1 << 17,
                                          (-6.0,) * 3, (6.0,) * 3, "cuda")
     w = fq.QuantizedNerfWeights(tq.quantize_nerf(params, cfg, cpts, cdirs),

@@ -76,11 +76,12 @@ def time_one(root: str, kind: str) -> dict:
     import torch
     from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
     from cvnerf_torch.ops import fused_mlp as fm
+    from cvnerf_torch.ops.rng import PRNGKey
     if not Path(fm.__file__).resolve().is_relative_to(Path(root).resolve()):
         raise SystemExit(f"imported {fm.__file__}, not the checkout {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = NerfMLPConfig()
-    params = init_nerf_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    params = init_nerf_params(PRNGKey(0), cfg, "cuda")
     plain = None
     if kind in ("bwd", "fp32_bwd"):
         from cvnerf_torch.ops import fused_mlp_bwd as fb

@@ -7,8 +7,12 @@ so is a JAX ``TrainState`` carried over with ``train_state_from_jax``;
 port writes is served by ``load_torch_checkpoint`` and
 ``NerfRenderer.from_run_dir`` on the CPU with the saved weights, bitwise
 (the renders of such weights are held to the JAX renderer in
-``test_torch_port_serve.py``); a raw checkpoint from inside a
-``freq_anneal`` horizon is refused there.
+``test_torch_port_serve.py``). An EMA run's checkpoints carry the Polyak
+average, which resumes bitwise, is warm-started from a checkpoint without
+one and is what ``restore_params`` and serving read; a raw checkpoint from
+inside a ``freq_anneal`` horizon is served through the training-time
+window. Both are held to the JAX renderer serving the same weights from
+its own checkpoint (rgb 1e-5; depth 1e-4).
 """
 
 import json
@@ -21,6 +25,7 @@ import pytest
 import torch
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
+from cvnerf_torch.ops.rng import PRNGKey
 from cvnerf_torch.serve import NerfRenderer, latest_checkpoint
 from cvnerf_torch.serve import write_scene_snapshot
 from cvnerf_torch.train import checkpoint as ckpt
@@ -51,7 +56,7 @@ def _state(seed=0, step=0):
     """A state whose moments are not zero, so a mix-up of mu and nu or of
     the leaves would show."""
     g = torch.Generator().manual_seed(seed)
-    st = create_train_state(g, mlp=MLP, device="cpu")
+    st = create_train_state(PRNGKey(seed), mlp=MLP, device="cpu")
 
     def rand(tree):
         return {k: rand(v) if isinstance(v, dict)
@@ -65,8 +70,12 @@ def _state(seed=0, step=0):
 
 def _assert_states_equal(a: TrainState, b: TrainState):
     assert a.step == b.step and a.opt_state.count == b.opt_state.count
-    for x, y in ((a.params, b.params), (a.opt_state.mu, b.opt_state.mu),
-                 (a.opt_state.nu, b.opt_state.nu)):
+    assert (a.ema_params is None) == (b.ema_params is None)
+    pairs = [(a.params, b.params), (a.opt_state.mu, b.opt_state.mu),
+             (a.opt_state.nu, b.opt_state.nu)]
+    if a.ema_params is not None:
+        pairs.append((a.ema_params, b.ema_params))
+    for x, y in pairs:
         assert list(x) == list(y)
         for net in x:
             assert list(x[net]) == list(y[net])     # the leaf order too
@@ -107,7 +116,7 @@ def test_restore_of_nothing_and_of_a_wrong_architecture(tmp_path):
     with pytest.raises(FileNotFoundError):
         ckpt.restore_params(str(tmp_path / "none"))
     ckpt.save_checkpoint(str(tmp_path), _state(step=3))
-    wide = create_train_state(torch.Generator().manual_seed(0),
+    wide = create_train_state(PRNGKey(0),
                               mlp=NerfMLPConfig(**{**TINY, "trunk_width": 64}),
                               device="cpu")
     with pytest.raises(ValueError, match="shape"):
@@ -227,8 +236,9 @@ def _write_snapshot(run, **over):
 
 
 @pytest.mark.parametrize("over", [
-    {}, dict(calib_poses=None, bf16=True, pallas="off", ndc=True)],
-    ids=["plain", "no_poses"])
+    {}, dict(calib_poses=None, bf16=True, pallas="off", ndc=True),
+    dict(freq_anneal=40, ema_decay=0.999)],
+    ids=["plain", "no_poses", "levers"])
 def test_scene_snapshot_matches_jax(tmp_path, over):
     write_scene_snapshot(str(tmp_path / "t"), mlp=MLP,
                          **_snapshot_kwargs(**over))
@@ -289,13 +299,135 @@ def test_from_run_dir_keeps_the_recorded_resample(tmp_path, sorted_resample):
     assert r.cfg.sorted_resample is sorted_resample
 
 
-def test_a_raw_mid_anneal_checkpoint_is_refused(tmp_path):
+def _jax_run(run, state: TrainState):
+    """The same weights as a JAX package checkpoint under
+    ``<run>/checkpoints`` (its serving reads it with the EMA slot)."""
+    from cvnerf_tpu.train.checkpoint import save_checkpoint as jax_save
+
+    def tree(t):
+        return {k: tree(v) if isinstance(v, dict) else jax.numpy.asarray(
+            v.numpy()) for k, v in t.items()}
+    js = jax_create_state(jax.random.PRNGKey(0), mlp=JaxCfg(**TINY),
+                          ema=state.ema_params is not None)
+    js.params = tree(state.params)
+    js.step = jax.numpy.asarray(state.step, jax.numpy.int32)
+    if state.ema_params is not None:
+        js.ema_params = tree(state.ema_params)
+    jax_save(os.path.join(run, "checkpoints"), js)
+
+
+def _frames_match_jax(run):
+    """The port's ``from_run_dir`` frame against the JAX renderer's of the
+    same run directory: rgb within 1e-5, depth 1e-4."""
+    from cvnerf_tpu.serve import NerfRenderer as JaxRenderer
+    r = NerfRenderer.from_run_dir(run, device="cpu", chunk=64)
+    j = JaxRenderer.from_run_dir(run, chunk=64, use_mesh=False)
+    assert r.step == j.step
+    c2w = np.eye(4, dtype=np.float32)[:3] + [[0, 0, 0, 0], [0, 0, 0, 0],
+                                              [0, 0, 0, 4.0]]
+    got = r.render_pose_extras(c2w, keys=("rgb", "depth"))
+    want = j.render_pose_extras(c2w, keys=("rgb", "depth"))
+    np.testing.assert_allclose(got["rgb"], np.asarray(want["rgb"]),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got["depth"], np.asarray(want["depth"]),
+                               rtol=0, atol=1e-4)
+    return r
+
+
+def test_a_raw_mid_anneal_checkpoint_is_refused(tmp_path, capsys):
     """A checkpoint the port's trainer wrote (``raw_params``) from inside
-    the run's ``freq_anneal`` horizon would be served without the
-    training-time window: refused, naming the ROADMAP item."""
-    run = _trained_run(tmp_path, steps=(10,), freq_anneal=50)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        NerfRenderer.from_run_dir(run, device="cpu")
+    the run's ``freq_anneal`` horizon, once refused, is now served through
+    the training-time window at ``step / freq_anneal``, in float32 before
+    packing, as the JAX package serves its own raw checkpoint of the same
+    weights."""
+    from cvnerf_torch.models.nerf_mlp import anneal_model_params
+    run = str(tmp_path / "run")
+    _write_snapshot(run, freq_anneal=50)
+    st = _state(11, step=10)
+    with ckpt.Checkpointer(os.path.join(run, "torch_checkpoints")) as w:
+        w.save(st)
+    _jax_run(run, st)
+    r = _frames_match_jax(run)
+    assert "applying the training-time frequency window" in \
+        capsys.readouterr().out
+    want = anneal_model_params(st.params, MLP, 10 / 50)
+    for u, v in zip(tree_leaves(r.params), tree_leaves(want)):
+        assert torch.equal(u, v)
+    assert any(not torch.equal(u, v) for u, v in zip(
+        tree_leaves(r.params), tree_leaves(st.params)))
+
+
+def _ema_state(seed, step):
+    st = _state(seed, step=step)
+    g = torch.Generator().manual_seed(seed + 100)
+    st.ema_params = {k: {n: {q: t + 0.01 * torch.randn(t.shape, generator=g)
+                             for q, t in lay.items()}
+                         for n, lay in net.items()}
+                     for k, net in st.params.items()}
+    return st
+
+
+def _ema_template():
+    return create_train_state(PRNGKey(9), mlp=MLP,
+                              device="cpu", ema=True)
+
+
+def test_an_ema_checkpoint_resumes_bitwise(tmp_path):
+    st = _ema_state(1, step=12)
+    ckpt.save_checkpoint(str(tmp_path), st)
+    blob = torch.load(tmp_path / "000012.pt", weights_only=True)
+    assert sorted(blob) == ["coarse", "ema_params", "fine", "opt_state",
+                            "raw_params", "step"]
+    _assert_states_equal(ckpt.restore_checkpoint(str(tmp_path),
+                                                 _ema_template()), st)
+
+
+def test_a_pre_ema_checkpoint_warm_starts_the_average(tmp_path, capsys):
+    """A run resumed with ``--ema_decay`` from a checkpoint without an
+    average starts it at the restored params (a copy); a template without
+    the slot drops a stored average, with the JAX package's warning."""
+    plain = _state(2, step=5)
+    ckpt.save_checkpoint(str(tmp_path / "plain"), plain)
+    got = ckpt.restore_checkpoint(str(tmp_path / "plain"), _ema_template())
+    for u, v in zip(tree_leaves(got.ema_params), tree_leaves(plain.params)):
+        assert torch.equal(u, v)
+    for u, v in zip(tree_leaves(got.ema_params), tree_leaves(got.params)):
+        assert u.data_ptr() != v.data_ptr()
+    ckpt.save_checkpoint(str(tmp_path / "ema"), _ema_state(3, step=6))
+    capsys.readouterr()
+    dropped = ckpt.restore_checkpoint(str(tmp_path / "ema"), _state())
+    assert dropped.ema_params is None
+    assert "carries an EMA average but this invocation disables " \
+        "--ema_decay: dropping it" in capsys.readouterr().out
+
+
+def test_restore_params_prefers_the_average(tmp_path):
+    st = _ema_state(4, step=8)
+    ckpt.save_checkpoint(str(tmp_path), st)
+    for prefer, want in ((True, st.ema_params), (False, st.params)):
+        got, step = ckpt.restore_params(str(tmp_path), prefer_ema=prefer)
+        assert step == 8
+        for u, v in zip(tree_leaves(got), tree_leaves(want)):
+            assert torch.equal(u, v)
+    got, _ = ckpt.restore_params(str(tmp_path))
+    assert torch.equal(tree_leaves(got)[0], tree_leaves(st.ema_params)[0])
+    params, _, step = load_torch_checkpoint(str(tmp_path / "000008.pt"))
+    assert step == 8 and torch.equal(tree_leaves(params)[-1],
+                                     tree_leaves(st.ema_params)[-1])
+
+
+def test_serving_an_ema_run_serves_the_average(tmp_path):
+    """``from_run_dir`` serves the Polyak average, as the JAX renderer
+    serves the average of its own checkpoint of the same weights."""
+    run = str(tmp_path / "run")
+    _write_snapshot(run, ema_decay=0.999)
+    st = _ema_state(5, step=20)
+    with ckpt.Checkpointer(os.path.join(run, "torch_checkpoints")) as w:
+        w.save(st)
+    _jax_run(run, st)
+    r = _frames_match_jax(run)
+    for u, v in zip(tree_leaves(r.params), tree_leaves(st.ema_params)):
+        assert torch.equal(u, v)
 
 
 def test_a_raw_checkpoint_past_the_anneal_horizon_is_served(tmp_path):

@@ -1,7 +1,10 @@
 """The port's training entry point (``python -m cvnerf_torch.cli``) on the
 CPU: train, checkpoint, resume and render; fresh runs and their backups;
 best-validation tracking; crash recovery from the best checkpoint; serving
-the run; the refused flags; and parity with the JAX package's CLI.
+the run; the training levers' flags (and the recorded ``freq_anneal`` and
+``ema_decay`` staying in force on resume); the flags still refused; and
+parity with the JAX package's CLI, plain and with EMA, the frequency anneal
+and the noise decay on.
 
 Parity (fp32, the kernels' plain versions here, JAX with its Pallas kernels
 off): both CLIs fine-tune the same JAX state (saved by each package's
@@ -24,6 +27,7 @@ import torch
 
 from cvnerf_torch import cli
 from cvnerf_torch.data.synthetic import make_blender_dataset
+from cvnerf_torch.ops.rng import PRNGKey
 from cvnerf_torch.serve import NerfRenderer
 from cvnerf_torch.train import checkpoint as tckpt
 
@@ -268,6 +272,16 @@ REFUSED = [
     (["--num_processes", "2"], "--num_processes", "item 11"),
     (["--process_id", "0"], "--process_id", "item 11"),
 ]
+# What each item-9 flag resolves to in config_resolved.json, and the key
+# scene.json records for the two that stay in force on resume.
+LEVER_RECORD = {"--ema_decay": ("ema_decay", 0.99, "ema_decay"),
+                "--freq_anneal": ("freq_anneal", 1, "freq_anneal"),
+                "--noise_decay": ("noise_decay", 100, None),
+                "--distortion_loss": ("distortion_loss", 0.01, None),
+                "--occlusion_loss": ("occlusion_loss", 0.01, None),
+                "--ray_batching": ("ray_batching", True, None),
+                "--pixel_sampling parity": ("pixel_sampling", "parity",
+                                            None)}
 
 
 @pytest.mark.parametrize("flags,name,item", REFUSED,
@@ -276,12 +290,39 @@ REFUSED = [
                               for r in REFUSED])
 def test_unported_flags_are_refused_before_anything_is_written(
         blender_dir, tmp_path, flags, name, item):
+    """The flags of ROADMAP Queue 1 items 10 and 11 are refused by name
+    before anything is written. Those of item 9, once refused here, now
+    train: the run records the resolved flag (``--freq_anneal 0.08`` of 12
+    iters is 1 step), and a recorded ``freq_anneal`` or ``ema_decay`` stays
+    in force when the resumed run omits the flag."""
     logdir = str(tmp_path / "logs")
-    with pytest.raises(NotImplementedError) as e:
-        cli.main([*_base(blender_dir, logdir, "x"), "--iters", "3",
-                  *flags])
-    assert f"not ported yet: {name} (ROADMAP Queue 1 {item}" in str(e.value)
-    assert not os.path.exists(logdir)
+    base = [*_base(blender_dir, logdir, "x"), "--ckpt_freq", "0"]
+    if item != "item 9":
+        with pytest.raises(NotImplementedError) as e:
+            cli.main([*base, "--iters", "3", *flags])
+        assert f"not ported yet: {name} (ROADMAP Queue 1 {item}" in \
+            str(e.value)
+        assert not os.path.exists(logdir)
+        return
+    key, value, recorded = LEVER_RECORD[name]
+    out = cli.main([*base, "--iters", "12", *flags])
+    assert np.isfinite(out["loss"]) and np.isfinite(out["test_psnr"])
+    run_dir = os.path.join(logdir, "x")
+    assert json.load(open(os.path.join(run_dir, "config_resolved.json")))[
+        key] == value
+    snap = json.load(open(os.path.join(run_dir, "scene.json")))
+    assert snap.get(recorded) == (value if recorded else None)
+    cli.main([*base, "--iters", "14"])                  # resumed, no flag
+    assert max(r["step"] for r in _records(run_dir) if "loss" in r) == 13
+    resolved = json.load(open(os.path.join(run_dir, "config_resolved.json")))
+    if recorded:
+        assert resolved[key] == value
+        assert json.load(open(os.path.join(run_dir, "scene.json")))[
+            recorded] == value
+    if name == "--ema_decay":
+        blob = torch.load(os.path.join(run_dir, "torch_checkpoints",
+                                       "000013.pt"), weights_only=True)
+        assert "ema_params" in blob
 
 
 @pytest.mark.parametrize("record,name", [
@@ -291,7 +332,12 @@ def test_unported_flags_are_refused_before_anything_is_written(
                     "interp": "nearest", "floor": 0}}, "--occ_train")],
     ids=["freq_anneal", "ema_decay", "occ_train"])
 def test_a_run_dir_that_recorded_a_lever_is_refused_unless_fresh(
-        blender_dir, tmp_path, record, name):
+        blender_dir, tmp_path, capsys, record, name):
+    """A recorded ``occ_train`` (ROADMAP item 10) is refused unless
+    ``--no_reload`` starts a fresh run. A recorded ``freq_anneal`` or
+    ``ema_decay``, once refused too, now stays in force on a resume that
+    omits the flag (the JAX CLI's message; ``scene.json`` keeps it), and
+    ``--no_reload`` drops it, saying so."""
     logdir = str(tmp_path / "logs")
     base = [*_base(blender_dir, logdir, "rec"), "--iters", "3",
             "--ckpt_freq", "0"]
@@ -300,13 +346,27 @@ def test_a_run_dir_that_recorded_a_lever_is_refused_unless_fresh(
     snap_path = os.path.join(run_dir, "scene.json")
     snap = json.load(open(snap_path))
     json.dump({**snap, **record}, open(snap_path, "w"))
-    before = open(os.path.join(run_dir, "metrics.jsonl")).read()
-    with pytest.raises(NotImplementedError,
-                       match=f"not ported yet: {name} .*recorded by"):
-        cli.main(base)
-    assert open(os.path.join(run_dir, "metrics.jsonl")).read() == before
+    key, value = next(iter(record.items()))
+    if name == "--occ_train":
+        before = open(os.path.join(run_dir, "metrics.jsonl")).read()
+        with pytest.raises(NotImplementedError,
+                           match=f"not ported yet: {name} .*recorded by"):
+            cli.main(base)
+        assert open(os.path.join(run_dir, "metrics.jsonl")).read() == before
+    else:
+        capsys.readouterr()
+        cli.main([*base[:-4], "--iters", "5", "--ckpt_freq", "0"])
+        what = {"freq_anneal": "anneal horizon", "ema_decay": "decay"}[key]
+        assert f"using the run dir's recorded {what} {value}" in \
+            capsys.readouterr().out
+        assert json.load(open(snap_path))[key] == value
+        assert json.load(open(os.path.join(
+            run_dir, "config_resolved.json")))[key] == value
+    capsys.readouterr()
     cli.main([*base, "--no_reload"])
     assert name[2:] not in json.load(open(snap_path))
+    if name != "--occ_train":
+        assert "for this fresh (--no_reload) run" in capsys.readouterr().out
 
 
 def test_pallas_interpret_and_a_missing_card_are_refused(blender_dir,
@@ -324,6 +384,27 @@ def test_pallas_interpret_and_a_missing_card_are_refused(blender_dir,
     assert not os.path.exists(logdir)
 
 
+def test_a_fresh_run_starts_from_the_jax_clis_weights(blender_dir,
+                                                      tmp_path):
+    """``--seed`` gives the JAX CLI's nets bit for bit: a run of no steps
+    saves them unchanged."""
+    from cvnerf_tpu.models.nerf_mlp import NerfMLPConfig as JaxCfg
+    from cvnerf_tpu.train.state import create_train_state as jax_create
+    from test_torch_port_train import TINY
+    logdir = str(tmp_path / "logs")
+    cli.main([*_base(blender_dir, logdir, "s"), "--iters", "1",
+              "--ckpt_freq", "0", "--seed", "4"])
+    got, step = tckpt.restore_params(
+        os.path.join(logdir, "s", "torch_checkpoints"))
+    want = jax_create(jax.random.PRNGKey(4), mlp=JaxCfg(**TINY)).params
+    assert step == 0
+    for net, layers in want.items():
+        for layer, leaves in layers.items():
+            for q, w in leaves.items():
+                np.testing.assert_array_equal(got[net][layer][q].numpy(),
+                                              np.asarray(w))
+
+
 # ---------- parity with the JAX CLI ----------
 
 PARITY_FLAGS = ["--no-bf16", "--dtype", "blender", "--white_bkg",
@@ -337,6 +418,19 @@ PARITY_FLAGS = ["--no-bf16", "--dtype", "blender", "--white_bkg",
 
 
 def test_cli_matches_the_jax_cli_in_fp32(tmp_path):
+    _cli_parity(tmp_path, [])
+
+
+def test_cli_levers_match_the_jax_cli(tmp_path):
+    """EMA, the frequency anneal and the noise decay on (both CLIs warm-
+    start the average from the fine-tuned state, which has none): the
+    same metrics, and the final checkpoints, the average included, at the
+    three-step test's tolerances."""
+    _cli_parity(tmp_path, ["--ema_decay", "0.9", "--freq_anneal", "4",
+                           "--noise_decay", "3"])
+
+
+def _cli_parity(tmp_path, levers):
     from cvnerf_tpu.cli import main as jax_main
     from cvnerf_tpu.data.synthetic import make_blender_dataset as jax_make
     from cvnerf_tpu.models.nerf_mlp import NerfMLPConfig as JaxCfg
@@ -363,8 +457,8 @@ def test_cli_matches_the_jax_cli_in_fp32(tmp_path):
               "--ft_path", str(tmp_path / f"{name}_ft"), *extra])
         return os.path.join(logdir, "p")
 
-    jrun = run(jax_main, "jax", [])
-    trun = run(cli.main, "torch", ["--device", "cpu"])
+    jrun = run(jax_main, "jax", levers)
+    trun = run(cli.main, "torch", ["--device", "cpu", *levers])
     jrec, trec = _records(jrun), _records(trun)
     assert [sorted(r) for r in trec] == [sorted(r) for r in jrec]
     logged = 0
@@ -383,11 +477,15 @@ def test_cli_matches_the_jax_cli_in_fp32(tmp_path):
     assert logged == 4          # steps 1-3 and the final record
     assert any("test_psnr" in r for r in trec)
 
+    ema = bool(levers)
     tfinal = tckpt.restore_checkpoint(
         os.path.join(trun, "torch_checkpoints"), create_train_state(
-            torch.Generator().manual_seed(0), mlp=NerfMLPConfig(**TINY),
-            device="cpu"))
-    jfinal = jax_restore(os.path.join(jrun, "checkpoints"), jstate)
+            PRNGKey(0), mlp=NerfMLPConfig(**TINY),
+            device="cpu", ema=ema))
+    jfinal = jax_restore(os.path.join(jrun, "checkpoints"), jax_create(
+        jax.random.PRNGKey(2), lr=5e-4, lr_decay=1, mlp=JaxCfg(**TINY),
+        ema=ema))
+    assert (tfinal.ema_params is not None) == ema
     assert tfinal.step == int(jfinal.step) == 3
     _compare_states(jfinal, tfinal, 5e-4, 3)
     for name in ("config_resolved.json", "scene.json"):

@@ -112,3 +112,44 @@ def test_eval_saves_renders_and_checks_geometry(run, tmp_path):
     with pytest.raises(FileNotFoundError, match="step 5"):
         eval_main(["--run", run_dir, "--data_dir", data, "--device", "cpu",
                    "--step", "5"])
+
+
+def test_eval_scores_the_windowed_average_as_the_jax_eval_does(tmp_path):
+    """A run trained with ``--ema_decay`` and ``--freq_anneal``, scored at
+    a step inside the anneal horizon: both tools score the Polyak average
+    through the window at ``step / freq_anneal`` (the port's checkpoint is
+    raw, as its trainer writes it)."""
+    data = str(tmp_path / "scene")
+    make_blender_dataset(data, n_train=2, n_val=1, n_test=2, h=24, w=24)
+    run_dir = str(tmp_path / "run")
+    args = jax_parse_args(["--dtype", "blender", "--white_bkg",
+                           "--testskip", "1"])
+    jax_snapshot_config(args, run_dir)
+    write_scene_snapshot(run_dir, height=24, width=24,
+                         focal=0.5 * 24 / np.tan(0.4), near=2.0, far=6.0,
+                         ndc=False, ndc_variant="canonical", white_bkg=True,
+                         n_coarse=8, n_fine=8, bf16=False,
+                         mlp=JaxCfg(**TINY), freq_anneal=10, ema_decay=0.9)
+    st = _jax_state(3, 4)
+    ema = jax.tree.map(lambda p: p * np.float32(0.9), st.params)
+    for net in ema.values():
+        net["alpha"]["b"] = net["alpha"]["b"] + 0.5
+    st = dataclasses.replace(st, ema_params=ema)
+    jax_save(os.path.join(run_dir, "checkpoints"), st)
+    save_checkpoint(os.path.join(run_dir, "torch_checkpoints"),
+                    train_state_from_jax(st))
+    argv = ["--run", run_dir, "--data_dir", data, "--chunk", "128"]
+    got = eval_main([*argv, "--device", "cpu"])
+    jax_eval_main([*argv, "--out", str(tmp_path / "j.json")])
+    want = json.load(open(tmp_path / "j.json"))
+    assert got["step"] == want["step"] == 4
+    assert abs(got["psnr"] - want["psnr"]) <= 1e-3
+    for a, b in zip(got["per_view"], want["per_view"]):
+        assert abs(a["psnr"] - b["psnr"]) <= 1e-3
+        assert abs(a["ssim"] - b["ssim"]) <= 1e-5
+    # The raw params score otherwise: the average and the window matter.
+    plain = dataclasses.replace(st, ema_params=None, step=np.int32(5))
+    save_checkpoint(os.path.join(run_dir, "torch_checkpoints"),
+                    train_state_from_jax(plain))
+    assert abs(eval_main([*argv, "--device", "cpu"])["psnr"]
+               - got["psnr"]) > 1e-2

@@ -20,6 +20,7 @@ from cvnerf_tpu.ops.pallas.fused_mlp import _forward_flops
 from cvnerf_tpu.ops.pallas.fused_mlp import fused_nerf_apply as jax_fused
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
 from cvnerf_torch.ops import fused_mlp as fm
+from cvnerf_torch.ops.rng import PRNGKey
 from cvnerf_torch.ops.encoding import freq_encode
 from cvnerf_torch.utils.convert import params_from_jax
 
@@ -116,7 +117,7 @@ def _kernel_from_packed(wmat, wvec, cfg, dtype, pts, dirs):
 @pytest.mark.parametrize("kw", [TINY, {}])
 def test_packed_operands_reproduce_the_plain_version(kw, dtype):
     cfg = NerfMLPConfig(**kw)
-    params = init_nerf_params(torch.Generator().manual_seed(3), cfg)
+    params = init_nerf_params(PRNGKey(3), cfg)
     wmat, wvec = fm.pack_params(params, cfg, dtype)
     assert wmat.dtype == dtype and wvec.dtype == torch.float32
     pts, dirs = (torch.from_numpy(a) for a in _inputs(130, seed=4))
@@ -128,7 +129,7 @@ def test_packed_operands_reproduce_the_plain_version(kw, dtype):
 
 def test_wrapper_rejects_bad_inputs():
     cfg = NerfMLPConfig(**TINY)
-    w = fm.FusedNerfWeights(init_nerf_params(torch.Generator().manual_seed(0),
+    w = fm.FusedNerfWeights(init_nerf_params(PRNGKey(0),
                                              cfg), cfg, torch.float32)
     with pytest.raises(ValueError, match=r"\[n, 3\]"):
         fm.fused_nerf_apply(w, torch.zeros(4, 2), torch.zeros(4, 2))
@@ -144,7 +145,7 @@ def test_wrapper_rejects_bad_inputs():
                                 dict(trunk_width=64, head_width=128)])
 def test_kernel_refuses_architectures_it_does_not_take(kw):
     cfg = NerfMLPConfig(**kw)
-    params = init_nerf_params(torch.Generator().manual_seed(0), cfg)
+    params = init_nerf_params(PRNGKey(0), cfg)
     with pytest.raises(ValueError, match="kernels='off'"):
         fm.pack_params(params, cfg, torch.bfloat16)
 
@@ -331,7 +332,7 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype):
     tile = 64 if dtype == torch.float32 else 128
     for kw in (TINY, {}):
         cfg = NerfMLPConfig(**kw)
-        params = init_nerf_params(torch.Generator().manual_seed(0), cfg,
+        params = init_nerf_params(PRNGKey(0), cfg,
                                   cuda_device)
         w = fm.FusedNerfWeights(params, cfg, dtype)
         for n in (1, tile - 1, tile + 1, 300, sms * tile + 1, 65_573):

@@ -26,6 +26,7 @@ from cvnerf_tpu.ops.pallas.fused_mlp_bwd import \
     fused_nerf_train_apply as jax_train_apply
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
 from cvnerf_torch.ops import fused_mlp as fm
+from cvnerf_torch.ops.rng import PRNGKey
 from cvnerf_torch.ops import fused_mlp_bwd as fb
 from cvnerf_torch.utils.convert import params_from_jax
 
@@ -76,9 +77,8 @@ def test_unpack_grads_inverts_the_packing(dtype):
     params layout (values representable in bf16, so the packing's cast is
     exact; the encoding pad rows are dropped)."""
     cfg = NerfMLPConfig(**TINY)
-    gen = torch.Generator().manual_seed(3)
     params = {k: {p: torch.round(t * 64) / 64 for p, t in v.items()}
-              for k, v in init_nerf_params(gen, cfg).items()}
+              for k, v in init_nerf_params(PRNGKey(3), cfg).items()}
     wmat, wvec = fm.pack_params(params, cfg, dtype)
     flat = torch.cat([wmat.float(), wvec])
     assert flat.numel() == fm.packed_size(cfg)
@@ -97,9 +97,8 @@ def test_out_in_matrices_match_the_bf16_packing_layout():
     K-slab the kernel streams starts 16-byte aligned. The bf16 packing is
     passed through unchanged."""
     cfg = NerfMLPConfig(**TINY)
-    gen = torch.Generator().manual_seed(8)
     params = {k: {p: torch.round(t * 64) / 64 for p, t in v.items()}
-              for k, v in init_nerf_params(gen, cfg).items()}
+              for k, v in init_nerf_params(PRNGKey(8), cfg).items()}
     wmat32, _ = fm.pack_params(params, cfg, torch.float32)
     wmat16, _ = fm.pack_params(params, cfg, torch.bfloat16)
     as32 = SimpleNamespace(wmat=wmat32, cfg=cfg, compute_dtype=torch.float32)
@@ -118,7 +117,7 @@ def test_autograd_function_on_cpu_is_the_plain_backward():
     forward kernel's plain version, the backward ``fused_nerf_bwd_plain``
     (exactly), and points/viewdirs get no gradient (zero by contract)."""
     cfg = NerfMLPConfig(**TINY)
-    params = init_nerf_params(torch.Generator().manual_seed(4), cfg)
+    params = init_nerf_params(PRNGKey(4), cfg)
     pts, dirs, g = map(torch.from_numpy, _inputs(150, seed=1))
     pts.requires_grad_()
     leaves = {k: {p: t.clone().requires_grad_() for p, t in v.items()}
@@ -147,7 +146,7 @@ def test_gradients_of_two_halves_sum_to_the_whole():
     """Gradients are sums over points: the two halves of a batch add up to
     the whole batch (1e-5 of each leaf's scale, fp32 summation order)."""
     cfg = NerfMLPConfig(**TINY)
-    params = init_nerf_params(torch.Generator().manual_seed(5), cfg)
+    params = init_nerf_params(PRNGKey(5), cfg)
     pts, dirs, g = map(torch.from_numpy, _inputs(301, seed=2))
     whole = fb.fused_nerf_bwd_plain(params, pts, dirs, g, cfg)
     a = fb.fused_nerf_bwd_plain(params, pts[:150], dirs[:150], g[:150], cfg)
@@ -158,7 +157,7 @@ def test_gradients_of_two_halves_sum_to_the_whole():
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     cfg = NerfMLPConfig(**TINY)
-    params = init_nerf_params(torch.Generator().manual_seed(6), cfg)
+    params = init_nerf_params(PRNGKey(6), cfg)
     pts, dirs, g = map(torch.from_numpy, _inputs(10))
     w = fm.FusedNerfWeights(params, cfg, torch.float32)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -185,7 +184,7 @@ def test_kernel_matches_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA); run chip_smoke.py there")
     cfg = NerfMLPConfig()
-    params = init_nerf_params(torch.Generator().manual_seed(7), cfg, "cuda")
+    params = init_nerf_params(PRNGKey(7), cfg, "cuda")
     pts, dirs, g = (torch.from_numpy(x).cuda() for x in _inputs(5000))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype, tol in ((torch.float32, 1e-2), (torch.bfloat16, 2e-2)):
@@ -407,8 +406,7 @@ def test_in_out_matrices_transpose_every_bf16_block():
     for kw in (TINY, {}, dict(xyz_freqs=0, dir_freqs=20, trunk_width=48,
                               head_width=16)):
         cfg = NerfMLPConfig(**kw)
-        gen = torch.Generator().manual_seed(9)
-        params = init_nerf_params(gen, cfg)
+        params = init_nerf_params(PRNGKey(9), cfg)
         wmat, _ = fm.pack_params(params, cfg, torch.bfloat16)
         w = SimpleNamespace(wmat=wmat, cfg=cfg, compute_dtype=torch.bfloat16)
         t = fb.in_out_matrices(w)

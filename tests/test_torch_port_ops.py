@@ -90,13 +90,13 @@ def test_apply_nerf_bf16_matches_jax_bf16():
 
 def test_init_nerf_params_shapes_and_bounds():
     cfg = tmlp.NerfMLPConfig()
-    p = tmlp.init_nerf_params(torch.Generator().manual_seed(0), cfg)
+    p = tmlp.init_nerf_params(trng.PRNGKey(0), cfg)
     jp = _jax_params(jmlp.NerfMLPConfig())
     for name, fan_in, fan_out in tmlp._layer_dims(cfg):
         assert p[name]["w"].shape == jp[name]["w"].shape == (fan_in, fan_out)
         assert p[name]["b"].shape == (fan_out,)
         assert p[name]["w"].abs().max() <= fan_in ** -0.5
-    again = tmlp.init_nerf_params(torch.Generator().manual_seed(0), cfg)
+    again = tmlp.init_nerf_params(trng.PRNGKey(0), cfg)
     assert torch.equal(p["l6"]["w"], again["l6"]["w"])
 
 

@@ -619,7 +619,7 @@ def test_int8_kernel_matches_plain_version_on_card(cuda_device, kw):
     host's."""
     cfg = NerfMLPConfig(**kw)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    params = init_nerf_params(torch.Generator().manual_seed(0), cfg,
+    params = init_nerf_params(rng.PRNGKey(0), cfg,
                               cuda_device)
     cpts, cdirs = tq.calibration_samples(rng.PRNGKey(1), 4096, *BBOX,
                                          device=cuda_device)

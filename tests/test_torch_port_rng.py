@@ -111,3 +111,18 @@ def test_sample_without_replacement_bitwise(n, m):
         assert len(set(got.tolist())) == n and 0 <= got.min() <= got.max() < m
     with pytest.raises(ValueError, match="distinct"):
         trng.sample_without_replacement(trng.PRNGKey(0), 5, 4)
+
+
+@pytest.mark.parametrize("lo,hi", [(-0.1259881556, 0.1259881556),
+                                   (2.0, 6.0), (-3.5, 0.25)])
+def test_uniform_with_bounds_bitwise(lo, hi):
+    """``jax.random.uniform(key, shape, minval=, maxval=)``, whose
+    multiply-add XLA fuses into one FMA, bit for bit."""
+    for seed in SEEDS[:3]:
+        jk, tk = jax.random.PRNGKey(seed), trng.PRNGKey(seed)
+        lo32, hi32 = np.float32(lo), np.float32(hi)
+        np.testing.assert_array_equal(
+            trng.uniform(tk, (17, 33), "cpu", float(lo32), float(hi32))
+            .numpy(),
+            np.asarray(jax.random.uniform(jk, (17, 33), jnp.float32,
+                                          lo32, hi32)))

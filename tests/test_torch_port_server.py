@@ -12,6 +12,7 @@ import torch
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
 from cvnerf_torch.ops import fused_mlp_int8 as fq
+from cvnerf_torch.ops.rng import PRNGKey, split
 from cvnerf_torch.server import (build_parser, int8_from_args, main,
                                  make_server, renderer_from_args)
 from cvnerf_torch.utils.convert import torch_state_dict_from_params
@@ -30,10 +31,9 @@ def run_dir(tmp_path_factory):
              "pallas": "auto", "mlp": TINY}
     with open(os.path.join(run, "scene.json"), "w") as fp:
         json.dump(scene, fp)
-    gen = torch.Generator().manual_seed(0)
     blob = {}
-    for net in ("coarse", "fine"):
-        p = init_nerf_params(gen, NerfMLPConfig(**TINY))
+    for net, key in zip(("coarse", "fine"), split(PRNGKey(0))):
+        p = init_nerf_params(key, NerfMLPConfig(**TINY))
         p["alpha"]["b"] += 1.0
         blob[net] = torch_state_dict_from_params(p)
     blob["step"] = 7

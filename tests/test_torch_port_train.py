@@ -58,6 +58,16 @@ from cvnerf_torch.utils.convert import params_from_jax, train_state_from_jax
 TINY = dict(xyz_freqs=4, dir_freqs=2, trunk_width=32, head_width=16)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Torch on one thread: these steps are many small ops, as fast on one
+    thread, and the suite's other workers keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -159,17 +169,44 @@ def _compare_states(jstate, tstate, lr, step):
                 big = (np.abs(g) > frac * scale) & (np.abs(g) > 1e-6)
                 if big.any():
                     worst_big = max(worst_big, diff[big].max())
+                if jstate.ema_params is not None:
+                    # The averages start equal, so each stays a convex
+                    # mix of params that differ within the bounds above.
+                    ediff = np.abs(
+                        tstate.ema_params[net][layer][q].numpy()
+                        - np.asarray(jstate.ema_params[net][layer][q]))
+                    worst_any = max(worst_any, ediff.max())
+                    if big.any():
+                        worst_big = max(worst_big, ediff[big].max())
+    assert (jstate.ema_params is None) == (tstate.ema_params is None)
     assert worst_g <= 1e-3, worst_g
     assert worst_any <= 2 * lr + 1e-7, worst_any
     assert worst_big <= 1e-6 + (step - 1) * 1e-3 * lr, worst_big
 
 
-@pytest.mark.parametrize("extra", [{}, dict(precrop_iters=10),
-                                   dict(pixel_sampling="replace")],
-                         ids=["prp", "precrop", "replace"])
+LEVER_CASES = {
+    "prp": {}, "precrop": dict(precrop_iters=10),
+    "replace": dict(pixel_sampling="replace"),
+    "ema_decay": dict(ema_decay=0.9),
+    "noise_decay": dict(noise_decay=2),
+    "freq_anneal": dict(freq_anneal=4),
+    "distortion_loss": dict(distortion_loss=0.01, distortion_start=1,
+                            distortion_ramp=2),
+    "occlusion_loss": dict(occlusion_loss=0.01),
+    "ray_batching": dict(ray_batching=True),
+    "parity": dict(pixel_sampling="parity"),
+    "parity_precrop": dict(pixel_sampling="parity", precrop_iters=10),
+}
+
+
+@pytest.mark.parametrize("extra", list(LEVER_CASES.values()),
+                         ids=list(LEVER_CASES))
 def test_three_train_steps_match_jax(extra):
     """Three consecutive steps from one JAX state (carried over with
-    ``train_state_from_jax``) and the trainer's per-step keys."""
+    ``train_state_from_jax``) and the trainer's per-step keys, plain and
+    with each lever alone: the schedules move within the three steps
+    (noise 1, 0.5, 0; anneal 0, 0.25, 0.5; distortion weight 0, 0, 0.5),
+    and the EMA slot is compared as the params are."""
     images, poses = jax_bench_scene(32, 32)
     rkw = dict(n_coarse=8, n_fine=8, perturb=True, noise_std=1.0,
                white_bkg=True)
@@ -180,7 +217,8 @@ def test_three_train_steps_match_jax(extra):
     tcfg = TrainConfig(render=RenderConfig(mlp=NerfMLPConfig(**TINY), **rkw),
                        **tkw)
     jstate = jax_create_state(jax.random.PRNGKey(2), lr=5e-4, lr_decay=1,
-                              mlp=JaxCfg(**TINY))
+                              mlp=JaxCfg(**TINY),
+                              ema=bool(extra.get("ema_decay")))
     tstate = train_state_from_jax(jax.tree.map(np.asarray, jstate))
     jstep, tstep = jax_make_train_step(jcfg), make_train_step(tcfg)
     precrop = bool(extra.get("precrop_iters"))
@@ -199,6 +237,23 @@ def test_three_train_steps_match_jax(extra):
         assert tstate.step == int(jstate.step) == i
         assert tstate.opt_state.count == int(jstate.opt_state[0].count)
         _compare_states(jstate, tstate, tcfg.lr, i)
+
+
+@pytest.mark.parametrize("cfg", [TINY, {}], ids=["tiny", "full"])
+def test_create_train_state_from_a_key_is_the_jax_init(cfg):
+    """From a ``PRNGKey`` the nets are the JAX package's
+    ``create_train_state(key)`` nets bit for bit (the CLI starts there)."""
+    for seed in (0, 3) if cfg else (0,):
+        want = jax_create_state(jax.random.PRNGKey(seed), mlp=JaxCfg(**cfg))
+        got = create_train_state(PRNGKey(seed), mlp=NerfMLPConfig(**cfg),
+                                 device="cpu", ema=True)
+        for net, layers in want.params.items():
+            for layer, leaves in layers.items():
+                for q, w in leaves.items():
+                    np.testing.assert_array_equal(
+                        got.params[net][layer][q].numpy(), np.asarray(w))
+                    np.testing.assert_array_equal(
+                        got.ema_params[net][layer][q].numpy(), np.asarray(w))
 
 
 def test_train_state_from_jax_carries_everything():
@@ -226,7 +281,7 @@ def test_trainer_overfits_a_micro_scene():
                       n_rays=64, lr=3e-3, lr_decay=1,
                       render=RenderConfig(n_coarse=8, n_fine=8,
                                           white_bkg=True, mlp=mlp))
-    state = create_train_state(torch.Generator().manual_seed(0), lr=cfg.lr,
+    state = create_train_state(PRNGKey(0), lr=cfg.lr,
                                lr_decay=cfg.lr_decay, mlp=mlp, device="cpu")
     tr = Trainer(cfg, state, images, pose[None], [0], seed=0)
     losses, fired = [], []
@@ -250,7 +305,7 @@ def test_trainer_steps_match_the_step_function():
                           n_coarse=4, n_fine=4, mlp=NerfMLPConfig(**TINY)))
 
     def fresh():
-        return create_train_state(torch.Generator().manual_seed(1),
+        return create_train_state(PRNGKey(1),
                                   mlp=NerfMLPConfig(**TINY), device="cpu")
 
     tr = Trainer(cfg, fresh(), images, poses, [0, 1], seed=7,
@@ -276,14 +331,59 @@ def test_trainer_steps_match_the_step_function():
     (dict(fused_allreduce=True), "Queue 1 item 11"),
 ])
 def test_unported_options_raise(change, item):
+    """The levers of ROADMAP Queue 1 item 9, once refused here, now build a
+    step and train through ``Trainer``; ``fused_allreduce`` (item 11) and
+    device meshes still raise naming their item, and an impossible draw
+    still raises."""
     base = TrainConfig(height=8, width=8, focal=10.0, near=2.0, far=6.0,
-                       n_rays=16)
-    with pytest.raises(NotImplementedError, match=item):
-        make_train_step(dataclasses.replace(base, **change))
-    state = create_train_state(torch.Generator().manual_seed(0),
-                               mlp=NerfMLPConfig(**TINY), device="cpu")
+                       n_rays=16, render=RenderConfig(
+                           n_coarse=4, n_fine=4, noise_std=1.0,
+                           mlp=NerfMLPConfig(**TINY)))
+    cfg = dataclasses.replace(base, **change)
+    state = create_train_state(PRNGKey(0),
+                               mlp=NerfMLPConfig(**TINY), device="cpu",
+                               ema=cfg.ema_decay > 0)
     images, poses = bench_scene(8, 8)
+    if item.endswith("item 11"):
+        with pytest.raises(NotImplementedError, match=item):
+            make_train_step(cfg)
+    else:
+        tr = Trainer(cfg, state, images, poses, [0, 1])
+        m = tr.run(1, 3)
+        assert tr.state.step == 2 and all(np.isfinite(v) for v in m.values())
+        assert (tr.state.ema_params is not None) == (cfg.ema_decay > 0)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         Trainer(base, state, images, poses, [0], mesh=object())
     with pytest.raises(ValueError, match="exceeds"):
         make_train_step(dataclasses.replace(base, n_rays=65))
+
+
+def test_trainer_guards_match_jax():
+    """The JAX ``Trainer``'s refusals: an EMA decay outside [0, 1), an EMA
+    decay without the slot and a slot without the decay, an occlusion
+    window that is the whole ray, a ray-batching pool smaller than a
+    batch, and ray batching with any draw but the Feistel one."""
+    base = TrainConfig(height=8, width=8, focal=10.0, near=2.0, far=6.0,
+                       n_rays=16, render=RenderConfig(
+                           n_coarse=4, n_fine=4, mlp=NerfMLPConfig(**TINY)))
+    images, poses = bench_scene(8, 8)
+
+    def state(ema):
+        return create_train_state(PRNGKey(0),
+                                  mlp=NerfMLPConfig(**TINY), device="cpu",
+                                  ema=ema)
+    for change, ema, match in (
+            (dict(ema_decay=1.0), True, r"\[0, 1\)"),
+            (dict(ema_decay=0.9), False, "EMA slot"),
+            ({}, True, "freeze silently"),
+            (dict(occlusion_loss=0.1, occlusion_frac=1.0), False, r"\(0, 1\)"),
+            (dict(ray_batching=True, n_rays=130), False, "ray-batching pool")):
+        with pytest.raises(ValueError, match=match):
+            Trainer(dataclasses.replace(base, **change), state(ema), images,
+                    poses, [0, 1])
+    with pytest.raises(ValueError, match="Feistel"):
+        make_train_step(dataclasses.replace(base, ray_batching=True,
+                                            pixel_sampling="parity"))
+    # A batch larger than one image is fine across the split.
+    Trainer(dataclasses.replace(base, ray_batching=True, n_rays=100),
+            state(False), images, poses, [0, 1])
