@@ -94,14 +94,40 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      30 serving the average through the window;
   9. a quality band (main path): ``sphere_hi_3000`` through
      ``cvnerf_torch.quality_run`` at full width, passing at or above the
-     band's floor (29.24 dB; the JAX package measured 30.24).
-The launch counts of phases 2, 2b, 3, 3b, 5, 5b, 7, 8 and 9 (the main paths) are
+     band's floor (29.24 dB; the JAX package measured 30.24);
+  10. occupancy grids, the mesh and LPIPS (main paths): a. the bake of
+     phase 5's trained bf16 fine net at res 192, dilate 1, bound 1.5
+     (108 forward launches, no plain call; against kernels="off" at phase
+     1's bf16 tolerance; occupied share > 0; median ms); b. the server with
+     ``--occupancy merge`` and ``full`` (trilinear and nearest) and ``full
+     --occ_term 1e-3 --serve_coarse 32 --serve_fine 64``, each answering
+     /render at 400x400 (the startup bake 108 launches, then 20 fine and
+     no coarse launches a frame, no plain call), each frame against
+     kernels="off" through the same grid at phase 4's bf16 tolerances on
+     every pixel but those whose terminal density changes sign, frame ms
+     beside the plain bf16 server's; c. ``--int8 --occupancy merge`` (the
+     bake in float, 20 int8 launches a frame, bitwise against
+     kernels="off"); d. three occupancy steps against kernels="off" (1 + 1
+     launches each, the coarse net unchanged) and the occupancy step timed
+     against the plain step in interleaved rounds, then ``--occ_train
+     --occ_train_warmup 20 --occ_train_every 20`` through the CLI on phase
+     7's fixture (2 + 2 launches a step before the switch, 1 + 1 after,
+     the verdicts, the coarse net bitwise the switch's checkpoint's, a run
+     stopped at 40 and resumed in occupancy mode, a full-mode run with
+     ``--occ_floor 16``, ``from_run_dir`` through a grid); e. ``python -m
+     cvnerf_torch.render.mesh --run`` phase 7's run at res 256 (256
+     forward launches; the grid against kernels="off"; the mesh's size
+     and the host marching seconds); f. LPIPS of two occupancy frames with
+     seeded random weights, card against CPU within 1e-5 relative.
+The launch counts of phases 2, 2b, 3, 3b, 5, 5b, 7, 8, 9 and 10 (the main paths) are
 reset just before each phase (each CLI call of phase 7) and read just
 after: the kernels must have launched exactly as often as the chunking
 implies (40 forward launches per 400x400 frame at chunk 8192, 80 at the
 CLI's chunk 4096, or as many int8 launches and no forward launch under
-``--int8``; 2 forward and 2 backward launches per train step, counted step
-by step in phase 7), and the plain versions not at all.
+``--int8``, half as many through an occupancy grid; 2 forward and 2
+backward launches per train step, 1 + 1 per occupancy step, counted step
+by step in phases 7 and 10d; ceil(res^3 / 65,536) per bake), and the plain
+versions not at all.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, the list of kernels exercised, and as its last line
@@ -709,7 +735,7 @@ def phase_train(fm, fb, fq, card: str):
         fail("train: the trained frame is misshapen or non-finite")
     if frame_counts["fwd"] != 2 * -(-TRAIN_HW * TRAIN_HW // CHUNK):
         fail("train: the trained frame did not run through the kernel")
-    return counts, med, split
+    return counts, med, split, tr.state.params
 
 
 def profile_steps(tr, start: int, n: int, step_ms: float,
@@ -1233,11 +1259,15 @@ def compare_steps(what: str, old, on, off, m_on: dict, m_off: dict,
             "param_big": p_big, "ema_max": e_any}
 
 
-def time_trainer(tcfg, state, images, poses, steps: int) -> float:
+def time_trainer(tcfg, state, images, poses, steps: int,
+                 grid=None) -> float:
     """Median ms between consecutive steps of ``Trainer.run`` (CUDA events
-    recorded in a per-step callback, as phase 5 times its steps)."""
+    recorded in a per-step callback, as phase 5 times its steps); with
+    ``grid``, the occupancy steps through it."""
     from cvnerf_torch.train.loop import Trainer
     tr = Trainer(tcfg, state, images, poses, [0, 1], seed=SEED)
+    if grid is not None:
+        tr.set_occupancy(grid)
     events = []
 
     def on_step(i, trainer, m):
@@ -1738,6 +1768,531 @@ def phase_int8_serve(fm, fb, fq, run: str, c2w, bf16_renderer, rgb_bf16,
     return counts
 
 
+# -- phase 10: occupancy grids, mesh export, LPIPS --------------------------
+
+OCC_RES = 192                 # the server's and the CLI's default lattice
+OCC_BOUND = 1.5
+MESH_RES = 256                # the mesh CLI's default lattice
+OCC_REQUESTS = 10             # timed /render requests per server
+
+
+def phase_occ_bake(fm, fb, fq, card: str, trained: dict, cfg) -> dict:
+    """10a. The bake (main path of occupancy serving and training): the
+    lego-shaped bf16 fine net of phase 5's trained state baked at res 192,
+    dilate 1, bound 1.5 through the forward kernel: exactly
+    ceil(192^3 / 65,536) = 108 launches and no plain call; the grid against
+    the same bake with kernels="off" on the card within phase 1's bf16
+    tolerance on sigma; the occupied share > 0; the bake's median ms."""
+    from cvnerf_torch.render.occupancy import (bake_scene_occupancy,
+                                               occupied_fraction)
+
+    def bake(kernels="on"):
+        return bake_scene_occupancy(trained, cfg, ndc=False, bound=OCC_BOUND,
+                                    n_fine=128, resolution=OCC_RES,
+                                    dilate=1, compute_dtype=torch.bfloat16,
+                                    kernels=kernels)
+    bake()                                                       # warm
+    torch.cuda.synchronize()
+    reset_counts(fm, fb, fq)
+    grid = bake()
+    torch.cuda.synchronize()
+    counts = read_counts(fm, fb, fq)
+    n_launch = -(-OCC_RES ** 3 // 65536)                          # 108
+    check_calls("occupancy bake", [counts], 1, {"fwd": n_launch})
+    off = bake("off")
+    err = (grid.values - off.values).abs().max().item()
+    frac = occupied_fraction(grid)
+    bake_ms = time_ms(bake, reps=5, warmup=1)
+    off_ms = time_ms(lambda: bake("off"), reps=3, warmup=0)
+    print(f"occupancy bake: {OCC_RES}^3 lattice, dilate 1, bound "
+          f"{OCC_BOUND}, the bf16 fine net of phase 5's trained state: "
+          f"launches {counts} (expected {n_launch} forward, plain 0); vs "
+          f"kernels='off' max |sigma diff| {err:.3e} (tol {TOL_BF16:g}); "
+          f"occupied {frac:.4%}; bake {bake_ms:.3f} ms (median of 5, CUDA "
+          f"events), kernels='off' {off_ms:.3f} ms; card: {card}",
+          flush=True)
+    if not err <= TOL_BF16:
+        fail("occupancy bake: the kernel's grid disagrees with kernels='off'")
+    if not 0.0 < frac:
+        fail("occupancy bake: the trained net's grid is empty")
+    return {"counts": counts, "bake_ms": bake_ms, "bake_off_ms": off_ms,
+            "max_abs_err": err, "occupied_frac": frac}
+
+
+def terminal_flips(fm, renderer, c2w_t, t_fine, hw: int) -> np.ndarray:
+    """``[hw, hw]`` pixels whose terminal sample (the last fine depth,
+    where the compositor's delta is 1e10) has a density of opposite sign
+    through the forward kernel and its plain version. The grid places the
+    samples, so both renders put every ray's samples at the same depths;
+    such a pixel renders that sample's colour or what lies behind it,
+    whichever side of 0 its density lands."""
+    from cvnerf_torch.ops.rays import ray_grid
+    rays_o, rays_d = (r.reshape(-1, 3) for r in ray_grid(
+        hw, hw, renderer.focal, c2w_t))
+    viewdirs = (rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+                ).contiguous()
+    pts = (rays_o + rays_d * t_fine.reshape(-1, t_fine.shape[-1])[:, -1:]
+           ).contiguous()
+    s_k = fm.fused_nerf_apply(renderer._nets["fine"], pts, viewdirs)[:, 3]
+    s_p = fm.fused_nerf_plain(renderer.params["fine"], pts, viewdirs,
+                              renderer.cfg.mlp, renderer.cfg.compute_dtype
+                              )[:, 3]
+    return ((s_k > 0) != (s_p > 0)).reshape(hw, hw).cpu().numpy()
+
+
+def serve_and_time(fm, fb, fq, run: str, flags: list[str], c2w) -> dict:
+    """Start the server from its own argument parser with ``flags`` (the
+    startup's launches counted apart), answer ``/render`` png
+    OCC_REQUESTS times (counted, wall-timed) and a json+depth one;
+    returns the renderer, the counts and times and the json frame."""
+    from cvnerf_torch.server import (build_parser, int8_from_args,
+                                     make_server, occupancy_from_args,
+                                     renderer_from_args)
+    args = build_parser().parse_args(["--run", run, "--device", "cuda",
+                                      "--port", "0", *flags])
+    torch.cuda.synchronize()
+    reset_counts(fm, fb, fq)
+    renderer = renderer_from_args(args)
+    occupancy_from_args(renderer, args)
+    int8_from_args(renderer, args)
+    torch.cuda.synchronize()
+    startup = read_counts(fm, fb, fq)
+    srv = make_server(renderer, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        http(url + "/render", {"c2w": c2w})                       # warm
+        torch.cuda.synchronize()
+        reset_counts(fm, fb, fq)
+        http_walls = []
+        for _ in range(OCC_REQUESTS):
+            t0 = time.perf_counter()
+            body, ctype = http(url + "/render", {"c2w": c2w})
+            http_walls.append((time.perf_counter() - t0) * 1e3)
+        check_png_or_ppm(body, ctype, SERVE_HW, SERVE_HW)
+        body, _ = http(url + "/render", {"c2w": c2w, "format": "json",
+                                         "include_depth": True})
+        torch.cuda.synchronize()
+        frames = read_counts(fm, fb, fq)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+    # The render alone, without HTTP and the png: render_pose wall, synced.
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.render_pose(c2w)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out = json.loads(body)
+    frame = {k: np.asarray(out[k], np.float32) for k in ("rgb", "depth",
+                                                         "acc")}
+    if frame["rgb"].shape != (SERVE_HW, SERVE_HW, 3) or not all(
+            np.isfinite(v).all() for v in frame.values()):
+        fail(f"serve {flags}: wrong shape or non-finite frame")
+    return {"renderer": renderer, "startup": startup, "frames": frames,
+            "frame_ms": float(np.median(http_walls)),
+            "frame_ms_all": http_walls, "render_ms": float(np.median(walls)),
+            "frame": frame}
+
+
+def phase_occ_serve(fm, fb, fq, card: str, run: str) -> dict:
+    """10b, 10c. Occupancy serving (main path) of phase 7's trained run
+    (400x400, 64 + 128 samples, bf16, its poses for int8): the server with
+    ``--occupancy merge`` and ``full`` (each with trilinear, the server's
+    default probe, and nearest) and ``full --occ_term 1e-3 --serve_coarse
+    32 --serve_fine 64``, then ``--int8 --occupancy merge``, each answering
+    /render at
+    400x400: the startup bake 108 forward launches, then per frame 20
+    fine launches (8,192 rays x 192 points in merge, x 128 in full, x 96
+    with the reduced budget) and no coarse launch, no plain call (int8: 20
+    int8 launches a frame and no forward launch). Each frame against the
+    same pose rendered on the card with kernels="off" (the same nets, the
+    same grid): int8 bitwise; bf16 at phase 4's tolerances (rgb 2e-2,
+    depth 1e-1) on every pixel but those whose terminal density changes
+    sign between the kernel and its plain version (at most
+    INT8_FLIP_SHARE of them). Frame ms, median of OCC_REQUESTS png
+    requests, beside the same requests to the plain bf16 server, and the
+    render alone (``render_pose``, median of 5)."""
+    from cvnerf_torch.render.frames import render_image
+    c2w = pose(0.3)[:3].tolist()
+    per_frame = -(-SERVE_HW * SERVE_HW // CHUNK)                  # 20
+    n_frames = OCC_REQUESTS + 1
+    bake = -(-OCC_RES ** 3 // 65536)
+    plain = serve_and_time(fm, fb, fq, run, [], c2w)
+    check_calls("plain server frames", [plain["frames"]], 1,
+                 {"fwd": 2 * per_frame * n_frames})
+    total = dict(plain["frames"])
+    out, frames = {"plain_frame_ms": plain["frame_ms"],
+                   "plain_render_ms": plain["render_ms"]}, {}
+    modes = (("merge", ["--occupancy", "merge"], 192),
+             ("merge_nearest", ["--occupancy", "merge", "--occ_interp",
+                                "nearest"], 192),
+             ("full_trilinear", ["--occupancy", "full"], 128),
+             ("full_nearest", ["--occupancy", "full", "--occ_interp",
+                               "nearest"], 128),
+             ("full_term", ["--occupancy", "full", "--occ_term", "1e-3",
+                            "--serve_coarse", "32", "--serve_fine", "64"],
+              64),
+             ("int8_merge", ["--int8", "--occupancy", "merge"], 192))
+    for name, flags, points in modes:
+        flags = [*flags, "--occupancy_res", str(OCC_RES)]
+        s = serve_and_time(fm, fb, fq, run, flags, c2w)
+        r = s["renderer"]
+        int8 = "--int8" in flags
+        check_calls(f"{name} startup", [s["startup"]], 1, {"fwd": bake})
+        check_calls(f"{name} frames", [s["frames"]], 1,
+                     {"int8" if int8 else "fwd": per_frame * n_frames})
+        for k, v in s["startup"].items():
+            total[k] += v + s["frames"][k]
+        c2w_t = r._pose(c2w)
+        rcfg = dataclasses.replace(r.cfg, kernels="off", return_weights=True)
+        nets = ({k: w.qp for k, w in r._nets.items()} if int8
+                else r.params)
+        off = render_image(nets, SERVE_HW, SERVE_HW, r.focal, c2w_t, r.near,
+                           r.far, rcfg, chunk=r.chunk, key=r._key,
+                           occupancy=r.occupancy)
+        got = s["frame"]
+        ref = {k: off[k].cpu().numpy() for k in ("rgb", "depth", "acc")}
+        seen = float((got["acc"] > 0.05).mean())
+        if not seen > 0.01:
+            fail(f"occupancy serve {name}: the frame is empty (acc > 0.05 "
+                 f"on {seen:.4%} of the pixels): nothing to compare")
+        if int8:
+            unequal = {k: int((ref[k] != got[k]).sum()) for k in ref}
+            print(f"occupancy serve {name}: vs kernels='off' from the same "
+                  f"quantized nets and grid: unequal values {unequal} "
+                  f"(bitwise required)", flush=True)
+            if any(unequal.values()):
+                fail(f"occupancy serve {name}: the int8 frame differs from "
+                     f"its plain version")
+            row = {"unequal": unequal}
+        else:
+            flips = terminal_flips(fm, r, c2w_t, off["t"], SERVE_HW)
+            keep = ~flips
+            d_rgb = float(np.abs(got["rgb"] - ref["rgb"]).max(-1)[keep].max())
+            d_depth = float(np.abs(got["depth"] - ref["depth"])[keep].max())
+            share = float(flips.mean())
+            print(f"occupancy serve {name}: vs kernels='off' (same nets, "
+                  f"same grid): max |rgb diff| {d_rgb:.3e} (tol 2e-2), "
+                  f"max |depth diff| {d_depth:.3e} (tol 1e-1) over every "
+                  f"pixel but the {share:.4%} whose terminal density "
+                  f"changes sign between kernel and plain (tol "
+                  f"{INT8_FLIP_SHARE:.0%}); all pixels max |rgb diff| "
+                  f"{float(np.abs(got['rgb'] - ref['rgb']).max()):.3e}",
+                  flush=True)
+            if not (d_rgb <= 2e-2 and d_depth <= 1e-1
+                    and share <= INT8_FLIP_SHARE):
+                fail(f"occupancy serve {name}: the frame disagrees with "
+                     f"kernels='off'")
+            row = {"max_rgb_err": d_rgb, "max_depth_err": d_depth,
+                   "terminal_flip_share": share}
+        out[name] = {"frame_ms": s["frame_ms"], "render_ms": s["render_ms"],
+                     "visible_share": seen,
+                     "frame_ms_all": s["frame_ms_all"],
+                     "points_per_launch": CHUNK * points,
+                     "samples": [r.cfg.n_coarse, r.cfg.n_fine],
+                     "startup": s["startup"], **row}
+        print(f"occupancy serve {name} ({' '.join(flags)}): startup "
+              f"{s['startup']}, {n_frames} frames {s['frames']} (expected "
+              f"{per_frame} {'int8' if int8 else 'fine'} launches a frame of "
+              f"{CHUNK} x {points} points, no coarse launch, plain 0); acc > "
+              f"0.05 on {seen:.2%} of the pixels; frame "
+              f"{s['frame_ms']:.1f} ms wall (median of {OCC_REQUESTS} png "
+              f"requests; plain bf16 server {plain['frame_ms']:.1f} ms), "
+              f"render_pose alone {s['render_ms']:.1f} ms (median of 5; "
+              f"plain {plain['render_ms']:.1f} ms); card: {card}",
+              flush=True)
+        frames[name] = got["rgb"]
+    out["counts"] = total
+    return out, frames
+
+
+def fine_only(state):
+    """The fine net's params and Adam state of ``state`` (the leaves an
+    occupancy step trains) for ``compare_steps``."""
+    from types import SimpleNamespace
+    return SimpleNamespace(
+        params={"fine": state.params["fine"]}, ema_params=None,
+        opt_state=SimpleNamespace(count=state.opt_state.count,
+                                  mu={"fine": state.opt_state.mu["fine"]}))
+
+
+def phase_occ_steps(fm, fb, fq, card: str) -> dict:
+    """10d, in-process: three occupancy steps (merge) at phase 5's lego
+    shape through the kernels, each held against the same step with
+    kernels="off" from the same state and grid at phase 6's bf16
+    tolerances (the fine net; the coarse net bitwise unchanged), exactly
+    1 forward + 1 backward launch a step; then the occupancy step timed
+    against the plain step in LEVER_ROUNDS interleaved rounds of
+    LEVER_TIMED steps, as phase 8 times its levers."""
+    from cvnerf_torch.data.synthetic import bench_scene
+    from cvnerf_torch.ops.rng import PRNGKey, fold_in
+    from cvnerf_torch.render.occupancy import (bake_scene_occupancy,
+                                               occupied_fraction)
+    from cvnerf_torch.train.loop import make_train_step
+    from cvnerf_torch.train.state import create_train_state, tree_leaves
+    images_np, poses_np = bench_scene(TRAIN_HW, TRAIN_HW)
+    images = torch.as_tensor(images_np, device="cuda")
+    poses = torch.as_tensor(poses_np, device="cuda")
+    idx = torch.tensor([0, 1])
+    tcfg = lego_train_config(torch.bfloat16)
+    start = create_train_state(PRNGKey(SEED + 5), lr=tcfg.lr,
+                               lr_decay=tcfg.lr_decay, mlp=tcfg.render.mlp,
+                               device="cuda")
+    grid = bake_scene_occupancy(start.params, tcfg.render.mlp, ndc=False,
+                                bound=OCC_BOUND, n_fine=128,
+                                resolution=OCC_RES,
+                                compute_dtype=torch.bfloat16)
+    frac = occupied_fraction(grid)
+    if not frac > 0:
+        fail("occupancy steps: the starting state's grid is empty")
+    step_on = make_train_step(tcfg, with_occupancy=True)
+    step_off = make_train_step(lego_train_config(torch.bfloat16, "off"),
+                               with_occupancy=True)
+    state, errs, coarse_same = start, [], True
+    for i in range(1, 4):
+        key = fold_in(PRNGKey(SEED), i)
+        torch.cuda.synchronize()
+        reset_counts(fm, fb, fq)
+        on, m_on = step_on(state, grid, key, images, poses, idx, False)
+        torch.cuda.synchronize()
+        check_calls(f"occupancy step {i}", [read_counts(fm, fb, fq)], 1,
+                     {"fwd": 1, "bwd": 1})
+        off, m_off = step_off(state, grid, key, images, poses, idx, False)
+        m_on = {k: float(v) for k, v in m_on.items()}
+        m_off = {k: float(v) for k, v in m_off.items()}
+        if not all(np.isfinite(v) for v in m_on.values()):
+            fail(f"occupancy step {i}: non-finite metrics {m_on}")
+        errs.append(compare_steps(f"occupancy step {i}", fine_only(state),
+                                  fine_only(on), fine_only(off), m_on, m_off,
+                                  tcfg.lr))
+        coarse_same &= all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(on.params["coarse"]),
+            tree_leaves(start.params["coarse"])))
+        state = on
+    if not coarse_same:
+        fail("occupancy steps: the coarse net moved")
+    times = {"occ": [], "plain": []}
+    for r in range(LEVER_ROUNDS):
+        turns = (("plain", None), ("occ", grid))
+        for arm, g in turns if r % 2 == 0 else turns[::-1]:
+            times[arm].append(time_trainer(
+                tcfg, start, images_np, poses_np, LEVER_TIMED, g))
+    worst = {k: max(e[k] for e in errs) for k in errs[0]}
+    occ_ms, plain_ms = (float(np.median(times[k])) for k in ("occ", "plain"))
+    print(f"occupancy steps (merge, res {OCC_RES}, occupied {frac:.4%}): 3 "
+          f"steps 1 + 1 launches each, plain 0, coarse net bitwise "
+          f"unchanged; vs kernels='off' loss rel {worst['loss_rel']:.2e}, "
+          f"fine grads {worst['grad_rel']:.2e}, params "
+          f"{worst['param_max']:.2e} (large-|g| {worst['param_big']:.2e}); "
+          f"{LEVER_ROUNDS} interleaved rounds of {LEVER_TIMED} steps: "
+          f"occupancy step {occ_ms:.3f} ms (rounds "
+          f"{[round(t, 3) for t in times['occ']]}), plain step "
+          f"{plain_ms:.3f} ms (rounds "
+          f"{[round(t, 3) for t in times['plain']]}); card: {card}",
+          flush=True)
+    return {"step_ms": occ_ms, "plain_step_ms": plain_ms,
+            "step_ms_rounds": times["occ"],
+            "plain_step_ms_rounds": times["plain"], **worst}
+
+
+def phase_occ_cli(fm, fb, fq, card: str, tmp: str) -> dict:
+    """10d, through the CLI (main path): ``--occ_train --occ_train_warmup
+    20 --occ_train_every 20`` (merge) on phase 7's fixture for 60 steps:
+    steps 1-20 2 + 2 launches, from the switch on 1 + 1, frames 40 fine
+    launches (the CLI's chunk 4096), plain 0; the verdicts switched,
+    rebaked, rebaked in metrics.jsonl; the coarse net bitwise that of the
+    step-20 checkpoint; a run stopped at 40 and resumed re-enters the
+    occupancy step at once; a short full-mode run with ``--occ_floor 16``;
+    ``from_run_dir`` of the run serves through a grid."""
+    from cvnerf_torch.serve import NerfRenderer
+    logs = os.path.join(tmp, "occ_logs")
+    data = os.path.join(tmp, "lego_fixture")
+    lego = str(Path(__file__).resolve().parent / "configs" / "lego.txt")
+    base = ["--config", lego, "--data_dir", data,
+            "--base_dir", logs, "--save_dir", logs, "--testskip", "1",
+            "--ckpt_freq", "20", "--val_freq", "30", "--vid_freq", "0",
+            "--print_freq", "10", "--deterministic_resample",
+            "--occ_train", "--occ_train_warmup", "20",
+            "--occ_train_every", "20", "--occupancy_res", str(OCC_RES)]
+    occ_frame = {"fwd": -(-SERVE_HW * SERVE_HW // 4096)}          # 40
+    bake = -(-OCC_RES ** 3 // 65536)
+    total = {k: 0 for k in read_counts(fm, fb, fq)}
+
+    def drive(argv, plain_steps, occ_steps, n_frames, n_bakes):
+        _, counts, steps, frames = drive_cli(fm, fb, fq, argv)
+        check_calls(f"occ cli {argv[-6:]} plain steps", steps[:plain_steps],
+                    plain_steps, {"fwd": 2, "bwd": 2})
+        check_calls(f"occ cli {argv[-6:]} occupancy steps",
+                    steps[plain_steps:], occ_steps, {"fwd": 1, "bwd": 1})
+        check_calls(f"occ cli {argv[-6:]} frames", frames, n_frames,
+                    occ_frame)
+        want = (2 * plain_steps + occ_steps + n_frames * occ_frame["fwd"]
+                + n_bakes * bake)
+        if counts["fwd"] != want or counts["fwd_plain"] \
+                or counts["bwd_plain"]:
+            fail(f"occ cli {argv[-6:]}: launches {counts}, expected "
+                 f"{want} forward (bakes included) and no plain call")
+        for k, v in counts.items():
+            total[k] += v
+
+    t0 = time.perf_counter()
+    drive([*base, "--name", "a", "--iters", "61"], 20, 40, 6, 3)
+    wall_s = time.perf_counter() - t0
+    run_a = os.path.join(logs, "a")
+    with open(os.path.join(run_a, "metrics.jsonl")) as fp:
+        recs = [json.loads(line) for line in fp]
+    verdicts = [(r["step"], r["occ_verdict"], r["occ_occupied_frac"])
+                for r in recs if "occ_verdict" in r]
+    if [v[:2] for v in verdicts] != [(20, "switched"), (40, "rebaked"),
+                                     (60, "rebaked")]:
+        fail(f"occ cli: verdicts {verdicts}")
+    ck = os.path.join(run_a, "torch_checkpoints")
+    at20 = torch.load(os.path.join(ck, "000020.pt"), weights_only=True)
+    at60 = torch.load(os.path.join(ck, "000060.pt"), weights_only=True)
+    coarse_diffs = walk_diffs(at20["coarse"], at60["coarse"])
+    fine_moved = bool(walk_diffs(at20["fine"], at60["fine"]))
+    if coarse_diffs or not fine_moved:
+        fail(f"occ cli: coarse net moved after the switch "
+             f"({list(coarse_diffs)[:4]}) or the fine net did not")
+    logged = [r for r in recs if "lr" in r]
+    test = [r for r in recs if "test_psnr" in r][-1]
+
+    drive([*base, "--name", "b", "--iters", "41"], 20, 20, 4, 2)
+    drive([*base, "--name", "b", "--iters", "61"], 0, 20, 4, 2)
+    b60 = torch.load(os.path.join(logs, "b", "torch_checkpoints",
+                                  "000060.pt"), weights_only=True)
+    resumed_bitwise = not walk_diffs(at60, b60)
+
+    drive([*base, "--name", "full", "--iters", "25", "--occ_train_mode",
+           "full", "--occ_floor", "16", "--val_freq", "0", "--ckpt_freq",
+           "0"], 20, 4, 2, 1)
+    with open(os.path.join(logs, "full", "scene.json")) as fp:
+        record = json.load(fp)["occ_train"]
+    if record != {"resolution": OCC_RES, "bound": OCC_BOUND, "mode": "full",
+                  "interp": "nearest", "floor": 16}:
+        fail(f"occ cli: full-mode record {record}")
+
+    torch.cuda.synchronize()
+    reset_counts(fm, fb, fq)
+    r = NerfRenderer.from_run_dir(run_a, device="cuda")
+    rgb = r.render_pose(pose(0.5))
+    torch.cuda.synchronize()
+    served = read_counts(fm, fb, fq)
+    check_calls("occ cli from_run_dir", [served], 1,
+                 {"fwd": bake + -(-SERVE_HW * SERVE_HW // CHUNK)})
+    if r.occupancy is None or r.cfg.occupancy_mode != "merge" \
+            or not np.isfinite(rgb).all():
+        fail("occ cli: from_run_dir did not serve the run through a grid")
+    for k, v in served.items():
+        total[k] += v
+    print(f"occ cli: --occ_train (merge) 60 lego-shaped bf16 steps through "
+          f"python -m cvnerf_torch.cli in {wall_s:.2f} s wall: verdicts "
+          f"{verdicts}; steps 1-20 2 + 2 launches, 21-60 1 + 1, frames "
+          f"{occ_frame['fwd']} fine launches, plain 0; loss "
+          f"{logged[0]['loss']:.4f} -> {logged[-1]['loss']:.4f}, test psnr "
+          f"{test['test_psnr']:.4f}; coarse net bitwise the step-20 "
+          f"checkpoint's; stopped at 40 and resumed: every resumed step an "
+          f"occupancy step, final checkpoint bitwise the uninterrupted "
+          f"run's: {resumed_bitwise}; full mode --occ_floor 16: 4 "
+          f"occupancy steps 1 + 1; from_run_dir serves through a grid "
+          f"(mode {r.cfg.occupancy_mode}, {served}); launches {total}; "
+          f"card: {card}", flush=True)
+    return {"counts": total, "verdicts": verdicts, "cli_wall_s": wall_s,
+            "resumed_bitwise": resumed_bitwise,
+            "test_psnr": test["test_psnr"]}
+
+
+def phase_mesh(fm, fb, fq, card: str, run: str, tmp: str) -> dict:
+    """10e. ``python -m cvnerf_torch.render.mesh --run <phase-7 run>`` at
+    its default --res 256 (main path): 16,777,216 grid points through the
+    forward kernel in 256 launches, no plain call; the density grid against
+    kernels="off" on the card at phase 1's bf16 tolerance; the mesh
+    written, its vertex and face counts and the host seconds of the
+    marching pass printed."""
+    import contextlib
+    import io
+    from cvnerf_torch.render import mesh as tmesh
+    from cvnerf_torch.serve import NerfRenderer
+    out = os.path.join(tmp, "mesh.obj")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts(fm, fb, fq)
+    with contextlib.redirect_stdout(buf):
+        rc = tmesh.main(["--run", run, "--out", out])
+    torch.cuda.synchronize()
+    counts = read_counts(fm, fb, fq)
+    printed = buf.getvalue().strip()
+    print(printed, flush=True)
+    n_launch = -(-MESH_RES ** 3 // 65536)                         # 256
+    check_calls("mesh grid query", [counts], 1, {"fwd": n_launch})
+    m = re.search(r"(\d+) verts, (\d+) faces .*grid query ([\d.]+) s, "
+                  r"marching ([\d.]+) s", printed)
+    if rc != 0 or m is None or not os.path.exists(out):
+        fail(f"mesh: the CLI did not write its mesh ({printed!r})")
+    verts, faces = int(m.group(1)), int(m.group(2))
+    query_s, march_s = float(m.group(3)), float(m.group(4))
+    with open(out) as fp:
+        head = fp.readline()
+    if head != f"# cvnerf_torch mesh: {verts} verts, {faces} faces\n":
+        fail(f"mesh: OBJ header {head!r}")
+    r = NerfRenderer.from_run_dir(run, device="cuda")
+    bb = ((-1.5,) * 3, (1.5,) * 3)
+    grid = tmesh.query_density_grid(r._float_params["fine"], r.cfg.mlp, *bb,
+                                    MESH_RES,
+                                    compute_dtype=r.cfg.compute_dtype)
+    off = tmesh.query_density_grid(r._float_params["fine"], r.cfg.mlp, *bb,
+                                   MESH_RES,
+                                   compute_dtype=r.cfg.compute_dtype,
+                                   kernels="off")
+    err = float(np.abs(grid - off).max())
+    print(f"mesh: --res {MESH_RES} on phase 7's run (step {r.step}): launches "
+          f"{counts} (expected {n_launch} forward, plain 0); density grid "
+          f"vs kernels='off' on the card max |sigma diff| {err:.3e} (tol "
+          f"{TOL_BF16:g}), sigma range [{float(grid.min()):.3f}, "
+          f"{float(grid.max()):.3f}]; {verts} vertices, {faces} faces; grid "
+          f"query {query_s:.3f} s, host marching pass {march_s:.3f} s; "
+          f"card: {card}", flush=True)
+    if not err <= TOL_BF16:
+        fail("mesh: the kernel's density grid disagrees with kernels='off'")
+    return {"counts": counts, "verts": verts, "faces": faces,
+            "query_s": query_s, "march_s": march_s, "max_abs_err": err}
+
+
+def phase_lpips(card: str, tmp: str, a: np.ndarray, b: np.ndarray) -> dict:
+    """10f. LPIPS with seeded random weights in the loader's ``.npz``
+    layout: the distance of two rendered frames on the card against the
+    same call on the CPU, within 1e-5 relative."""
+    from cvnerf_torch.utils.lpips import _STAGES, load_weights, lpips_images
+    rng_np = np.random.RandomState(SEED)
+    bundle = {}
+    for i, (ch, k, _, _) in enumerate(_STAGES):
+        cin = 3 if i == 0 else _STAGES[i - 1][0]
+        bundle[f"conv{i}_w"] = rng_np.randn(ch, cin, k, k).astype(
+            np.float32) * 0.1
+        bundle[f"conv{i}_b"] = rng_np.randn(ch).astype(np.float32) * 0.1
+        bundle[f"lin{i}"] = rng_np.rand(ch).astype(np.float32)
+    path = os.path.join(tmp, "lpips_random.npz")
+    np.savez(path, **bundle)
+    w_gpu, w_cpu = load_weights(path, "cuda"), load_weights(path, "cpu")
+    t0 = time.perf_counter()
+    d_gpu = lpips_images(a, b, w_gpu)
+    gpu_ms = (time.perf_counter() - t0) * 1e3
+    d_cpu = lpips_images(a, b, w_cpu)
+    rel = abs(d_gpu - d_cpu) / max(abs(d_cpu), 1e-30)
+    print(f"lpips: two 400x400 occupancy frames (merge vs full with the "
+          f"reduced budget), random "
+          f"weights: card {d_gpu:.8f} ({gpu_ms:.1f} ms wall), CPU "
+          f"{d_cpu:.8f}, rel diff {rel:.2e} (tol 1e-5); card: {card}",
+          flush=True)
+    if not (d_cpu > 0 and rel <= 1e-5):
+        fail("lpips: the card's distance differs from the CPU's")
+    return {"card": d_gpu, "cpu": d_cpu, "rel_diff": rel, "card_ms": gpu_ms}
+
+
 def check_png_or_ppm(body: bytes, ctype: str, h: int, w: int) -> None:
     if ctype == "image/png":
         if body[:8] != b"\x89PNG\r\n\x1a\n":
@@ -1920,12 +2475,17 @@ def main() -> int:
                 fail(f"end-to-end {dt} {k} differs by {v}")
 
     # -- 5. train through Trainer (main path) -----------------------------
-    train_counts, step_ms, split = phase_train(fm, fb, fq, card)
+    train_counts, step_ms, split, trained = phase_train(fm, fb, fq, card)
     # -- 5b. fp32 training, the --no-bf16 path (main path) ----------------
     train32_counts, step32_ms, split32 = phase_train_fp32(fm, fb, fq, card)
 
     # -- 6. one train step, kernels vs kernels="off", on the card ----------
     phase_step_vs_off(cfg)
+    # -- 10a. the occupancy bake of phase 5's trained nets (main path) ----
+    occ_bake = phase_occ_bake(fm, fb, fq, card, trained, cfg)
+    del trained
+    # -- 10d. occupancy steps against kernels="off", and timed ------------
+    occ_steps = phase_occ_steps(fm, fb, fq, card)
 
     with tempfile.TemporaryDirectory() as tmp:
         # -- 7. the training entry point (main path) ----------------------
@@ -1936,10 +2496,24 @@ def main() -> int:
                                     os.path.join(tmp, "lego_fixture"))
         # -- 9. a quality band (main path) --------------------------------
         band = phase_band(fm, fb, fq, card, tmp)
-    late = [levers["counts"], lever_cli["counts"], band["counts"]]
+        # -- 10b, 10c. occupancy serving of phase 7's run, bf16 and int8 --
+        run_a = os.path.join(tmp, "cli_logs", "lego_a")
+        occ_serve, occ_frames = phase_occ_serve(fm, fb, fq, card, run_a)
+        # -- 10f. LPIPS of two of those frames, card against CPU ----------
+        lpips = phase_lpips(card, tmp, occ_frames["merge"],
+                            occ_frames["full_term"])
+        # -- 10d. occupancy training through the CLI (main path) ----------
+        occ_cli = phase_occ_cli(fm, fb, fq, card, tmp)
+        # -- 10e. the mesh CLI on phase 7's run (main path) ---------------
+        mesh = phase_mesh(fm, fb, fq, card, run_a, tmp)
+    late = [levers["counts"], lever_cli["counts"], band["counts"],
+            occ_cli["counts"]]
+    occ_fwd = (occ_bake["counts"]["fwd"] + occ_serve["counts"]["fwd"]
+               + mesh["counts"]["fwd"])
 
     main_launches = (serve_launches + video_launches + train_counts["fwd"]
-                     + cli["counts"]["fwd"] + sum(c["fwd"] for c in late))
+                     + cli["counts"]["fwd"] + sum(c["fwd"] for c in late)
+                     + occ_fwd)
     serve_row = next(r for r in rows
                      if r["n"] == CHUNK * 192 and r["dtype"] == "bfloat16")
     fine_row = next(r for r in bwd_rows
@@ -1963,6 +2537,11 @@ def main() -> int:
                  "launches": frame32_counts["fwd"] + train32_counts["fwd"],
                  "frame_ms": frame32_ms, **fp32_of(rows, CHUNK * 192)},
         "cli": {k: v for k, v in cli.items() if k != "counts"},
+        "occupancy": {
+            "bake": {k: v for k, v in occ_bake.items() if k != "counts"},
+            "serve": {k: v for k, v in occ_serve.items() if k != "counts"},
+            "mesh": {k: v for k, v in mesh.items() if k != "counts"},
+            "lpips": lpips},
         "note": "ms/plain_ms/bound_ms at the fine-pass chunk "
                 f"(n={CHUNK * 192}, bf16: fused_nerf_wgmma); fp32 (the "
                 "--no-bf16 path, fused_nerf_ffma) at the same chunk, its "
@@ -1970,9 +2549,11 @@ def main() -> int:
                 "launches include phase 7's (the CLI: train steps, "
                 "validation, test, render-only and serving frames, in bf16 "
                 "and fp32), whose numbers stand under cli, and phases 8-9's "
-                "(the levers and the sphere_hi_3000 band); no single "
-                "PyTorch call computes this function, so library_ms is "
-                "null",
+                "(the levers and the sphere_hi_3000 band) and phase 10's "
+                "(occupancy bakes, occupancy frames, occupancy training "
+                "through the CLI, the mesh grid), whose numbers stand under "
+                "occupancy; no single PyTorch call computes this function, "
+                "so library_ms is null",
     }, {
         "name": "fused_nerf_bwd", "route": "cuda",
         "source": "cvnerf_torch/csrc/fused_mlp_bwd.cu",
@@ -1988,6 +2569,9 @@ def main() -> int:
         "step_split_ms": split,
         "levers": {k: v for k, v in levers.items() if k != "counts"},
         "band": {k: v for k, v in band.items() if k != "counts"},
+        "occupancy": {"steps": occ_steps,
+                      "cli": {k: v for k, v in occ_cli.items()
+                              if k != "counts"}},
         "fp32": {"kernels": ["fused_nerf_bwd_ffma", "wgrad_ffma"],
                  "launches": train32_counts["bwd"], "step_ms": step32_ms,
                  "step_split_ms": split32, **fp32_of(bwd_rows, 1024 * 192)},
@@ -1998,6 +2582,9 @@ def main() -> int:
                 "levers: phase 8 (each lever's median step against the "
                 "plain step, its worst distance from kernels='off', the "
                 "pixel draws' cost); band: phase 9 (sphere_hi_3000); "
+                "occupancy: phase 10d (the occupancy step, 1 + 1 launches, "
+                "against the plain step; the --occ_train CLI runs, whose "
+                "launches count here); "
                 "max_abs_err is the largest per-leaf error "
                 "relative to the leaf's largest gradient; the bound counts "
                 "the least work (wgrad of 12 layers + dgrad of 11), not the "
@@ -2007,7 +2594,8 @@ def main() -> int:
         "name": "fused_nerf_apply_int8", "route": "cuda",
         "source": "cvnerf_torch/csrc/fused_mlp_int8.cu",
         "replaces": "cvnerf_tpu/ops/pallas/fused_mlp_int8.py:268",
-        "launches": int8_counts["int8"] + cli["counts"]["int8"],
+        "launches": (int8_counts["int8"] + cli["counts"]["int8"]
+                     + occ_serve["counts"]["int8"]),
         "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
         "ms": int8_rows[-1]["ms"], "plain_ms": int8_rows[-1]["plain_ms"],
         "bound_ms": int8_rows[-1]["bound_ms"],
@@ -2015,7 +2603,9 @@ def main() -> int:
         "library_ms": None,
         "shapes": int8_rows,
         "note": f"ms/plain_ms/bound_ms at the fine-pass chunk (n={CHUNK * 192}"
-                "), real head scales; the bound counts 1,186,816 int8 "
+                "), real head scales; launches include phase 10c's "
+                "(--int8 --occupancy merge frames); the bound counts "
+                "1,186,816 int8 "
                 "operations a point at 1,979 TOPS; no single PyTorch call "
                 "computes this function, so library_ms is null; yardstick "
                 "int8_gemm_chain_ms (the products unfused through "

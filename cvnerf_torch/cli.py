@@ -24,11 +24,21 @@ frequency window), ``--distortion_loss`` with ``--distortion_start`` and
 recorded ``freq_anneal`` and ``ema_decay`` stay in force when a later
 invocation omits the flag, with the JAX CLI's messages.
 
-Flags of the JAX CLI that the port does not carry yet (occupancy, LPIPS,
-several processes) are refused by name, with the ROADMAP item that brings
-them, before anything is written to the run directory; so is a run
-directory whose ``scene.json`` recorded occupancy training, unless
-``--no_reload`` starts a fresh run there.
+Occupancy training (``--occ_train``) runs as in the JAX CLI: after
+``--occ_train_warmup`` steps a callback (registered first, so validation
+and videos render through the fresh grid) bakes a grid from the fine net
+every ``--occ_train_every`` steps and the trainer switches to the
+occupancy step; ``metrics.jsonl`` records each verdict. The run
+directory's ``scene.json`` records the bake and the sampling mode, probe
+and floor, which stay in force when a later invocation omits them; a
+plain re-invocation keeps the record (``--no_reload`` drops it), and
+``--render_only`` renders such a run through a grid (``--occupancy``
+renders any run so). ``--lpips_weights`` adds LPIPS to the held-out
+scores (``utils/lpips.py``).
+
+Several processes (``--coordinator``, ``--num_processes``,
+``--process_id``) are refused by name, with the ROADMAP item that brings
+them, before anything is written to the run directory.
 """
 
 from __future__ import annotations
@@ -39,7 +49,6 @@ import sys
 
 import numpy as np
 
-EXTRAS_ITEM = "ROADMAP Queue 1 item 10 (serving extras)"
 MESH_ITEM = "ROADMAP Queue 1 item 11 (data parallelism)"
 
 
@@ -47,19 +56,15 @@ def unported(args) -> list[tuple[str, str]]:
     """``(flag, ROADMAP item)`` for each flag set that the port does not
     carry yet."""
     return [(flag, item) for flag, on, item in (
-        ("--occ_train", args.occ_train, EXTRAS_ITEM),
-        ("--occupancy", args.occupancy is not None, EXTRAS_ITEM),
-        ("--lpips_weights", args.lpips_weights is not None, EXTRAS_ITEM),
         ("--coordinator", args.coordinator is not None, MESH_ITEM),
         ("--num_processes", args.num_processes is not None, MESH_ITEM),
         ("--process_id", args.process_id is not None, MESH_ITEM)) if on]
 
 
-def _refuse(found: list[tuple[str, str]], where: str = "") -> None:
+def _refuse(found: list[tuple[str, str]]) -> None:
     if found:
         raise NotImplementedError(
-            "not ported yet: " + "; ".join(f"{f} ({i})" for f, i in found)
-            + where)
+            "not ported yet: " + "; ".join(f"{f} ({i})" for f, i in found))
 
 
 def _snapshot(run_dir: str) -> dict:
@@ -71,15 +76,6 @@ def _snapshot(run_dir: str) -> dict:
     except (OSError, ValueError):
         return {}
     return snap if isinstance(snap, dict) else {}
-
-
-def _recorded(run_dir: str) -> list[tuple[str, str]]:
-    """The unported training modes a run directory's ``scene.json``
-    recorded (occupancy training)."""
-    snap = _snapshot(run_dir)
-    return [(flag, item) for flag, on, item in (
-        ("--occ_train", isinstance(snap.get("occ_train"), dict),
-         EXTRAS_ITEM),) if on]
 
 
 def _recorded_levers(run_dir: str) -> tuple[int | None, float | None]:
@@ -161,6 +157,44 @@ def resolve_levers(args, run_dir: str) -> None:
             f"the distortion regularizer was measured to collapse into")
 
 
+def resolve_occupancy(args, run_dir: str) -> dict | None:
+    """Resolve the occupancy flags against the run directory's recorded
+    ``occ_train``, with the JAX CLI's rules and messages: an unset
+    ``--occ_train_mode``, ``--occ_interp`` or ``--occ_floor`` takes the
+    recorded value (a record without the field: ``full``, ``nearest``, 0),
+    else ``merge``, ``nearest``, 0; ``--no_reload`` ignores the record. A
+    plain re-invocation of an occupancy-trained run keeps the record in
+    ``scene.json`` (its checkpoints carry an untrained coarse net):
+    returns that record, else None."""
+    snap = _snapshot(run_dir)
+    recorded = snap.get("occ_train")
+    recorded = dict(recorded) if isinstance(recorded, dict) else None
+    sticky = None if args.no_reload else recorded
+    if args.occ_train_mode is None:
+        mode = sticky.get("mode", "full") if sticky is not None else None
+        args.occ_train_mode = mode or "merge"
+        if mode and args.occ_train:
+            print(f"occ_train: using the run dir's recorded sampling mode "
+                  f"{mode!r} (pass --occ_train_mode to override)")
+    if args.occ_interp is None:
+        args.occ_interp = (sticky.get("interp", "nearest")
+                           if sticky is not None else "nearest")
+    if args.occ_floor is None:
+        args.occ_floor = sticky.get("floor", 0) if sticky is not None else 0
+    if recorded is None or args.occ_train:
+        return None
+    if args.no_reload:
+        print("[WARN] run dir recorded --occ_train but this fresh "
+              "(--no_reload) run is plain: dropping the occupancy "
+              "serving metadata from scene.json")
+        return None
+    print("[WARN] run dir recorded --occ_train but this invocation "
+          "omits it: preserving the occupancy serving metadata in "
+          "scene.json (the existing checkpoints carry an untrained "
+          "coarse net). Pass --no_reload for a fresh plain run.")
+    return recorded
+
+
 def main(argv=None):
     """Run the CLI; returns the run's final metrics (with the test
     scores), or under ``--render_only`` the rendered step and, with
@@ -173,10 +207,6 @@ def main(argv=None):
                          "its kernels (auto, on) or the plain PyTorch MLP "
                          "(off)")
     run_dir = os.path.join(args.base_dir, args.name)
-    recorded = _recorded(run_dir)
-    if not args.no_reload:
-        _refuse(recorded, f", recorded by {run_dir}/scene.json; pass "
-                          "--no_reload to start a fresh run there")
 
     import torch
     from cvnerf_torch import resolve_device
@@ -185,12 +215,12 @@ def main(argv=None):
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     try:
-        return _run(args, dev, run_dir, recorded)
+        return _run(args, dev, run_dir)
     finally:
         torch.autograd.set_detect_anomaly(anomaly)
 
 
-def _run(args, dev, run_dir: str, recorded: list) -> dict:
+def _run(args, dev, run_dir: str) -> dict:
     import dataclasses
 
     import torch
@@ -203,6 +233,8 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
     from cvnerf_torch.ops.rng import PRNGKey
     from cvnerf_torch.render.frames import (render_image,
                                             render_poses_to_frames)
+    from cvnerf_torch.render.occupancy import (bake_scene_occupancy,
+                                               occupied_fraction)
     from cvnerf_torch.render.renderer import RenderConfig
     from cvnerf_torch.serve import CKPT_SUBDIR, write_scene_snapshot
     from cvnerf_torch.train.checkpoint import (Checkpointer, latest_step,
@@ -211,6 +243,7 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
     from cvnerf_torch.train.state import create_train_state, make_lr_schedule
     from cvnerf_torch.utils.image import (psnr_images, ssim_images,
                                           write_png, write_video)
+    from cvnerf_torch.utils.lpips import lpips_images, load_weights
     from cvnerf_torch.utils.metrics import MetricsLogger
 
     # --- data ---
@@ -232,20 +265,7 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
     os.makedirs(run_dir, exist_ok=True)
     os.makedirs(save_dir, exist_ok=True)
     resolve_levers(args, run_dir)
-    # A fresh (--no_reload) run drops a recorded occupancy mode, which the
-    # port does not carry on; the JAX CLI's message.
-    if recorded:
-        print("[WARN] run dir recorded --occ_train but this fresh "
-              "(--no_reload) run is plain: dropping the occupancy "
-              "serving metadata from scene.json")
-    # The values the JAX CLI resolves these to on a plain run, so the two
-    # CLIs snapshot the same config.
-    if args.occ_train_mode is None:
-        args.occ_train_mode = "merge"
-    if args.occ_interp is None:
-        args.occ_interp = "nearest"
-    if args.occ_floor is None:
-        args.occ_floor = 0
+    preserve_occ = resolve_occupancy(args, run_dir)
     snapshot_config(args, run_dir)
     ckpt_dir = os.path.join(run_dir, CKPT_SUBDIR)
     if args.steps_per_call != 1 or args.netchunk != 1024 * 64:
@@ -258,13 +278,24 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
     mlp = NerfMLPConfig(xyz_freqs=args.xyz_freqs, dir_freqs=args.dir_freqs,
                         trunk_width=args.trunk_width,
                         head_width=args.head_width)
+    if args.occ_train and args.n_fine_samples <= 0:
+        sys.exit("--occ_train requires n_fine_samples > 0 (occupancy "
+                 "sampling resamples n_fine points from the grid probe "
+                 "CDF)")
+    if args.occ_train and args.occ_train_every <= 0:
+        sys.exit("--occ_train_every must be > 0: the switch to occupancy "
+                 "training happens inside the rebake callback, so a "
+                 "non-positive cadence would silently never switch")
     rcfg_train = RenderConfig(
         n_coarse=args.n_coarse_samples, n_fine=args.n_fine_samples,
         perturb=args.perturb > 0, noise_std=args.noise,
         white_bkg=args.white_bkg, mlp=mlp,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         sorted_resample=args.sorted_resample,
-        kernels="off" if args.pallas == "off" else "on")
+        kernels="off" if args.pallas == "off" else "on",
+        occupancy_mode=args.occ_train_mode if args.occ_train else "merge",
+        occupancy_interp=args.occ_interp,
+        occ_floor=args.occ_floor if args.occ_train else 0)
     rcfg_test = rcfg_train.eval_mode()
     if args.deterministic_resample:
         rcfg_test = dataclasses.replace(rcfg_test,
@@ -277,6 +308,12 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
         n_coarse=args.n_coarse_samples, n_fine=args.n_fine_samples,
         bf16=args.bf16, mlp=mlp, sorted_resample=args.sorted_resample,
         pallas=args.pallas, calib_poses=scene.poses,
+        occ_train=args.occ_train or preserve_occ is not None,
+        occ_res=(preserve_occ or {}).get("resolution", args.occupancy_res),
+        occ_bound=(preserve_occ or {}).get("bound", args.occupancy_bound),
+        occ_mode=(preserve_occ or {}).get("mode", args.occ_train_mode),
+        occ_interp=(preserve_occ or {}).get("interp", args.occ_interp),
+        occ_floor=(preserve_occ or {}).get("floor", args.occ_floor),
         freq_anneal=args.freq_anneal, ema_decay=args.ema_decay)
 
     # The JAX CLI's nets for the same --seed, bit for bit.
@@ -367,7 +404,7 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
 
     render_chunk = args.chunk
 
-    def spiral_video(step: int, nets: dict) -> np.ndarray:
+    def spiral_video(step: int, nets: dict, occupancy=None) -> np.ndarray:
         frame_dir = os.path.join(save_dir, f"spiral_{step:06d}")
 
         def on_frame(i, rgb):
@@ -379,7 +416,7 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
             scene.near, scene.far, rcfg_test, ndc=scene.ndc,
             ndc_variant=args.ndc_variant, chunk=render_chunk,
             factor=args.render_factor, on_frame=on_frame, frame_keys=keys,
-            device=dev, key=PRNGKey(args.seed + 1))
+            device=dev, key=PRNGKey(args.seed + 1), occupancy=occupancy)
         frames = out_frames if not args.render_depth else out_frames["rgb"]
         out = write_video(
             os.path.join(save_dir, f"{args.name}_spiral_{step:06d}_rgb.mp4"),
@@ -422,22 +459,43 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
 
     val_views, test_views = _split_heldout_views()
 
-    def score_views(nets: dict, views, key_seed: int):
-        """Mean PSNR/SSIM over ``views`` rendered with ``PRNGKey
-        (key_seed)``; returns (psnr, ssim, first rgb)."""
-        psnrs, ssims, rgb0 = [], [], None
+    # LPIPS (weights pluggable): a bad path fails here, not at the final
+    # eval; frames below AlexNet's 32 px support score PSNR/SSIM alone.
+    lpips_bundle = None
+    if args.lpips_weights:
+        lpips_bundle = load_weights(args.lpips_weights, dev)
+        if min(scene.height, scene.width) < 32:
+            print(f"[WARN] --lpips_weights ignored: {scene.height}x"
+                  f"{scene.width} frames are below the 32px AlexNet-LPIPS "
+                  "minimum")
+            lpips_bundle = None
+
+    def _lpips(rgb, gt) -> float | None:
+        if lpips_bundle is None:
+            return None
+        return lpips_images(rgb, np.asarray(gt)[..., :3], lpips_bundle)
+
+    def score_views(nets: dict, views, key_seed: int, occupancy=None):
+        """Mean PSNR/SSIM (and LPIPS with ``--lpips_weights``, else None)
+        over ``views`` rendered with ``PRNGKey(key_seed)``; returns (psnr,
+        ssim, first rgb, lpips)."""
+        psnrs, ssims, lps, rgb0 = [], [], [], None
         for i in views:
             out = render_image(
                 nets, scene.height, scene.width, scene.focal,
                 torch.as_tensor(scene.poses[int(i)], device=dev), scene.near,
                 scene.far, rcfg_test, ndc=scene.ndc,
                 ndc_variant=args.ndc_variant, chunk=render_chunk,
-                key=PRNGKey(key_seed))
+                key=PRNGKey(key_seed), occupancy=occupancy)
             rgb = out["rgb"].cpu().numpy()
             rgb0 = rgb if rgb0 is None else rgb0
             psnrs.append(psnr_images(rgb, scene.images[int(i)]))
             ssims.append(ssim_images(rgb, scene.images[int(i)]))
-        return float(np.mean(psnrs)), float(np.mean(ssims)), rgb0
+            lp = _lpips(rgb, scene.images[int(i)])
+            if lp is not None:
+                lps.append(lp)
+        return (float(np.mean(psnrs)), float(np.mean(ssims)), rgb0,
+                float(np.mean(lps)) if lps else None)
 
     # --- render-only mode ---
     if args.render_only:
@@ -453,6 +511,36 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
                       f"--no-track_best for the last checkpoint")
         params = render_params(deploy_params(state), start)
         nets = frame_nets(params)
+        occ = None
+        if (args.occ_train or preserve_occ is not None) and not args.occupancy:
+            # An --occ_train run's checkpoints carry an untrained coarse
+            # net: render them the way they were trained.
+            args.occupancy = ((preserve_occ or {}).get("mode")
+                              or args.occ_train_mode)
+            if preserve_occ is not None:
+                args.occupancy_res = preserve_occ.get(
+                    "resolution", args.occupancy_res)
+                args.occupancy_bound = preserve_occ.get(
+                    "bound", args.occupancy_bound)
+                print(f"--render_only: rendering through the run dir's "
+                      f"recorded occupancy mode {args.occupancy!r}")
+        if args.occupancy:
+            occ = bake_scene_occupancy(
+                params, mlp, ndc=scene.ndc, bound=args.occupancy_bound,
+                n_fine=args.n_fine_samples, resolution=args.occupancy_res,
+                compute_dtype=rcfg_test.compute_dtype,
+                kernels=rcfg_test.kernels)
+            if occupied_fraction(occ) <= 0.0:
+                # A grid with no support would give every ray the
+                # ε-uniform fallback CDF; grid-less rendering is defined.
+                print("[WARN] occupancy bake found no positive density — "
+                      "rendering grid-less", flush=True)
+                occ = None
+            else:
+                rcfg_test = dataclasses.replace(
+                    rcfg_test, occupancy_mode=args.occupancy)
+                print(f"occupancy grid active: mode={args.occupancy} "
+                      f"res={args.occupancy_res}")
         if args.int8:
             from cvnerf_torch.ops.fused_mlp_int8 import QuantizedNerfWeights
             from cvnerf_torch.ops.quantize import (quantize_nerf,
@@ -468,7 +556,7 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
                     {k: QuantizedNerfWeights(q, mlp) for k, q in qs.items()})
             print(f"int8 quantized rendering active "
                   f"(calibrated on {args.int8_calib} ray samples)")
-        frames = spiral_video(start, nets)
+        frames = spiral_video(start, nets, occupancy=occ)
         result = {"step": start}
         if args.render_test and not args.render_factor:
             # The render of the held-out poses is the evaluation.
@@ -479,9 +567,15 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
             result["test_ssim"] = float(np.mean(
                 [ssim_images(frames[k], scene.images[int(i)])
                  for k, i in enumerate(test_idx)]))
+            lps = [_lpips(frames[k], scene.images[int(i)])
+                   for k, i in enumerate(test_idx)]
+            lp_txt = ""
+            if lps and lps[0] is not None:
+                result["test_lpips"] = float(np.mean(lps))
+                lp_txt = f" test_lpips={result['test_lpips']:.4f}"
             print(f"render_test @ step {start}: test_psnr="
                   f"{result['test_psnr']:.3f} "
-                  f"test_ssim={result['test_ssim']:.4f} "
+                  f"test_ssim={result['test_ssim']:.4f}{lp_txt} "
                   f"({len(test_idx)} views)")
         return result
 
@@ -503,6 +597,29 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
                       scene.train_idx, seed=args.seed,
                       steps_per_call=args.steps_per_call)
     logger = MetricsLogger(run_dir)
+
+    occ_bake = None
+    if args.occ_train:
+        def occ_bake(params):
+            return bake_scene_occupancy(
+                params, mlp, ndc=scene.ndc, bound=args.occupancy_bound,
+                n_fine=args.n_fine_samples, resolution=args.occupancy_res,
+                compute_dtype=rcfg_train.compute_dtype,
+                kernels=rcfg_train.kernels)
+
+        if start >= args.occ_train_warmup:
+            # Resumed past the warm-up: re-enter occupancy training now,
+            # through a grid rebaked from the restored params (so the
+            # resume is step-aligned, not bitwise).
+            verdict = trainer.maybe_set_occupancy(
+                occ_bake(render_params(trainer.state.params, start)))
+            if verdict == "postponed":
+                print("occ_train: baked grid is empty at resume — staying "
+                      "on reference-semantics training until a rebake "
+                      "finds a surface")
+            else:
+                print(f"occ_train: occupancy training active from step "
+                      f"{start} (res={args.occupancy_res})")
 
     lr_sched = make_lr_schedule(args.lr, args.lr_decay)
     dead_warned = [False]
@@ -556,18 +673,41 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
         return wrapped
 
     @_non_fatal
+    def occ_cb(i, tr, m):
+        if i < args.occ_train_warmup:
+            return
+        # The bake steers the live sampler: the raw params, not the
+        # average.
+        grid = occ_bake(render_params(tr.state.params, i))
+        frac = occupied_fraction(grid)
+        verdict = tr.maybe_set_occupancy(grid, occupied_frac=frac)
+        logger.log(i, occ_verdict=verdict, occ_occupied_frac=round(frac, 5))
+        if verdict == "switched":
+            print(f"occ_train: switched to occupancy training at step {i} "
+                  f"(res={args.occupancy_res}, rebake every "
+                  f"{args.occ_train_every})")
+        elif verdict == "postponed":
+            print(f"occ_train: baked grid still empty at step {i} — "
+                  f"postponing the occupancy switch (retrying every "
+                  f"{args.occ_train_every} steps)")
+        elif verdict == "kept":
+            print(f"[WARN] occ_train: rebake at step {i} produced an "
+                  f"empty grid; keeping the previous one", flush=True)
+
+    @_non_fatal
     def vid_cb(i, tr, m):
         frames = spiral_video(
-            i, frame_nets(render_params(deploy_params(tr.state), i)))
+            i, frame_nets(render_params(deploy_params(tr.state), i)),
+            occupancy=tr.occupancy)
         logger.log_image(i, "spiral_frame0", frames[0])
 
     @_non_fatal
     def val_cb(i, tr, m):
         if not len(val_views):
             return
-        v, s, rgb = score_views(
+        v, s, rgb, _ = score_views(
             frame_nets(render_params(deploy_params(tr.state), i)), val_views,
-            123)
+            123, occupancy=tr.occupancy)
         logger.log(i, val_psnr=v, val_ssim=s, val_views=len(val_views))
         logger.log_image(i, "val_render", rgb)
         if best_writer is not None and v > best["psnr"]:
@@ -580,6 +720,10 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
             print(f"New best val PSNR {v:.3f} at step {i} "
                   f"(checkpointed to {ckpt_dir}_best)")
 
+    if args.occ_train:
+        # Registered first: at a shared step the rebake runs before the
+        # validation and video callbacks, which render through it.
+        trainer.add_callback(args.occ_train_every, occ_cb)
     trainer.add_callback(args.print_freq, log_cb)
     if args.ckpt_freq > 0:
         trainer.add_callback(args.ckpt_freq, ckpt_cb)
@@ -621,25 +765,38 @@ def _run(args, dev, run_dir: str, recorded: list) -> dict:
         # Held-out test scores on the test views (disjoint from the
         # validation views where the dataset allows).
         step = int(trainer.state.step)
-        p, s, _ = score_views(
+        p, s, _, lp = score_views(
             frame_nets(render_params(deploy_params(trainer.state), step)),
-            test_views, 7)
+            test_views, 7, occupancy=trainer.occupancy)
+        extra = {} if lp is None else {"test_lpips": lp}
         logger.log(int(trainer.state.step), test_psnr=p, test_ssim=s,
-                   test_views=len(test_views))
-        result.update(test_psnr=p, test_ssim=s)
+                   test_views=len(test_views), **extra)
+        result.update(test_psnr=p, test_ssim=s, **extra)
         if best_writer is not None and best["step"] is not None:
             # Score the deployable (best-val) model too.
             restored = restore_checkpoint(ckpt_dir + "_best", state)
             if restored is not None:
-                pb, sb, _ = score_views(
-                    frame_nets(render_params(deploy_params(restored),
-                                             int(restored.step))),
-                    test_views, 7)
+                params_best = render_params(deploy_params(restored),
+                                            int(restored.step))
+                # The grid must match the params it resamples for: rebake
+                # from the best-val weights; a best checkpoint whose bake
+                # is empty (from the warm-up) scores grid-less.
+                occ_best = (occ_bake(params_best)
+                            if occ_bake is not None
+                            and trainer.occupancy is not None else None)
+                if occ_best is not None and occupied_fraction(occ_best) <= 0:
+                    print("[WARN] best-val occupancy bake is empty — "
+                          "scoring the best model grid-less", flush=True)
+                    occ_best = None
+                pb, sb, _, lpb = score_views(frame_nets(params_best),
+                                             test_views, 7,
+                                             occupancy=occ_best)
+                extra = {} if lpb is None else {"test_lpips_best": lpb}
                 logger.log(int(trainer.state.step), test_psnr_best=pb,
                            test_ssim_best=sb,
                            best_step=int(best["step"]),
-                           best_val_psnr=best["psnr"])
-                result.update(test_psnr_best=pb, test_ssim_best=sb)
+                           best_val_psnr=best["psnr"], **extra)
+                result.update(test_psnr_best=pb, test_ssim_best=sb, **extra)
                 print(f"Best-val model (step {best['step']}): "
                       f"test_psnr={pb:.3f} test_ssim={sb:.4f} "
                       f"(final-step model: {p:.3f}/{s:.4f})")

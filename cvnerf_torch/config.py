@@ -196,12 +196,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "(reference main.py:251)")
     p.add_argument("--occupancy", type=str, default=None,
                    choices=["merge", "full"],
-                   help="render_only acceleration through a baked occupancy "
-                        "grid (refused: not ported yet, ROADMAP item 10)")
+                   help="render_only acceleration: bake an occupancy grid "
+                        "from the restored checkpoint and render the pose "
+                        "sequence through it ('merge' drops the coarse "
+                        "MLP, 'full' also draws every fine sample from the "
+                        "grid's CDF). Ignored during training (see "
+                        "--occ_train)")
     p.add_argument("--occ_train",
                    action=argparse.BooleanOptionalAction, default=False,
-                   help="occupancy-accelerated training (refused: not "
-                        "ported yet, ROADMAP item 10)")
+                   help="occupancy-accelerated training: after "
+                        "--occ_train_warmup steps, bake an occupancy grid "
+                        "from the fine net, replace the coarse MLP with its "
+                        "probe (loss MSE(fine) only; the coarse net stops "
+                        "training) and rebake every --occ_train_every "
+                        "steps; serving enables the grid from scene.json")
     p.add_argument("--occ_train_warmup", type=int, default=2000,
                    help="reference-semantics steps before the occupancy "
                         "switch (the grid needs a roughly-right density "
@@ -229,7 +237,8 @@ def build_parser() -> argparse.ArgumentParser:
                    action=argparse.BooleanOptionalAction, default=False,
                    help="render_only: post-training-quantize the restored "
                         "nets to int8 and render through the fused int8 "
-                        "kernel (ops.quantize). Ignored during training")
+                        "kernel (ops.quantize; composes with --occupancy). "
+                        "Ignored during training")
     p.add_argument("--int8_calib", type=int, default=1 << 17,
                    help="calibration sample count for --int8")
     p.add_argument("--lpips_weights", type=str, default=None,

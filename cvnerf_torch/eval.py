@@ -44,6 +44,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk", type=int, default=4096)
     p.add_argument("--max_views", type=int, default=0,
                    help="score at most N views (0 = all)")
+    p.add_argument("--lpips_weights", type=str, default=None,
+                   help="AlexNet-LPIPS weights .npz (utils/lpips.py); adds "
+                        "LPIPS to the report")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to render on (default cuda)")
     p.add_argument("--out", type=str, default=None,
@@ -121,6 +124,11 @@ def main(argv=None) -> dict:
             f"{r.width} (scene.json) but the dataset loads as "
             f"{scene.height}x{scene.width} — check --half_res/--factor")
 
+    lpips_bundle = None
+    if args.lpips_weights:
+        from cvnerf_torch.utils.lpips import load_weights
+        lpips_bundle = load_weights(args.lpips_weights, r.device)
+
     if args.save_renders:
         os.makedirs(args.save_renders, exist_ok=True)
 
@@ -138,9 +146,15 @@ def main(argv=None) -> dict:
         rec = {"view": i,
                "psnr": round(float(psnr_images(rgb, gt)), 4),
                "ssim": round(float(ssim_images(rgb, gt)), 5)}
+        if lpips_bundle is not None:
+            from cvnerf_torch.utils.lpips import lpips_images
+            rec["lpips"] = round(float(lpips_images(rgb, gt,
+                                                    lpips_bundle)), 5)
         per_view.append(rec)
         print(f"view {rec['view']:3d}: psnr={rec['psnr']:.3f} "
-              f"ssim={rec['ssim']:.4f}", flush=True)
+              f"ssim={rec['ssim']:.4f}"
+              + (f" lpips={rec['lpips']:.4f}" if "lpips" in rec else ""),
+              flush=True)
 
     poses_arr = np.asarray([scene.poses[int(i)] for i in idx], np.float32)
     # collect=False: each frame is scored and dropped, never stacked.
@@ -159,9 +173,13 @@ def main(argv=None) -> dict:
         "ssim": round(float(np.mean([v["ssim"] for v in per_view])), 5),
         "per_view": per_view,
     }
+    if lpips_bundle is not None:
+        report["lpips"] = round(
+            float(np.mean([v["lpips"] for v in per_view])), 5)
     print(f"{args.split} @ step {report['step']}: "
           f"psnr={report['psnr']:.3f} ssim={report['ssim']:.4f}"
-          f" over {report['n_views']} views")
+          + (f" lpips={report['lpips']:.4f}" if "lpips" in report else "")
+          + f" over {report['n_views']} views")
     if args.out:
         with open(args.out, "w") as fp:
             json.dump(report, fp, indent=2)

@@ -25,10 +25,12 @@ def render_image(params: dict, height: int, width: int, focal: float,
                  c2w: torch.Tensor, near: float, far: float,
                  cfg: RenderConfig, ndc: bool = False,
                  ndc_variant: str = "canonical",
-                 chunk: int = 4096, key: torch.Tensor | None = None) -> dict:
+                 chunk: int = 4096, key: torch.Tensor | None = None,
+                 occupancy=None) -> dict:
     """Render one ``[H, W]`` frame from a ``[3, 4]`` pose; the frame is
     rendered on ``c2w``'s device. ``key`` (``ops.rng``) keys the draws of
-    a stochastic configuration. Returns ``rgb``, ``rgb_coarse``, ``acc``
+    a stochastic configuration; ``occupancy`` is a baked grid the frame
+    renders through. Returns ``rgb``, ``rgb_coarse``, ``acc``
     and ``depth`` as tensors of shape ``[H, W, ...]``."""
     rays_o, rays_d = ray_grid(height, width, focal, c2w)
     rays_o = rays_o.reshape(-1, 3)
@@ -38,7 +40,7 @@ def render_image(params: dict, height: int, width: int, focal: float,
         rays_o, rays_d = ndc_rays(height, width, focal, 1.0, rays_o, rays_d,
                                   variant=ndc_variant)
     out = render_rays_chunked(params, rays_o, rays_d, viewdirs, near, far,
-                              cfg, chunk=chunk, key=key)
+                              cfg, chunk=chunk, key=key, occupancy=occupancy)
     return {k: v.reshape(height, width, *v.shape[1:]) for k, v in out.items()}
 
 
@@ -52,7 +54,8 @@ def render_poses_to_frames(params: dict, poses, height: int, width: int,
                            frame_keys: tuple[str, ...] = ("rgb",),
                            collect: bool = True,
                            device: str | torch.device = "cuda",
-                           key: torch.Tensor | None = None):
+                           key: torch.Tensor | None = None,
+                           occupancy=None):
     """Render a pose sequence to ``[N, H, W, 3]`` float frames on
     ``device``.
 
@@ -64,6 +67,7 @@ def render_poses_to_frames(params: dict, poses, height: int, width: int,
     returns None. A stochastic configuration renders pose ``i`` with key
     ``split(key, len(poses))[i]``, as the JAX package does; a deterministic
     one needs no key and renders every pose alike wherever it sits.
+    ``occupancy`` is a baked grid every frame renders through.
     """
     if not collect and on_frame is None:
         raise ValueError("collect=False requires on_frame (nothing would "
@@ -102,7 +106,8 @@ def render_poses_to_frames(params: dict, poses, height: int, width: int,
                               device=device)
         out = render_image(params, height, width, float(focal), c2w,
                            float(near), float(far), cfg, ndc=ndc,
-                           ndc_variant=ndc_variant, chunk=chunk, key=keys[i])
+                           ndc_variant=ndc_variant, chunk=chunk, key=keys[i],
+                           occupancy=occupancy)
         pending.append((i, out))
         if len(pending) > 1:   # one frame in flight
             drain(pending.pop(0))

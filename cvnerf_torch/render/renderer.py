@@ -11,8 +11,13 @@ chunk size. ``render_rays`` is differentiable in the params (training);
 ``render_rays_chunked`` renders frames without a graph. A net given as
 int8 params (``QuantizedNerfParams``, or its packed
 ``QuantizedNerfWeights``) is queried through the int8 path and ignores
-``compute_dtype``, as in the JAX package. Occupancy grids and device meshes
-come in later slices.
+``compute_dtype``, as in the JAX package. With a baked occupancy grid
+(``render/occupancy.py``) the grid probe replaces the coarse MLP:
+``"merge"`` keeps the fine pass's shape, ``"full"`` draws every fine
+sample from the probe CDF (with ``occ_floor`` of them from a stratified
+coverage draw, RNG tag 5), and ``occupancy_termination`` tightens each
+ray's interval by a probe march first. Device meshes come in a later
+slice.
 """
 
 from __future__ import annotations
@@ -33,12 +38,13 @@ from cvnerf_torch.ops.quantize import QuantizedNerfParams
 from cvnerf_torch.ops.rng import ray_normal, ray_sorted_uniform, ray_uniform
 from cvnerf_torch.ops.sampling import (merge_sorted, sample_pdf,
                                        stratified_samples)
+from cvnerf_torch.render.occupancy import occupancy_ray_bounds, probe_sigma
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Render-time configuration (the JAX ``RenderConfig`` minus the
-    occupancy fields, which a later slice brings)."""
+    """Render-time configuration: the JAX ``RenderConfig``'s fields and
+    defaults, ``pallas`` as ``kernels``."""
     n_coarse: int = 64
     n_fine: int = 128
     perturb: bool = True
@@ -49,6 +55,19 @@ class RenderConfig:
     # spacings, ops/rng.ray_sorted_uniform); False draws iid uniforms and
     # sorts the merged depths (the reference-shaped stream).
     sorted_resample: bool = True
+    # Occupancy-grid rendering (only when a grid is passed): "merge" keeps
+    # the fine pass (probe depths merged with the resample), "full" runs
+    # the fine net on the n_fine resamples alone.
+    occupancy_mode: str = "merge"
+    # The probe: "nearest" (default) or "trilinear".
+    occupancy_interp: str = "nearest"
+    # Full mode: this many of the n_fine samples come from a stratified
+    # draw over [near, far] instead of the probe CDF (0 = none).
+    occ_floor: int = 0
+    # Early termination / empty-space skip epsilon (0 = off), probed at
+    # termination_probes uniform depths.
+    occupancy_termination: float = 0.0
+    termination_probes: int = 128
     # Also return the fine pass's compositing weights and depths
     # ("weights", "t"), for the training regularizers; off by default, so
     # the chunked frame path stacks nothing extra.
@@ -142,7 +161,8 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
                 viewdirs: torch.Tensor, near, far, cfg: RenderConfig,
                 key: torch.Tensor | None = None,
                 ray_ids: torch.Tensor | None = None,
-                noise_scale: float | torch.Tensor = 1.0) -> dict:
+                noise_scale: float | torch.Tensor = 1.0,
+                occupancy=None) -> dict:
     """Hierarchical volume render of a ray batch, differentiable in the
     params.
 
@@ -157,6 +177,10 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
         ray_ids: ``[n_rays]`` global ray ids keying the draws (default
             ``arange``); a chunk or shard passes its rays' global positions.
         noise_scale: multiplier on the density-noise std.
+        occupancy: a baked ``OccupancyGrid``: its probe at the stratified
+            depths replaces the coarse MLP (no coarse noise, no coarse
+            image: ``rgb_coarse`` is the fine map), and ``params["coarse"]``
+            is not read.
     Returns:
         ``rgb`` (fine), ``rgb_coarse``, ``acc`` and ``depth`` (fine pass);
         with ``cfg.return_weights`` also the fine pass's ``weights`` and
@@ -170,32 +194,69 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
     dev = rays_o.device
     if ray_ids is None:
         ray_ids = torch.arange(n_rays, dtype=torch.int64, device=dev)
+    if occupancy is not None and cfg.occupancy_termination > 0.0:
+        # Tighten each ray's interval by a probe march before any MLP work.
+        near, far = occupancy_ray_bounds(
+            occupancy, rays_o, rays_d, near, far,
+            eps=cfg.occupancy_termination, n_probe=cfg.termination_probes)
     u_strat = (ray_uniform(key, 1, ray_ids, cfg.n_coarse) if cfg.perturb
                else None)
     t_coarse = stratified_samples(near, far, cfg.n_coarse, n_rays,
                                   cfg.perturb, u=u_strat, device=dev)
     points = rays_o[..., None, :] + rays_d[..., None, :] * t_coarse[..., None]
-    raw = _query_mlp(params["coarse"], points, viewdirs, cfg)
-    noise_c = (ray_normal(key, 3, ray_ids, cfg.n_coarse) * noise_scale
-               if cfg.noise_std > 0 else None)
-    coarse = volume_render(raw, t_coarse, rays_d, noise_std=cfg.noise_std,
-                           white_bkg=cfg.white_bkg, noise=noise_c)
+    if occupancy is not None:
+        # The grid's density drives the resample: no coarse MLP.
+        sigma = probe_sigma(occupancy, points, cfg.occupancy_interp)
+        raw = torch.cat([sigma.new_zeros(*sigma.shape, 3), sigma[..., None]],
+                        -1)
+        coarse = volume_render(raw, t_coarse, rays_d, noise_std=0.0,
+                               white_bkg=cfg.white_bkg, noise=None)
+    else:
+        raw = _query_mlp(params["coarse"], points, viewdirs, cfg)
+        noise_c = (ray_normal(key, 3, ray_ids, cfg.n_coarse) * noise_scale
+                   if cfg.noise_std > 0 else None)
+        coarse = volume_render(raw, t_coarse, rays_d,
+                               noise_std=cfg.noise_std,
+                               white_bkg=cfg.white_bkg, noise=noise_c)
 
+    occ_full = (occupancy is not None and cfg.occupancy_mode == "full"
+                and cfg.n_fine > 0)
+    if occ_full and not 0 <= cfg.occ_floor < cfg.n_fine:
+        raise ValueError(
+            f"occ_floor={cfg.occ_floor} must be in [0, n_fine="
+            f"{cfg.n_fine}) — the floor replaces part of the fine "
+            "budget, it does not extend it")
     if cfg.n_fine > 0:
         mids = 0.5 * (t_coarse[..., 1:] + t_coarse[..., :-1])
+        # Full mode with a floor: k of the n_fine samples are a coverage
+        # draw, so only n_fine - k come from the CDF.
+        n_pdf = (cfg.n_fine - cfg.occ_floor
+                 if occ_full and cfg.occ_floor > 0 else cfg.n_fine)
         if cfg.deterministic_resample:
             u_pdf = None
         elif cfg.sorted_resample:
-            u_pdf = ray_sorted_uniform(key, 2, ray_ids, cfg.n_fine)
+            u_pdf = ray_sorted_uniform(key, 2, ray_ids, n_pdf)
         else:
-            u_pdf = ray_uniform(key, 2, ray_ids, cfg.n_fine)
+            u_pdf = ray_uniform(key, 2, ray_ids, n_pdf)
         # The resampled depths carry no gradient (reference main.py:250).
         t_new = sample_pdf(mids, coarse["weights"][..., 1:-1].detach(),
-                           cfg.n_fine, u=u_pdf,
+                           n_pdf, u=u_pdf,
                            deterministic=cfg.deterministic_resample).detach()
-        # Sorted (or evenly spaced) u gives ascending t_new, so the JAX
-        # package merges; iid u sorts. Both are one sort here.
-        t_fine = merge_sorted(t_coarse, t_new)
+        if occ_full:
+            # Every fine sample from the probe CDF; the probe depths
+            # carry nothing learned and are not merged in.
+            t_fine = torch.sort(t_new, dim=-1).values
+            if cfg.occ_floor > 0:
+                u_floor = (ray_uniform(key, 5, ray_ids, cfg.occ_floor)
+                           if cfg.perturb else None)
+                t_floor = stratified_samples(near, far, cfg.occ_floor,
+                                             n_rays, cfg.perturb,
+                                             u=u_floor, device=dev)
+                t_fine = merge_sorted(t_floor, t_fine)
+        else:
+            # Sorted (or evenly spaced) u gives ascending t_new, so the
+            # JAX package merges; iid u sorts. Both are one sort here.
+            t_fine = merge_sorted(t_coarse, t_new)
     else:
         t_fine = t_coarse
 
@@ -205,7 +266,9 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
                if cfg.noise_std > 0 else None)
     fine = volume_render(raw, t_fine, rays_d, noise_std=cfg.noise_std,
                          white_bkg=cfg.white_bkg, noise=noise_f)
-    out = {"rgb": fine["rgb"], "rgb_coarse": coarse["rgb"],
+    out = {"rgb": fine["rgb"],
+           "rgb_coarse": fine["rgb"] if occupancy is not None
+           else coarse["rgb"],
            "acc": fine["acc"], "depth": fine["depth"]}
     if cfg.return_weights:
         out["weights"] = fine["weights"]
@@ -218,12 +281,14 @@ def render_rays_chunked(params: dict, rays_o: torch.Tensor,
                         rays_d: torch.Tensor, viewdirs: torch.Tensor,
                         near: float, far: float, cfg: RenderConfig,
                         chunk: int = 4096,
-                        key: torch.Tensor | None = None) -> dict:
+                        key: torch.Tensor | None = None,
+                        occupancy=None) -> dict:
     """Memory-bounded render of a flat ray batch: a Python loop over
     ``chunk``-ray slices. The rays are padded with zero rays to a chunk
     multiple, as the JAX ``lax.map`` does, and the padding is dropped on
     return, so every chunk has the same shape. Each chunk keys its draws
-    by its rays' global ids, so the result does not depend on ``chunk``."""
+    by its rays' global ids, so the result does not depend on ``chunk``.
+    ``occupancy`` is a baked grid every chunk renders through."""
     n = rays_o.shape[0]
     n_chunks = -(-n // chunk)
     pad = n_chunks * chunk - n
@@ -238,5 +303,6 @@ def render_rays_chunked(params: dict, rays_o: torch.Tensor,
         ids = torch.arange(i * chunk, (i + 1) * chunk, dtype=torch.int64,
                            device=rays_o.device)
         outs.append(render_rays(params, ro[sl], rd[sl], vd[sl], near, far,
-                                cfg, key=key, ray_ids=ids))
+                                cfg, key=key, ray_ids=ids,
+                                occupancy=occupancy))
     return {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}

@@ -21,7 +21,10 @@ default, so a pose always renders the same image; ``deterministic=False``
 resamples stochastically with ``PRNGKey(seed)``, as the JAX package's
 ``--stochastic`` serving does. The weights are packed for the fused kernel
 once, here, and reused by every render. ``enable_int8`` quantizes both nets
-and serves through the int8 kernel from then on.
+and serves through the int8 kernel from then on; ``enable_occupancy`` bakes
+an occupancy grid (``render/occupancy.py``, through the forward kernel) and
+serves through its probe instead of the coarse net. Both read the float
+master copy, so they compose in either order.
 """
 
 from __future__ import annotations
@@ -41,13 +44,14 @@ from cvnerf_torch.ops.fused_mlp_int8 import QuantizedNerfWeights
 from cvnerf_torch.ops.quantize import (calibration_samples, quantize_nerf,
                                        ray_calibration_samples)
 from cvnerf_torch.render.frames import render_image, render_poses_to_frames
+from cvnerf_torch.render.occupancy import (bake_scene_occupancy,
+                                          occupied_fraction, scene_bbox)
 from cvnerf_torch.ops.rng import PRNGKey
 from cvnerf_torch.render.renderer import RenderConfig
 from cvnerf_torch.utils.convert import load_torch_checkpoint
 
 SCENE_SNAPSHOT = "scene.json"
 CKPT_SUBDIR = "torch_checkpoints"
-OCCUPANCY_ITEM = "ROADMAP Queue 1 item 10 (occupancy serving)"
 
 
 def latest_checkpoint(ckpt_dir: str, step: int | None = None) -> str | None:
@@ -79,11 +83,17 @@ def write_scene_snapshot(run_dir: str, *, height: int, width: int,
                          sorted_resample: bool = True,
                          pallas: str = "auto",
                          calib_poses=None,
+                         occ_train: bool = False,
+                         occ_res: int = 192,
+                         occ_bound: float = 1.5,
+                         occ_mode: str | None = None,
+                         occ_interp: str = "nearest",
+                         occ_floor: int = 0,
                          freq_anneal: int = 0,
                          ema_decay: float = 0.0) -> str:
     """Persist everything a renderer needs to serve this run's checkpoints:
-    the JAX package's ``write_scene_snapshot`` of a run without occupancy
-    training (the same keys and values).
+    the JAX package's ``write_scene_snapshot`` (the same keys and
+    values).
 
     ``config_resolved.json`` records the raw flags; this records the
     *derived* values (near/far/H/W/focal come out of the data loader, not
@@ -98,7 +108,20 @@ def write_scene_snapshot(run_dir: str, *, height: int, width: int,
     ``ema_decay`` (an EMA run) is recorded so a resume keeps averaging;
     ``freq_anneal`` so a checkpoint from inside the anneal horizon is
     served through the training-time frequency window.
+
+    ``occ_train`` (an ``--occ_train`` run, whose coarse net stops training
+    at the switch) records the bake and the sampling it trained with, so
+    ``from_run_dir`` serves it through a grid; the mode and the probe have
+    no default: every writer must say which ran.
     """
+    if occ_train:
+        if occ_mode not in ("full", "merge"):
+            raise ValueError(f"occ_train snapshots must record the sampling "
+                             f"mode ('full' or 'merge'), got {occ_mode!r}")
+        if occ_interp not in ("trilinear", "nearest"):
+            raise ValueError(f"occ_train snapshots must record the probe "
+                             f"interp ('trilinear' or 'nearest'), got "
+                             f"{occ_interp!r}")
     os.makedirs(run_dir, exist_ok=True)
     path = os.path.join(run_dir, SCENE_SNAPSHOT)
     payload = {
@@ -118,6 +141,12 @@ def write_scene_snapshot(run_dir: str, *, height: int, width: int,
         if len(cp) > 64:
             cp = cp[np.linspace(0, len(cp) - 1, 64).round().astype(int)]
         payload["calib_poses"] = cp.tolist()
+    if occ_train:
+        payload["occ_train"] = {"resolution": int(occ_res),
+                                "bound": float(occ_bound),
+                                "mode": occ_mode,
+                                "interp": occ_interp,
+                                "floor": int(occ_floor)}
     with open(path, "w") as fp:
         json.dump(payload, fp, indent=2, sort_keys=True)
     return path
@@ -155,6 +184,10 @@ class NerfRenderer:
         self.cfg = dataclasses.replace(cfg.eval_mode(),
                                        deterministic_resample=deterministic)
         self.cfg.check_supported()
+        # The checkpoint's sample budget: enable_occupancy's overrides
+        # reset to it when omitted.
+        self._base_samples = (self.cfg.n_coarse, self.cfg.n_fine)
+        self.occupancy = None
         self.height, self.width, self.focal = int(height), int(width), focal
         self.near, self.far = float(near), float(far)
         self.ndc, self.ndc_variant = ndc, ndc_variant
@@ -206,7 +239,9 @@ class NerfRenderer:
         ``step / freq_anneal``, as the JAX package serves its own; one
         with no such marker is served as exported, since ``cvnerf-import
         --export`` writes it with the window applied. An ``occ_train``
-        snapshot raises (occupancy serving comes in a later slice).
+        snapshot is served through a baked grid with the recorded bake and
+        sampling (``full`` and the nearest probe for a record that predates
+        those fields); an empty bake serves grid-less, with a warning.
         """
         path = os.path.join(run_dir, SCENE_SNAPSHOT)
         try:
@@ -215,10 +250,6 @@ class NerfRenderer:
         except FileNotFoundError:
             raise FileNotFoundError(
                 f"{path} not found — {run_dir!r} is not a run directory")
-        if geo.get("occ_train"):
-            raise NotImplementedError(
-                f"{run_dir} was trained with --occ_train and must be served "
-                f"through an occupancy grid: {OCCUPANCY_ITEM}")
         if which not in ("auto", "best", "last"):
             raise ValueError(f"which must be auto|best|last, got {which!r}")
         cfg = RenderConfig(
@@ -271,7 +302,56 @@ class NerfRenderer:
             print(f"serving a mid-anneal checkpoint (step {r.step} < "
                   f"freq_anneal {fa}): its exported weights already carry "
                   f"the training-time frequency window")
+        if geo.get("occ_train"):
+            # Past its warm-up an --occ_train run's coarse net is frozen at
+            # warm-up quality: serve it the way it was trained.
+            ot = geo["occ_train"]
+            r.enable_occupancy(resolution=int(ot["resolution"]),
+                               bound=float(ot["bound"]),
+                               mode=ot.get("mode", "full"),
+                               interp=ot.get("interp", "nearest"),
+                               floor=int(ot.get("floor", 0)),
+                               require_occupied=True)
         return r
+
+    def enable_occupancy(self, *, resolution: int = 192, dilate: int = 1,
+                         bound: float = 1.5, mode: str = "merge",
+                         interp: str = "nearest", term: float = 0.0,
+                         floor: int = 0, n_coarse: int | None = None,
+                         n_fine: int | None = None,
+                         require_occupied: bool = False) -> "NerfRenderer":
+        """Bake an occupancy grid from the float master copy and serve every
+        render through it: the grid probe replaces the coarse net
+        (``mode="merge"``), and ``mode="full"`` also draws every fine
+        sample from the probe CDF (``floor`` of them from a stratified
+        coverage draw). ``term`` > 0 tightens each ray's interval by a
+        probe march first, which makes reduced ``n_coarse``/``n_fine``
+        budgets safe; omitted overrides reset to the checkpoint's budget.
+        The bake reflects the current weights: re-enable after loading
+        others. With ``require_occupied``, an empty bake keeps grid-less
+        serving, with a warning. Returns self."""
+        if mode not in ("merge", "full"):
+            raise ValueError(f"mode must be 'merge' or 'full', got {mode!r}")
+        if interp not in ("trilinear", "nearest"):
+            raise ValueError(f"interp must be 'trilinear' or 'nearest', "
+                             f"got {interp!r}")
+        grid = bake_scene_occupancy(
+            self._float_params, self.cfg.mlp, ndc=self.ndc, bound=bound,
+            n_fine=self.cfg.n_fine, resolution=resolution, dilate=dilate,
+            compute_dtype=self.cfg.compute_dtype, kernels=self.cfg.kernels)
+        if require_occupied and occupied_fraction(grid) <= 0.0:
+            print("[WARN] occupancy bake found no positive density — "
+                  "serving grid-less (the checkpoint's coarse net drives "
+                  "the resample)", flush=True)
+            return self
+        base_c, base_f = self._base_samples
+        self.cfg = dataclasses.replace(
+            self.cfg, occupancy_mode=mode, occupancy_interp=interp,
+            occupancy_termination=float(term), occ_floor=int(floor),
+            n_coarse=base_c if n_coarse is None else int(n_coarse),
+            n_fine=base_f if n_fine is None else int(n_fine))
+        self.occupancy = grid
+        return self
 
     def enable_int8(self, *, poses=None, n_calib: int = 1 << 17,
                     bound: float | None = None,
@@ -316,6 +396,24 @@ class NerfRenderer:
             self._nets = qs
         return self
 
+    def extract_mesh(self, *, net: str = "fine", resolution: int = 256,
+                     iso: float = 50.0, bound: float = 1.5,
+                     chunk: int = 65536, keep: str = "all",
+                     timings: dict | None = None
+                     ) -> tuple[np.ndarray, np.ndarray]:
+        """Mesh this checkpoint's density field (``render/mesh.py``) from
+        the float master copy: in the NDC box for an NDC-trained run (the
+        only region it was queried in), else the ``±bound`` cube."""
+        from cvnerf_torch.render.mesh import extract_mesh
+        bbox_min, bbox_max = scene_bbox(self.ndc, bound)
+        if net == "fine" and self.cfg.n_fine == 0:
+            net = "coarse"
+        return extract_mesh(self._float_params, self.cfg.mlp, net=net,
+                            bbox_min=bbox_min, bbox_max=bbox_max,
+                            resolution=resolution, iso=iso, chunk=chunk,
+                            compute_dtype=self.cfg.compute_dtype, keep=keep,
+                            kernels=self.cfg.kernels, timings=timings)
+
     def _pose(self, c2w) -> torch.Tensor:
         return torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4],
                                device=self.device)
@@ -335,7 +433,7 @@ class NerfRenderer:
         out = render_image(self._nets, h, w, f, self._pose(c2w), self.near,
                            self.far, self.cfg, ndc=self.ndc,
                            ndc_variant=self.ndc_variant, chunk=self.chunk,
-                           key=self._key)
+                           key=self._key, occupancy=self.occupancy)
         return {k: out[k].cpu().numpy() for k in keys}
 
     def render_video(self, poses, factor: int = 0, on_frame=None,
@@ -347,7 +445,7 @@ class NerfRenderer:
             self.near, self.far, self.cfg, ndc=self.ndc,
             ndc_variant=self.ndc_variant, chunk=self.chunk, factor=factor,
             on_frame=on_frame, collect=collect, device=self.device,
-            key=self._key)
+            key=self._key, occupancy=self.occupancy)
 
     def render_poses_extras(self, poses, factor: int = 0,
                             keys: tuple[str, ...] = ("rgb",)) -> dict:
@@ -357,5 +455,6 @@ class NerfRenderer:
             self._nets, poses, self.height, self.width, self.focal,
             self.near, self.far, self.cfg, ndc=self.ndc,
             ndc_variant=self.ndc_variant, chunk=self.chunk, factor=factor,
-            frame_keys=tuple(keys), device=self.device, key=self._key)
+            frame_keys=tuple(keys), device=self.device, key=self._key,
+            occupancy=self.occupancy)
         return {"rgb": out} if tuple(keys) == ("rgb",) else out

@@ -483,13 +483,6 @@ def make_server(renderer: NerfRenderer, host: str = "127.0.0.1",
     return srv
 
 
-# Serving options of the JAX package that the port does not carry yet:
-# each is refused with the ROADMAP item that brings it, never ignored.
-UNPORTED_FLAGS = {
-    "occupancy": "occupancy-grid serving: ROADMAP Queue 1 item 10",
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Serve a cvnerf checkpoint over HTTP from PyTorch/CUDA")
@@ -529,7 +522,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stochastic", action="store_true",
                    help="reference-style stochastic eval resampling")
     p.add_argument("--occupancy", default=None, choices=["merge", "full"],
-                   help="not available yet: " + UNPORTED_FLAGS["occupancy"])
+                   help="bake an occupancy grid at startup (through the "
+                        "forward kernel) and serve renders through it: "
+                        "'merge' drops the coarse MLP, 'full' also draws "
+                        "every fine sample from the grid's CDF; frame "
+                        "times in PERF.md")
+    p.add_argument("--occupancy_res", type=int, default=192,
+                   help="occupancy lattice resolution per axis")
+    p.add_argument("--occupancy_bound", type=float, default=1.5,
+                   help="half-width of the bake cube for non-NDC scenes")
+    p.add_argument("--occ_interp", default="trilinear",
+                   choices=["trilinear", "nearest"],
+                   help="occupancy probe interpolation (trilinear: "
+                        "continuous-in-depth probe CDF; nearest: the "
+                        "piecewise-constant probe)")
+    p.add_argument("--occ_floor", type=int, default=0,
+                   help="full-mode serving: this many of the n_fine "
+                        "resamples come from a stratified coverage draw "
+                        "instead of the probe CDF (same eval count). "
+                        "0 = pure probe-CDF")
+    p.add_argument("--occ_term", type=float, default=0.0,
+                   help="early ray termination / empty-space skip "
+                        "epsilon (needs --occupancy): probe-march each "
+                        "ray and tighten [near, far] to the contributing "
+                        "region; combine with --serve_coarse/--serve_fine "
+                        "to cut sample counts. 0 = off")
+    p.add_argument("--serve_coarse", type=int, default=None,
+                   help="serving-only n_coarse override (the reduced "
+                        "sample budget --occ_term makes safe)")
+    p.add_argument("--serve_fine", type=int, default=None,
+                   help="serving-only n_fine override")
     p.add_argument("--int8", action="store_true",
                    help="quantize the nets to int8 at startup and serve "
                         "through the fused int8 kernel (ops/quantize.py); "
@@ -555,11 +577,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def renderer_from_args(args) -> NerfRenderer:
     """Build the renderer from parsed CLI args (--run snapshot or explicit
-    geometry flags). Raises SystemExit on unported options and bad combos."""
-    for flag, why in UNPORTED_FLAGS.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is not supported by cvnerf_torch "
-                             f"yet ({why})")
+    geometry flags). Raises SystemExit on bad combos."""
+    if not args.occupancy and (args.occ_term > 0
+                               or args.serve_coarse is not None
+                               or args.serve_fine is not None):
+        raise SystemExit("--occ_term/--serve_coarse/--serve_fine need "
+                         "--occupancy (termination probe-marches the "
+                         "baked grid; without it the flags would "
+                         "silently do nothing)")
     if args.int8 and args.int8_calib < 1:
         raise SystemExit(f"--int8_calib must be at least 1, got "
                          f"{args.int8_calib}")
@@ -592,6 +617,24 @@ def renderer_from_args(args) -> NerfRenderer:
                         deterministic=not args.stochastic, device=args.device)
 
 
+def occupancy_from_args(renderer: NerfRenderer, args) -> None:
+    """With ``--occupancy``, bake the grid the renderer serves through and
+    say so; without it, nothing."""
+    if not args.occupancy:
+        return
+    renderer.enable_occupancy(resolution=args.occupancy_res,
+                              bound=args.occupancy_bound,
+                              mode=args.occupancy, interp=args.occ_interp,
+                              term=args.occ_term, floor=args.occ_floor,
+                              n_coarse=args.serve_coarse,
+                              n_fine=args.serve_fine)
+    print(f"occupancy grid active: mode={args.occupancy} "
+          f"res={args.occupancy_res} interp={args.occ_interp}"
+          + (f" term={args.occ_term} samples="
+             f"{renderer.cfg.n_coarse}+{renderer.cfg.n_fine}"
+             if args.occ_term > 0 else ""), flush=True)
+
+
 def int8_from_args(renderer: NerfRenderer, args) -> None:
     """With ``--int8``, quantize the renderer's nets (calibrated on
     ``--int8_calib`` samples: the run's poses, else the NDC box, else the
@@ -610,6 +653,7 @@ def int8_from_args(renderer: NerfRenderer, args) -> None:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     renderer = renderer_from_args(args)
+    occupancy_from_args(renderer, args)
     int8_from_args(renderer, args)
     srv = make_server(renderer, args.host, args.port,
                       queue_size=args.queue_size, batch_max=args.batch_max,

@@ -1,5 +1,5 @@
 """The train step and the host-side training loop (port of the JAX
-package's ``train/loop.py``, single device, without occupancy training).
+package's ``train/loop.py``, single device).
 
 One step, as the JAX step computes it: split the step key into image,
 pixel and render keys; draw one training image (``randint``) and
@@ -22,6 +22,15 @@ is exactly 0), ``distortion_loss`` with its delay and ramp,
 ``occlusion_loss``, ``ema_decay``, ``ray_batching`` and
 ``pixel_sampling="parity"``. Every schedule is formed in float32 from the
 step, as the JAX step forms it.
+
+Occupancy training (``--occ_train``): ``make_train_step(cfg,
+with_occupancy=True)`` builds the step that takes a baked grid, whose probe
+replaces the coarse MLP (one forward and one backward launch a step instead
+of two each); its loss is MSE(fine) plus the enabled regularizers. The
+coarse leaves get zero gradients: Adam still runs on them (their moments
+decay, the count advances, as optax does), and their updates are zeroed,
+so the coarse net stays as it was at the switch. ``Trainer.set_occupancy``
+and ``maybe_set_occupancy`` install the grid.
 
 The step runs eagerly: the Feistel pixel draw runs on the host and is
 copied to the card without waiting for it, the parity draw (a sort over
@@ -46,6 +55,7 @@ from cvnerf_torch.ops.rays import (ndc_rays, rays_for_pixels,
 from cvnerf_torch.ops.rng import (PRNGKey, choice_without_replacement,
                                   fold_in, randint,
                                   sample_without_replacement, split)
+from cvnerf_torch.render.occupancy import occupied_fraction
 from cvnerf_torch.render.renderer import RenderConfig, render_rays
 from cvnerf_torch.train.state import (TrainState, ema_update, make_optimizer,
                                       tree_leaves)
@@ -176,12 +186,15 @@ def schedules(cfg: TrainConfig, step: int) -> tuple[float, float, float]:
     return float(noise), float(anneal), float(dist)
 
 
-def make_train_step(cfg: TrainConfig, mesh=None) -> Callable:
+def make_train_step(cfg: TrainConfig, mesh=None,
+                    with_occupancy: bool = False) -> Callable:
     """``step_fn(state, key, images, poses, train_idx, precrop) ->
     (new_state, metrics)``: the JAX ``make_train_step(cfg, mesh=None)``.
     ``images [N, H, W, 3]`` and ``poses [N, 3, 4]`` lie on the params'
     device, ``train_idx`` (int64) on any; the metrics are 0-d tensors on
-    the params' device."""
+    the params' device. With ``with_occupancy=True`` the step takes a baked
+    ``OccupancyGrid`` after the state: ``step_fn(state, occupancy, key,
+    ...)`` (the occupancy step, see the module docstring)."""
     if mesh is not None:
         raise NotImplementedError(f"device meshes: {MESH_ITEM}")
     check_supported(cfg)
@@ -216,8 +229,9 @@ def make_train_step(cfg: TrainConfig, mesh=None) -> Callable:
                                          cfg.focal, poses[im])
         return rays_o, rays_d, target
 
-    def step_fn(state: TrainState, key: torch.Tensor, images: torch.Tensor,
-                poses: torch.Tensor, train_idx: torch.Tensor, precrop: bool):
+    def step_fn(state: TrainState, occupancy, key: torch.Tensor,
+                images: torch.Tensor, poses: torch.Tensor,
+                train_idx: torch.Tensor, precrop: bool):
         k_img, k_pix, k_render = split(key, 3)
         dev = images.device
         rays_o, rays_d, target = pick_rays((k_img, k_pix), images, poses,
@@ -242,9 +256,14 @@ def make_train_step(cfg: TrainConfig, mesh=None) -> Callable:
                 if cfg.freq_anneal > 0 else params)
         out = render_rays(used, rays_o, rays_d, viewdirs, near, far, rcfg,
                           key=k_render, ray_ids=ray_ids,
-                          noise_scale=noise_scale)
+                          noise_scale=noise_scale, occupancy=occupancy)
         mse_fine = torch.mean((out["rgb"] - target) ** 2)
-        loss = mse_fine + torch.mean((out["rgb_coarse"] - target) ** 2)
+        if occupancy is not None:
+            # No coarse image on the occupancy path (rgb_coarse is rgb):
+            # scoring it would double the fine gradient.
+            loss = mse_fine
+        else:
+            loss = mse_fine + torch.mean((out["rgb_coarse"] - target) ** 2)
         if cfg.distortion_loss > 0.0:
             coef = _f32(np.float32(cfg.distortion_loss)
                         * np.float32(dist_scale))
@@ -255,12 +274,22 @@ def make_train_step(cfg: TrainConfig, mesh=None) -> Callable:
                 occlusion_loss(out["weights"], out["t"], near, far,
                                _f32(cfg.occlusion_frac)))
         leaves = tree_leaves(params)
-        flat = torch.autograd.grad(loss, leaves)
-        it = iter(flat)
+        # Under occupancy the coarse net is off the graph: its gradient is
+        # exactly zero, and Adam must still see it.
+        flat = torch.autograd.grad(loss, leaves,
+                                   allow_unused=occupancy is not None)
+        it = iter(g if g is not None else torch.zeros_like(x)
+                  for g, x in zip(flat, leaves))
         grads = {net: {name: {p: next(it) for p in layer}
                        for name, layer in tree.items()}
                  for net, tree in params.items()}
         new_params, opt_state = opt.update(grads, state.opt_state, params)
+        if with_occupancy:
+            # Zeroed coarse updates (optax's p + 0): the momentum from the
+            # warm-up would otherwise keep moving the frozen coarse net.
+            new_params = {**new_params, "coarse": {
+                name: {p: t.detach() + 0.0 for p, t in layer.items()}
+                for name, layer in params["coarse"].items()}}
         ema = state.ema_params
         if cfg.ema_decay > 0.0:
             ema = ema_update(ema, new_params, cfg.ema_decay)
@@ -270,7 +299,15 @@ def make_train_step(cfg: TrainConfig, mesh=None) -> Callable:
         return TrainState(params=new_params, opt_state=opt_state,
                           step=state.step + 1, ema_params=ema), metrics
 
-    return step_fn
+    if with_occupancy:
+        return step_fn
+
+    def step_no_occ(state: TrainState, key: torch.Tensor,
+                    images: torch.Tensor, poses: torch.Tensor,
+                    train_idx: torch.Tensor, precrop: bool):
+        return step_fn(state, None, key, images, poses, train_idx, precrop)
+
+    return step_no_occ
 
 
 class Trainer:
@@ -310,6 +347,10 @@ class Trainer:
         self.cfg = cfg
         self.state = state
         self.step_fn = make_train_step(cfg)
+        # Occupancy training: set_occupancy installs a grid and the
+        # occupancy step.
+        self.occupancy = None
+        self._step_fn_occ: Callable | None = None
         # steps_per_call is accepted for the JAX signature and changes nothing.
         del steps_per_call
         self.base_key = PRNGKey(seed)
@@ -320,6 +361,30 @@ class Trainer:
         self.train_idx = torch.as_tensor(train_idx, dtype=torch.int64)
         self.callbacks: list[tuple[int, Callable]] = []
         self._last_metrics: dict[str, Any] = {}
+
+    def set_occupancy(self, grid) -> None:
+        """Install (or refresh) a baked ``OccupancyGrid``: the following
+        steps are occupancy steps through it."""
+        self.occupancy = grid
+        if self._step_fn_occ is None:
+            self._step_fn_occ = make_train_step(self.cfg, with_occupancy=True)
+
+    def maybe_set_occupancy(self, grid, occupied_frac: float | None = None
+                            ) -> str:
+        """:meth:`set_occupancy` behind the empty-grid guard; returns
+        ``"switched"`` (the first grid), ``"rebaked"`` (a refresh),
+        ``"postponed"`` (an empty grid before the switch: train on through
+        the coarse net and retry) or ``"kept"`` (an empty grid after it:
+        keep the last one). An empty grid gives every ray the ε-uniform
+        fallback CDF, whose samples can all land where the ReLUs are dead,
+        and the gradient would be zero for good."""
+        if occupied_frac is None:
+            occupied_frac = occupied_fraction(grid)
+        if occupied_frac <= 0.0:
+            return "postponed" if self.occupancy is None else "kept"
+        switched = self.occupancy is None
+        self.set_occupancy(grid)
+        return "switched" if switched else "rebaked"
 
     def add_callback(self, every: int, fn: Callable) -> None:
         """Register ``fn(step, trainer, metrics)`` to run every ``every``
@@ -346,9 +411,13 @@ class Trainer:
         t0 = time.time()
         rays_done = 0
         for i in range(start, iters):
-            self.state, metrics = self.step_fn(
-                self.state, fold_in(self.base_key, i), self.images,
-                self.poses, self.train_idx, i < self.cfg.precrop_iters)
+            args = (fold_in(self.base_key, i), self.images, self.poses,
+                    self.train_idx, i < self.cfg.precrop_iters)
+            if self.occupancy is not None:
+                self.state, metrics = self._step_fn_occ(
+                    self.state, self.occupancy, *args)
+            else:
+                self.state, metrics = self.step_fn(self.state, *args)
             rays_done += self.cfg.n_rays
             final_m = None
             for every, fn in self.callbacks:

@@ -265,9 +265,10 @@ REFUSED = [
     (["--occlusion_loss", "0.01"], "--occlusion_loss", "item 9"),
     (["--ray_batching"], "--ray_batching", "item 9"),
     (["--pixel_sampling", "parity"], "--pixel_sampling parity", "item 9"),
-    (["--occ_train"], "--occ_train", "item 10"),
+    (["--occ_train", "--occ_train_warmup", "4", "--occ_train_every", "4",
+      "--occupancy_res", "8"], "--occ_train", "item 10"),
     (["--occupancy", "merge"], "--occupancy", "item 10"),
-    (["--lpips_weights", "w.npz"], "--lpips_weights", "item 10"),
+    (["--lpips_weights", "missing.npz"], "--lpips_weights", "item 10"),
     (["--coordinator", "localhost:1234"], "--coordinator", "item 11"),
     (["--num_processes", "2"], "--num_processes", "item 11"),
     (["--process_id", "0"], "--process_id", "item 11"),
@@ -289,14 +290,44 @@ LEVER_RECORD = {"--ema_decay": ("ema_decay", 0.99, "ema_decay"),
                                                      in r[1] else "")
                               for r in REFUSED])
 def test_unported_flags_are_refused_before_anything_is_written(
-        blender_dir, tmp_path, flags, name, item):
-    """The flags of ROADMAP Queue 1 items 10 and 11 are refused by name
-    before anything is written. Those of item 9, once refused here, now
-    train: the run records the resolved flag (``--freq_anneal 0.08`` of 12
-    iters is 1 step), and a recorded ``freq_anneal`` or ``ema_decay`` stays
-    in force when the resumed run omits the flag."""
+        blender_dir, tmp_path, capsys, flags, name, item):
+    """The flags of ROADMAP Queue 1 item 11 are refused by name before
+    anything is written. Those of items 9 and 10, once refused here, now
+    run: the item-9 run records the resolved flag (``--freq_anneal 0.08``
+    of 12 iters is 1 step), and a recorded ``freq_anneal`` or ``ema_decay``
+    stays in force when the resumed run omits the flag; ``--occ_train``
+    records its bake in ``scene.json``, ``--occupancy`` is ignored during
+    training (as in the JAX CLI) and ``--lpips_weights`` names a missing
+    file (the JAX loader's error) or is ignored below 32 px, saying so."""
     logdir = str(tmp_path / "logs")
     base = [*_base(blender_dir, logdir, "x"), "--ckpt_freq", "0"]
+    if item == "item 10":
+        run_dir = os.path.join(logdir, "x")
+        if name == "--lpips_weights":
+            with pytest.raises(FileNotFoundError, match="LPIPS weights not"):
+                cli.main([*base, "--iters", "3", *flags])
+            from test_torch_port_lpips import _bundle
+            weights = str(tmp_path / "w.npz")
+            _bundle(weights)
+            flags = ["--lpips_weights", weights]
+        out = cli.main([*base, "--iters", "12", *flags])
+        assert np.isfinite(out["loss"]) and np.isfinite(out["test_psnr"])
+        assert "test_lpips" not in out
+        snap = json.load(open(os.path.join(run_dir, "scene.json")))
+        printed = capsys.readouterr().out
+        if name == "--occ_train":
+            assert snap["occ_train"] == {"resolution": 8, "bound": 1.5,
+                                         "mode": "merge",
+                                         "interp": "nearest", "floor": 0}
+            verdicts = [r["occ_verdict"] for r in _records(run_dir)
+                        if "occ_verdict" in r]
+            assert len(verdicts) == 2 and set(verdicts) <= {
+                "switched", "rebaked", "postponed", "kept"}
+        else:
+            assert "occ_train" not in snap
+        if name == "--lpips_weights":
+            assert "--lpips_weights ignored: 24x24 frames" in printed
+        return
     if item != "item 9":
         with pytest.raises(NotImplementedError) as e:
             cli.main([*base, "--iters", "3", *flags])
@@ -333,11 +364,11 @@ def test_unported_flags_are_refused_before_anything_is_written(
     ids=["freq_anneal", "ema_decay", "occ_train"])
 def test_a_run_dir_that_recorded_a_lever_is_refused_unless_fresh(
         blender_dir, tmp_path, capsys, record, name):
-    """A recorded ``occ_train`` (ROADMAP item 10) is refused unless
-    ``--no_reload`` starts a fresh run. A recorded ``freq_anneal`` or
-    ``ema_decay``, once refused too, now stays in force on a resume that
-    omits the flag (the JAX CLI's message; ``scene.json`` keeps it), and
-    ``--no_reload`` drops it, saying so."""
+    """A recorded ``freq_anneal``, ``ema_decay`` or ``occ_train``, once
+    refused, now stays in force on a resume that omits the flag (the JAX
+    CLI's messages; ``scene.json`` keeps it: an occupancy-trained run's
+    checkpoints carry an untrained coarse net), and ``--no_reload`` drops
+    it, saying so."""
     logdir = str(tmp_path / "logs")
     base = [*_base(blender_dir, logdir, "rec"), "--iters", "3",
             "--ckpt_freq", "0"]
@@ -347,26 +378,23 @@ def test_a_run_dir_that_recorded_a_lever_is_refused_unless_fresh(
     snap = json.load(open(snap_path))
     json.dump({**snap, **record}, open(snap_path, "w"))
     key, value = next(iter(record.items()))
+    capsys.readouterr()
+    cli.main([*base[:-4], "--iters", "5", "--ckpt_freq", "0"])
     if name == "--occ_train":
-        before = open(os.path.join(run_dir, "metrics.jsonl")).read()
-        with pytest.raises(NotImplementedError,
-                           match=f"not ported yet: {name} .*recorded by"):
-            cli.main(base)
-        assert open(os.path.join(run_dir, "metrics.jsonl")).read() == before
+        assert "omits it: preserving the occupancy serving metadata" in \
+            capsys.readouterr().out
     else:
-        capsys.readouterr()
-        cli.main([*base[:-4], "--iters", "5", "--ckpt_freq", "0"])
         what = {"freq_anneal": "anneal horizon", "ema_decay": "decay"}[key]
         assert f"using the run dir's recorded {what} {value}" in \
             capsys.readouterr().out
-        assert json.load(open(snap_path))[key] == value
         assert json.load(open(os.path.join(
             run_dir, "config_resolved.json")))[key] == value
+    assert json.load(open(snap_path))[key] == value
     capsys.readouterr()
     cli.main([*base, "--no_reload"])
     assert name[2:] not in json.load(open(snap_path))
-    if name != "--occ_train":
-        assert "for this fresh (--no_reload) run" in capsys.readouterr().out
+    assert ("dropping the occupancy serving metadata" if name == "--occ_train"
+            else "for this fresh (--no_reload) run") in capsys.readouterr().out
 
 
 def test_pallas_interpret_and_a_missing_card_are_refused(blender_dir,
@@ -421,6 +449,18 @@ def test_cli_matches_the_jax_cli_in_fp32(tmp_path):
     _cli_parity(tmp_path, [])
 
 
+def test_cli_occ_train_matches_the_jax_cli(tmp_path):
+    """``--occ_train`` through both CLIs from one biased state (its bake is
+    occupied from the start): the switch at step 2 and the occupancy step
+    3, the validation at 2 through the fresh grid, the verdicts and
+    occupied fractions in ``metrics.jsonl``, the final checkpoints (the
+    coarse net frozen at the switch) and the ``scene.json`` records."""
+    _cli_parity(tmp_path, ["--occ_train", "--occ_train_warmup", "2",
+                           "--occ_train_every", "2", "--occupancy_res", "10",
+                           "--occ_train_mode", "full", "--occ_floor", "2"],
+                alpha_bias=1.0)
+
+
 def test_cli_levers_match_the_jax_cli(tmp_path):
     """EMA, the frequency anneal and the noise decay on (both CLIs warm-
     start the average from the fine-tuned state, which has none): the
@@ -430,7 +470,7 @@ def test_cli_levers_match_the_jax_cli(tmp_path):
                            "--noise_decay", "3"])
 
 
-def _cli_parity(tmp_path, levers):
+def _cli_parity(tmp_path, levers, alpha_bias=0.0):
     from cvnerf_tpu.cli import main as jax_main
     from cvnerf_tpu.data.synthetic import make_blender_dataset as jax_make
     from cvnerf_tpu.models.nerf_mlp import NerfMLPConfig as JaxCfg
@@ -446,6 +486,8 @@ def _cli_parity(tmp_path, levers):
     jax_make(data, n_train=4, n_val=2, n_test=2, h=24, w=24)
     jstate = jax_create(jax.random.PRNGKey(2), lr=5e-4, lr_decay=1,
                         mlp=JaxCfg(**TINY))
+    for net in jstate.params.values():
+        net["alpha"]["b"] = net["alpha"]["b"] + alpha_bias
     jax_save(str(tmp_path / "jax_ft"), jstate)
     tckpt.save_checkpoint(str(tmp_path / "torch_ft"), train_state_from_jax(
         jax.tree.map(np.asarray, jstate)))
@@ -474,10 +516,16 @@ def _cli_parity(tmp_path, levers):
         for k in ("lr", "val_views", "test_views"):
             if k in j:
                 assert t[k] == pytest.approx(j[k], rel=1e-6), k
+        for k in ("occ_verdict", "occ_occupied_frac"):
+            if k in j:
+                assert t[k] == j[k], k
     assert logged == 4          # steps 1-3 and the final record
+    if "--occ_train" in levers:
+        assert [r["occ_verdict"] for r in trec if "occ_verdict" in r] == [
+            "switched"]
     assert any("test_psnr" in r for r in trec)
 
-    ema = bool(levers)
+    ema = "--ema_decay" in levers
     tfinal = tckpt.restore_checkpoint(
         os.path.join(trun, "torch_checkpoints"), create_train_state(
             PRNGKey(0), mlp=NerfMLPConfig(**TINY),
@@ -495,3 +543,107 @@ def _cli_parity(tmp_path, levers):
         for k in ("ft_path", "base_dir", "save_dir"):
             want.pop(k, None), got.pop(k, None)
         assert got == want, name
+
+
+def _biased_ft(tmp_path, bias=1.0) -> str:
+    """A fresh state whose density heads are shifted by ``bias`` (so its
+    bake is occupied everywhere, or, negative, empty), saved for
+    ``--ft_path``."""
+    from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
+    from cvnerf_torch.train.state import create_train_state
+    st = create_train_state(PRNGKey(3), lr=5e-3, mlp=NerfMLPConfig(
+        xyz_freqs=4, dir_freqs=2, trunk_width=32, head_width=16),
+        device="cpu")
+    for net in st.params.values():
+        net["alpha"]["b"] += bias
+    path = str(tmp_path / f"ft{bias:+}")
+    tckpt.save_checkpoint(path, st)
+    return path
+
+
+def test_occ_train_sticks_resumes_renders_and_serves(blender_dir, tmp_path,
+                                                     capsys):
+    """An ``--occ_train`` run (from a state whose bake is occupied): the
+    switch at the warm-up and a rebake, the coarse net frozen from the
+    switch on; a resume past the warm-up re-enters occupancy training with
+    the recorded mode; a plain ``--render_only`` renders through the
+    recorded grid; ``from_run_dir`` serves through one; and the JAX CLI's
+    exits for ``n_fine_samples 0`` and ``--occ_train_every 0``."""
+    logdir = str(tmp_path / "logs")
+    occ = ["--occ_train", "--occ_train_warmup", "4", "--occ_train_every",
+           "4", "--occupancy_res", "12"]
+    base = [*_base(blender_dir, logdir, "occ"), "--ckpt_freq", "4"]
+    cli.main([*base, *occ, "--occ_train_mode", "full", "--occ_floor", "2",
+              "--iters", "9", "--ft_path", _biased_ft(tmp_path)])
+    run_dir = os.path.join(logdir, "occ")
+    recs = _records(run_dir)
+    assert [(r["step"], r["occ_verdict"]) for r in recs
+            if "occ_verdict" in r] == [(4, "switched"), (8, "rebaked")]
+    assert all(r["occ_occupied_frac"] > 0 for r in recs
+               if "occ_verdict" in r)
+    snap_path = os.path.join(run_dir, "scene.json")
+    assert json.load(open(snap_path))["occ_train"] == {
+        "resolution": 12, "bound": 1.5, "mode": "full", "interp": "nearest",
+        "floor": 2}
+    ckpts = os.path.join(run_dir, "torch_checkpoints")
+    at4, _ = tckpt.restore_params(ckpts, step=4)
+    at8, _ = tckpt.restore_params(ckpts, step=8)
+    for layer, leaves in at4["coarse"].items():
+        for q, t in leaves.items():
+            assert torch.equal(at8["coarse"][layer][q], t)
+    assert not torch.equal(at8["fine"]["l1"]["w"], at4["fine"]["l1"]["w"])
+
+    capsys.readouterr()
+    cli.main([*base, *occ, "--iters", "11"])
+    out = capsys.readouterr().out
+    assert "using the run dir's recorded sampling mode 'full'" in out
+    assert "occupancy training active from step 8 (res=12)" in out
+    at10, _ = tckpt.restore_params(ckpts)
+    for layer, leaves in at4["coarse"].items():
+        for q, t in leaves.items():
+            assert torch.equal(at10["coarse"][layer][q], t)
+
+    res = cli.main([*base, "--render_only", "--render_factor", "4",
+                    "--iters", "11"])
+    out = capsys.readouterr().out
+    assert res == {"step": 10}
+    assert "preserving the occupancy serving metadata" in out
+    assert "rendering through the run dir's recorded occupancy mode 'full'" \
+        in out and "occupancy grid active: mode=full res=12" in out
+    r = NerfRenderer.from_run_dir(run_dir, device="cpu")
+    assert r.occupancy is not None and r.cfg.occupancy_mode == "full"
+    assert (r.cfg.occ_floor, r.cfg.occupancy_interp) == (2, "nearest")
+    assert np.isfinite(r.render_pose(np.eye(4)[:3] + [[0, 0, 0, 0],
+                                                      [0, 0, 0, 0],
+                                                      [0, 0, 0, 4.0]])).all()
+    for bad, msg in ((["--n_fine_samples", "0"], "requires n_fine_samples"),
+                     (["--occ_train_every", "0"], "must be > 0")):
+        with pytest.raises(SystemExit, match=msg):
+            cli.main([*base, "--occ_train", "--iters", "11", *bad])
+
+
+def test_render_only_occupancy_of_a_plain_run(blender_dir, tmp_path, capsys):
+    """``--render_only --occupancy merge`` bakes from the restored weights
+    and renders through the grid (the fine pass alone per chunk); an empty
+    bake renders grid-less with the JAX CLI's warning."""
+    from cvnerf_torch.ops import fused_mlp as fm
+    for bias, name in ((1.0, "occupied"), (-50.0, "empty")):
+        logdir = str(tmp_path / name)
+        base = [*_base(blender_dir, logdir, "ro"), "--ckpt_freq", "0",
+                "--iters", "4", "--deterministic_resample"]
+        cli.main([*base, "--ft_path", _biased_ft(tmp_path, bias)])
+        capsys.readouterr()
+        calls = fm.fused_nerf_plain.calls
+        res = cli.main([*base, "--render_only", "--render_test",
+                        "--occupancy", "merge", "--occupancy_res", "10"])
+        out = capsys.readouterr().out
+        # The bake's 1,000 points in one call, then the test view's 24x24
+        # rays in 3 chunks of 256: a fine pass each through the grid, a
+        # coarse and a fine pass each without it.
+        if name == "occupied":
+            assert "occupancy grid active: mode=merge res=10" in out
+            assert fm.fused_nerf_plain.calls - calls == 1 + 3
+        else:
+            assert "occupancy bake found no positive density" in out
+            assert fm.fused_nerf_plain.calls - calls == 1 + 6
+        assert res["step"] == 3 and np.isfinite(res["test_psnr"])

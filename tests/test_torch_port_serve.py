@@ -172,10 +172,11 @@ def test_checkpoint_selection(tmp_path):
 def test_unported_and_unsupported_setups_raise(run_dir, tmp_path,
                                                monkeypatch):
     run, _ = run_dir
-    occ = str(tmp_path / "occ")
-    _write_run(occ, _jax_params(), occ_train={"resolution": 8})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        NerfRenderer.from_run_dir(occ, device="cpu")
+    r = NerfRenderer.from_run_dir(run, device="cpu")
+    with pytest.raises(ValueError, match="mode must be"):
+        r.enable_occupancy(mode="half")
+    with pytest.raises(ValueError, match="interp must be"):
+        r.enable_occupancy(interp="cubic")
     with pytest.raises(ValueError, match="architecture"):
         NerfRenderer(os.path.join(run, "torch_checkpoints", "000007.pt"),
                      height=6, width=8, focal=7.0, near=2.0, far=6.0,
@@ -233,3 +234,112 @@ def test_from_run_dir_reads_calib_poses_for_int8(tmp_path):
     assert r._float_params is r.params
     np.testing.assert_array_equal(r.params["fine"]["l1"]["w"].numpy(),
                                   params["fine"]["l1"]["w"])
+
+
+def _jax_occ_render(params, grid, **change):
+    import dataclasses
+    cfg = dataclasses.replace(
+        JaxRender(n_coarse=8, n_fine=16, white_bkg=True, mlp=JaxCfg(**TINY),
+                  pallas="off", deterministic_resample=True).eval_mode(),
+        **change)
+    return jax_render_image(jax.random.PRNGKey(0), params, 6, 8, 7.0,
+                            jnp.asarray(POSE), 2.0, 6.0, cfg, chunk=16,
+                            occupancy=grid)
+
+
+def _jax_grid(params, res, bound=1.5, net="fine"):
+    from cvnerf_tpu.render.occupancy import bake_occupancy
+    return bake_occupancy(params[net], JaxCfg(**TINY), (-bound,) * 3,
+                          (bound,) * 3, resolution=res, pallas="off")
+
+
+@pytest.mark.parametrize("record,change", [
+    ({"resolution": 8, "bound": 1.5}, dict(occupancy_mode="full")),
+    ({"resolution": 7, "bound": 1.2, "mode": "merge", "interp": "trilinear",
+      "floor": 0}, dict(occupancy_interp="trilinear")),
+    ({"resolution": 8, "bound": 1.5, "mode": "full", "interp": "nearest",
+      "floor": 3}, dict(occupancy_mode="full", occ_floor=3))],
+    ids=["legacy", "merge_trilinear", "full_floor"])
+def test_occ_train_run_dir_serves_through_a_grid(tmp_path, record, change):
+    """An ``occ_train`` run directory is served through a grid baked with
+    its recorded resolution and bound, in its recorded mode, probe and
+    floor (a legacy record: ``full``, nearest, no floor), as JAX
+    ``from_run_dir`` serves it; the frame against JAX ``render_image``
+    through the JAX bake of the same weights."""
+    params = _jax_params()
+    run = str(tmp_path / "occ")
+    _write_run(run, params, occ_train=record)
+    r = NerfRenderer.from_run_dir(run, chunk=16, device="cpu")
+    assert r.occupancy is not None
+    assert r.cfg.occupancy_mode == record.get("mode", "full")
+    assert r.cfg.occupancy_interp == record.get("interp", "nearest")
+    grid = _jax_grid(params, record["resolution"], record["bound"])
+    np.testing.assert_allclose(r.occupancy.values.numpy(),
+                               np.asarray(grid.values), rtol=1e-5, atol=1e-5)
+    _check(r.render_pose_extras(POSE, keys=KEYS),
+           _jax_occ_render(params, grid, **change))
+
+
+def test_enable_occupancy_matches_jax_and_resets_the_budget(run_dir):
+    """``enable_occupancy`` in merge, full and termination modes with
+    reduced budgets, against the JAX renderer through the JAX bake; a
+    re-enable without overrides restores the checkpoint's budget. The
+    bake reads the float master copy, so it is the same after
+    ``enable_int8``."""
+    run, params = run_dir
+    r = NerfRenderer.from_run_dir(run, chunk=16, device="cpu")
+    grid = _jax_grid(params, 9)
+    r.enable_occupancy(resolution=9)
+    _check(r.render_pose_extras(POSE, keys=KEYS),
+           _jax_occ_render(params, grid))
+    r.enable_occupancy(resolution=9, mode="full", term=1e-3, n_coarse=6,
+                       n_fine=10)
+    assert (r.cfg.n_coarse, r.cfg.n_fine) == (6, 10)
+    _check(r.render_pose_extras(POSE, keys=KEYS),
+           _jax_occ_render(params, grid, occupancy_mode="full",
+                           occupancy_termination=1e-3, n_coarse=6,
+                           n_fine=10))
+    before = r.occupancy.values.clone()
+    r.enable_int8(n_calib=256)
+    r.enable_occupancy(resolution=9)
+    assert (r.cfg.n_coarse, r.cfg.n_fine, r.cfg.occupancy_termination) == (
+        8, 16, 0.0)
+    torch.testing.assert_close(r.occupancy.values, before, rtol=0, atol=0)
+    out = r.render_pose_extras(POSE, keys=KEYS)
+    assert np.isfinite(out["rgb"]).all() and out["rgb_coarse"] is not None
+
+
+def test_an_empty_bake_serves_grid_less(tmp_path, capsys):
+    """``require_occupied``: a bake with no positive density keeps the
+    coarse net (JAX's warning) instead of installing an empty grid."""
+    params = _jax_params()
+    params["fine"]["alpha"]["b"] = params["fine"]["alpha"]["b"] - 100.0
+    run = str(tmp_path / "empty")
+    _write_run(run, params, occ_train={"resolution": 6, "bound": 1.5,
+                                       "mode": "merge", "interp": "nearest",
+                                       "floor": 0})
+    r = NerfRenderer.from_run_dir(run, chunk=16, device="cpu")
+    assert r.occupancy is None
+    assert "occupancy bake found no positive density" in capsys.readouterr().out
+    _check(r.render_pose_extras(POSE, keys=KEYS), _jax_render(params))
+
+
+def test_scene_snapshot_occ_train_record_matches_jax(tmp_path):
+    """``write_scene_snapshot`` writes JAX's ``occ_train`` record, and
+    refuses one that does not name its mode or probe."""
+    from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
+    from cvnerf_torch.serve import write_scene_snapshot
+    from cvnerf_tpu.serve import write_scene_snapshot as jax_write
+    kw = dict(height=6, width=8, focal=7.0, near=2.0, far=6.0, ndc=False,
+              ndc_variant="canonical", white_bkg=True, n_coarse=8, n_fine=16,
+              bf16=True, occ_train=True, occ_res=64, occ_bound=1.2,
+              occ_mode="full", occ_interp="trilinear", occ_floor=4)
+    a = write_scene_snapshot(str(tmp_path / "a"), mlp=NerfMLPConfig(**TINY),
+                             **kw)
+    b = jax_write(str(tmp_path / "b"), mlp=JaxCfg(**TINY), **kw)
+    with open(a) as fa, open(b) as fb:
+        assert fa.read() == fb.read()
+    for bad in (dict(occ_mode=None), dict(occ_interp="cubic")):
+        with pytest.raises(ValueError, match="occ_train snapshots must"):
+            write_scene_snapshot(str(tmp_path / "c"),
+                                 mlp=NerfMLPConfig(**TINY), **{**kw, **bad})

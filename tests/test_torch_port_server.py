@@ -13,8 +13,10 @@ import torch
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
 from cvnerf_torch.ops import fused_mlp_int8 as fq
 from cvnerf_torch.ops.rng import PRNGKey, split
+from cvnerf_torch.ops import fused_mlp as fm
 from cvnerf_torch.server import (build_parser, int8_from_args, main,
-                                 make_server, renderer_from_args)
+                                 make_server, occupancy_from_args,
+                                 renderer_from_args)
 from cvnerf_torch.utils.convert import torch_state_dict_from_params
 
 TINY = dict(xyz_freqs=4, dir_freqs=2, trunk_width=32, head_width=16)
@@ -124,7 +126,8 @@ def test_unknown_paths_are_404(server_url):
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["--occupancy", "full"], "Queue 1 item 10"),
+    (["--occ_term", "0.001"], "need --occupancy"),
+    (["--serve_fine", "64"], "need --occupancy"),
     (["--int8", "--int8_calib", "0"], "--int8_calib"),
     (["--int8", "--int8_bound", "0"], "--int8_bound must be positive"),
     (["--int8", "--int8_bound", "-2"], "--int8_bound must be positive"),
@@ -198,3 +201,66 @@ def test_cli_int8_serves_renders(run_dir, capsys):
     renderer.calib_poses = np.asarray([POSE], np.float32)
     int8_from_args(renderer, args)
     assert "via run poses" in capsys.readouterr().out
+
+
+OCC_FLAGS = ("occupancy", "occupancy_res", "occupancy_bound", "occ_interp",
+             "occ_floor", "occ_term", "serve_coarse", "serve_fine")
+
+
+def test_occupancy_flags_default_as_the_jax_server():
+    """Every occupancy flag of the JAX server, with its default and choices
+    (``--occ_interp`` is trilinear on the server, nearest in the CLI),
+    and the JAX server's exit for the termination flags without
+    ``--occupancy``."""
+    from cvnerf_tpu.server import build_parser as jax_parser
+    from cvnerf_tpu.server import main as jax_main
+    ours, theirs = build_parser(), jax_parser()
+    a, b = ours.parse_args([]), theirs.parse_args([])
+    assert {k: getattr(a, k) for k in OCC_FLAGS} == {
+        k: getattr(b, k) for k in OCC_FLAGS}
+    assert a.occ_interp == "trilinear"
+    choices = {x.dest: x.choices for x in ours._actions}
+    assert all(choices[k] == {x.dest: x.choices
+                              for x in theirs._actions}[k] for k in OCC_FLAGS)
+    for flags in (["--occ_term", "0.01"], ["--serve_coarse", "8"]):
+        with pytest.raises(SystemExit) as mine:
+            main(["--ckpt", "x.pt", *flags])
+        with pytest.raises(SystemExit) as jax_exit:
+            jax_main(["--ckpt", "x.pt", *flags])
+        assert str(mine.value.code) == str(jax_exit.value.code)
+
+
+def test_cli_occupancy_serves_renders(run_dir, capsys):
+    """``--occupancy full --occ_term --serve_coarse --serve_fine`` bakes at
+    startup and the server answers ``/render`` through the grid: the fine
+    pass alone per chunk (no coarse query), equal to the renderer's own
+    render of the pose."""
+    args = build_parser().parse_args(
+        ["--run", run_dir, "--device", "cpu", "--chunk", "128", "--port", "0",
+         "--occupancy", "full", "--occupancy_res", "16", "--occ_term", "1e-3",
+         "--serve_coarse", "6", "--serve_fine", "8"])
+    renderer = renderer_from_args(args)
+    occupancy_from_args(renderer, args)
+    assert ("occupancy grid active: mode=full res=16 interp=trilinear "
+            "term=0.001 samples=6+8") in capsys.readouterr().out
+    assert renderer.occupancy.values.shape == (16, 16, 16)
+    want = renderer.render_pose_extras(POSE, keys=("rgb", "depth"))
+    srv = make_server(renderer, "127.0.0.1", 0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        calls = fm.fused_nerf_plain.calls
+        with _post(url + "/render", {"c2w": POSE, "format": "json",
+                                     "include_depth": True}) as resp:
+            out = json.loads(resp.read())
+        # 192 rays in chunks of 128: two chunks, a fine pass each
+        assert fm.fused_nerf_plain.calls == calls + 2
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+    np.testing.assert_allclose(np.asarray(out["rgb"], np.float32),
+                               want["rgb"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(out["depth"], np.float32),
+                               want["depth"], rtol=0, atol=1e-5)
