@@ -118,16 +118,31 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      cvnerf_torch.render.mesh --run`` phase 7's run at res 256 (256
      forward launches; the grid against kernels="off"; the mesh's size
      and the host marching seconds); f. LPIPS of two occupancy frames with
-     seeded random weights, card against CPU within 1e-5 relative.
-The launch counts of phases 2, 2b, 3, 3b, 5, 5b, 7, 8, 9 and 10 (the main paths) are
-reset just before each phase (each CLI call of phase 7) and read just
+     seeded random weights, card against CPU within 1e-5 relative;
+  11. ray-sharded data parallelism (main paths): a. a two-shard mesh of
+     the one card (``make_mesh(devices=["cuda:0", "cuda:0"])``): 3 lego
+     bf16 steps (512 rays a shard), each against the unsharded step from
+     the same state at phase 6's bf16 tolerances, exactly 2 + 2 launches a
+     shard a step; ``NerfRenderer(use_mesh=<the mesh>)`` serving phase 7's
+     run at 400x400 against the unsharded renderer (bf16 within phase 4's
+     tolerances, the unequal values counted; int8 bitwise; 2 launches a
+     chunk a shard); the sharded and unsharded step and frame timed; b. a
+     one-rank NCCL world through the CLI (``--coordinator localhost:<free
+     port> --num_processes 1 --process_id 0``, phase 7's run cut to 30
+     steps: every step 2 + 2, every frame 80, its step-30 checkpoint
+     bitwise phase 7's), then in a world of the script's own a second
+     ``initialize_distributed`` refused while it is live and 3 ``Trainer``
+     steps with ``fused_allreduce`` bitwise the per-leaf all-reduce.
+The launch counts of phases 2, 2b, 3, 3b, 5, 5b, 7, 8, 9, 10 and 11 (the
+main paths) are reset just before each phase (each CLI call of phase 7) and read just
 after: the kernels must have launched exactly as often as the chunking
 implies (40 forward launches per 400x400 frame at chunk 8192, 80 at the
 CLI's chunk 4096, or as many int8 launches and no forward launch under
 ``--int8``, half as many through an occupancy grid; 2 forward and 2
 backward launches per train step, 1 + 1 per occupancy step, counted step
-by step in phases 7 and 10d; ceil(res^3 / 65,536) per bake), and the plain
-versions not at all.
+by step in phases 7 and 10d; ceil(res^3 / 65,536) per bake; on a
+two-shard mesh 2 + 2 a shard a step, 2 a chunk a shard a frame), and the
+plain versions not at all.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, the list of kernels exercised, and as its last line
@@ -997,6 +1012,17 @@ def check_calls(what: str, deltas: list[dict], n: int, want: dict) -> None:
              f"off {want}: {bad[:3]}")
 
 
+def cli_base(tmp: str) -> list[str]:
+    """Phase 7's CLI flags: ``configs/lego.txt`` on its fixture, logs
+    under ``tmp``."""
+    logs = os.path.join(tmp, "cli_logs")
+    lego = str(Path(__file__).resolve().parent / "configs" / "lego.txt")
+    return ["--config", lego, "--data_dir", os.path.join(tmp, "lego_fixture"),
+            "--base_dir", logs, "--save_dir", logs, "--testskip", "1",
+            "--ckpt_freq", "30", "--val_freq", "30", "--vid_freq", "0",
+            "--print_freq", "10", "--deterministic_resample"]
+
+
 def phase_cli(fm, fb, fq, card: str, tmp: str) -> dict:
     """The training entry point (main path): ``cvnerf_torch.cli.main`` on a
     lego-shaped fixture written by the port's generator. An uninterrupted
@@ -1020,11 +1046,7 @@ def phase_cli(fm, fb, fq, card: str, tmp: str) -> dict:
     print(f"cli: wrote an 800x800 blender fixture (8 train, 2 val, 2 test "
           f"views) in {fixture_s:.2f} s", flush=True)
     logs = os.path.join(tmp, "cli_logs")
-    lego = str(Path(__file__).resolve().parent / "configs" / "lego.txt")
-    base = ["--config", lego, "--data_dir", data,
-            "--base_dir", logs, "--save_dir", logs, "--testskip", "1",
-            "--ckpt_freq", "30", "--val_freq", "30", "--vid_freq", "0",
-            "--print_freq", "10", "--deterministic_resample"]
+    base = cli_base(tmp)
     chunk, hw = 4096, SERVE_HW          # lego.txt's chunk default; half_res
     per_frame = {"fwd": 2 * -(-hw * hw // chunk)}                  # 80
     total = {k: 0 for k in read_counts(fm, fb, fq)}
@@ -1252,7 +1274,7 @@ def compare_steps(what: str, old, on, off, m_on: dict, m_off: dict,
     ok = (loss_err <= 2e-2 and g_err <= 0.15 and p_any <= 2 * lr + 1e-6
           and p_big <= 1e-6 and e_any <= 2 * lr + 1e-6)
     if not ok:
-        fail(f"levers {what}: kernels and kernels='off' disagree: loss rel "
+        fail(f"{what}: the two steps disagree: loss rel "
              f"{loss_err:.2e}, grads {g_err:.2e}, params {p_any:.2e} "
              f"(large-|g| {p_big:.2e}), ema {e_any:.2e}")
     return {"loss_rel": loss_err, "grad_rel": g_err, "param_max": p_any,
@@ -1397,8 +1419,8 @@ def phase_levers(fm, fb, fq, card: str) -> dict:
             m_off = {k: float(v) for k, v in m_off.items()}
             if not all(np.isfinite(v) for v in m_on.values()):
                 fail(f"levers {name}: non-finite metrics {m_on}")
-            errs.append(compare_steps(name, state, on, off, m_on, m_off,
-                                      tcfg.lr))
+            errs.append(compare_steps(f"levers {name}", state, on, off,
+                                      m_on, m_off, tcfg.lr))
             state = on
         pcfg = plain_config(change)
         times = {"lever": [], "plain": []}
@@ -2293,6 +2315,259 @@ def phase_lpips(card: str, tmp: str, a: np.ndarray, b: np.ndarray) -> dict:
     return {"card": d_gpu, "cpu": d_cpu, "rel_diff": rel, "card_ms": gpu_ms}
 
 
+# -- phase 11: ray-sharded data parallelism ---------------------------------
+
+SHARD_STEPS = 3
+SHARD_TIMED = 8
+
+
+def free_port() -> int:
+    """A TCP port free on this host now (bound to port 0, then released)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_shards(fm, fb, fq, card: str, run: str) -> dict:
+    """Phase 11a, a two-shard in-process mesh on the one card
+    (``make_mesh(devices=["cuda:0", "cuda:0"])``): SHARD_STEPS lego-shaped
+    bf16 steps (512 rays a shard) each held against the unsharded step
+    from the same state at phase 6's bf16 tolerances, with exactly 2 + 2
+    launches a shard a step; ``NerfRenderer(use_mesh=<the mesh>)`` serving
+    phase 7's run at 400x400 against the unsharded renderer (bf16 within
+    phase 4's tolerances, the count of unequal values printed; int8
+    bitwise), the frame's launches split over the shards; the sharded and
+    unsharded step and frame timed (both shards run on one card, so these
+    show the cost of the split, not a gain)."""
+    from cvnerf_torch.data.synthetic import bench_scene
+    from cvnerf_torch.ops.rng import PRNGKey, fold_in
+    from cvnerf_torch.parallel.mesh import make_mesh
+    from cvnerf_torch.serve import NerfRenderer
+    from cvnerf_torch.train.loop import make_train_step
+    from cvnerf_torch.train.state import create_train_state
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    images_np, poses_np = bench_scene(TRAIN_HW, TRAIN_HW)
+    images = torch.as_tensor(images_np, device="cuda")
+    poses = torch.as_tensor(poses_np, device="cuda")
+    idx = torch.tensor([0, 1])
+    tcfg = lego_train_config(torch.bfloat16)
+    step_mesh = make_train_step(tcfg, mesh)
+    step_one = make_train_step(tcfg)
+    state = create_train_state(PRNGKey(SEED + 5), lr=tcfg.lr,
+                               lr_decay=tcfg.lr_decay, mlp=tcfg.render.mlp,
+                               device="cuda")
+    total = {k: 0 for k in read_counts(fm, fb, fq)}
+    errs = []
+    for i in range(1, SHARD_STEPS + 1):
+        key = fold_in(PRNGKey(SEED), i)
+        torch.cuda.synchronize()
+        reset_counts(fm, fb, fq)
+        on, m_on = step_mesh(state, key, images, poses, idx, False)
+        torch.cuda.synchronize()
+        counts = read_counts(fm, fb, fq)
+        for k, v in counts.items():
+            total[k] += v
+        if counts != {"fwd": 4, "bwd": 4, "int8": 0, "fwd_plain": 0,
+                      "bwd_plain": 0, "int8_plain": 0}:
+            fail(f"shards: sharded step {i} launched {counts}, not 2 + 2 "
+                 f"a shard and no plain call")
+        one, m_one = step_one(state, key, images, poses, idx, False)
+        m_on = {k: float(v) for k, v in m_on.items()}
+        m_one = {k: float(v) for k, v in m_one.items()}
+        if not all(np.isfinite(v) for v in m_on.values()):
+            fail(f"shards: non-finite metrics {m_on}")
+        errs.append(compare_steps(f"shards step {i}", state, on, one, m_on,
+                                  m_one, tcfg.lr))
+        state = on
+    worst = {k: max(e[k] for e in errs) for k in errs[0]}
+
+    def step_ms(step) -> float:
+        st, times = state, []
+        for i in range(SHARD_TIMED + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = step(st, fold_in(PRNGKey(SEED), 100 + i), images,
+                         poses, idx, False)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times[1:]))
+    ms = {"one": [], "mesh": []}
+    for r in range(2):
+        for arm in (("one", "mesh") if r == 0 else ("mesh", "one")):
+            ms[arm].append(step_ms(step_one if arm == "one" else step_mesh))
+    print(f"shards: {SHARD_STEPS} lego-shaped bf16 steps on a 2-shard mesh "
+          f"of cuda:0 (512 rays a shard) against the unsharded step from "
+          f"the same state: loss rel {worst['loss_rel']:.2e} (tol 2e-2), "
+          f"grads {worst['grad_rel']:.2e} (tol 0.15), params "
+          f"{worst['param_max']:.2e} (tol {2 * tcfg.lr:g}), large-|g| "
+          f"{worst['param_big']:.2e} (tol 1e-6); launches 2 + 2 a shard a "
+          f"step, plain 0; median step (wall, synchronised, {SHARD_TIMED} "
+          f"steps, 2 rounds in turns) sharded {ms['mesh']} ms, unsharded "
+          f"{ms['one']} ms; card: {card}", flush=True)
+
+    def frame(r, c2w):
+        r.render_pose(pose(1.5))                                  # warm
+        torch.cuda.synchronize()
+        reset_counts(fm, fb, fq)
+        t0 = time.perf_counter()
+        out = r.render_pose_extras(c2w, keys=("rgb", "depth", "acc"))
+        wall = (time.perf_counter() - t0) * 1e3
+        return out, wall, read_counts(fm, fb, fq)
+
+    served = {}
+    for name, use_mesh in (("one", False), ("mesh", mesh)):
+        r = NerfRenderer.from_run_dir(run, device="cuda", chunk=CHUNK,
+                                      use_mesh=use_mesh)
+        if (r.mesh is mesh) != (name == "mesh"):
+            fail(f"shards: NerfRenderer(use_mesh={use_mesh}) kept mesh "
+                 f"{r.mesh}")
+        served[name] = {"bf16": frame(r, pose(0.5))}
+        served[name]["int8"] = frame(r.enable_int8(), pose(0.5))
+    n_chunks = -(-SERVE_HW * SERVE_HW // CHUNK)
+    want = {"bf16": {"fwd": 2 * n_chunks}, "int8": {"int8": 2 * n_chunks}}
+    report = {}
+    for dt in ("bf16", "int8"):
+        (a, a_ms, a_n), (b, b_ms, b_n) = served["one"][dt], served["mesh"][dt]
+        unequal = {k: int((a[k] != b[k]).sum()) for k in a}
+        err = {k: float(np.abs(a[k] - b[k]).max()) for k in a}
+        key = "fwd" if dt == "bf16" else "int8"
+        zero = {k: 0 for k in total}
+        if a_n != {**zero, key: want[dt][key]} or \
+                b_n != {**zero, key: 2 * want[dt][key]}:
+            fail(f"shards {dt}: frame launches {b_n} (sharded) and {a_n} "
+                 f"(unsharded), expected {2 * want[dt][key]} and "
+                 f"{want[dt][key]} {key} launches")
+        for k, v in b_n.items():
+            total[k] += v
+        print(f"shards {dt} frame: NerfRenderer(use_mesh=<2 shards>) "
+              f"against use_mesh=False at {SERVE_HW}x{SERVE_HW}, chunk "
+              f"{CHUNK} split "
+              f"into 2 x {CHUNK // 2}: unequal values {unequal} of "
+              f"{SERVE_HW * SERVE_HW} a map, max abs {err}; {key} launches "
+              f"{b_n[key]} ({n_chunks} chunks x 2 shards x 2 passes: "
+              f"{b_n[key] // 2} a shard) against {a_n[key]} unsharded; "
+              f"frame {b_ms:.1f} ms sharded, {a_ms:.1f} ms unsharded "
+              f"(wall)", flush=True)
+        if dt == "int8" and any(unequal.values()):
+            fail("shards: the sharded int8 frame is not bitwise the "
+                 "unsharded one")
+        if err["rgb"] > 2e-2 or err["depth"] > 0.1:
+            fail(f"shards {dt}: the sharded frame differs: {err}")
+        report[dt] = {"unequal": unequal, "max_abs": err,
+                      "frame_ms": b_ms, "plain_frame_ms": a_ms,
+                      "launches": b_n[key], "unsharded_launches": a_n[key]}
+    return {"counts": total, "step_ms": ms["mesh"],
+            "unsharded_step_ms": ms["one"], **worst, "frames": report}
+
+
+def phase_dist_cli(fm, fb, fq, card: str, tmp: str) -> dict:
+    """Phase 11b, a one-rank NCCL world through the CLI: phase 7's run cut
+    to 30 steps with ``--coordinator localhost:<free port>
+    --num_processes 1 --process_id 0`` (every step 2 + 2 launches, every
+    frame 80; its step-30 checkpoint bitwise phase 7's); then, in a
+    one-rank world of this process's own, ``initialize_distributed``
+    refusing a second world while it is live and 3 ``Trainer`` steps with
+    ``fused_allreduce`` bitwise the steps without it."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+    from cvnerf_torch.data.synthetic import bench_scene
+    from cvnerf_torch.ops.rng import PRNGKey
+    from cvnerf_torch.parallel.mesh import initialize_distributed, make_mesh
+    from cvnerf_torch.train.loop import Trainer
+    from cvnerf_torch.train.state import create_train_state, tree_leaves
+    logs = os.path.join(tmp, "cli_logs")
+    base = cli_base(tmp)
+    per_frame = {"fwd": 2 * -(-SERVE_HW * SERVE_HW // 4096)}
+    out = io.StringIO()
+
+    class Tee(io.TextIOBase):
+        def write(self, s):
+            sys.__stdout__.write(s)
+            return out.write(s)
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(Tee()):
+        _, counts, steps, frames = drive_cli(
+            fm, fb, fq, [*base, "--name", "lego_dist", "--iters", "31",
+                         "--coordinator", f"localhost:{free_port()}",
+                         "--num_processes", "1", "--process_id", "0"])
+    wall_s = time.perf_counter() - t0
+    printed = out.getvalue()
+    check_calls("dist cli steps", steps, 30, {"fwd": 2, "bwd": 2})
+    check_calls("dist cli frames", frames, 4, per_frame)
+    if "Distributed: process 0 of 1" not in printed or \
+            "Device mesh: 1 x cuda" not in printed:
+        fail("dist cli: no 'Distributed: process 0 of 1' or one-shard mesh "
+             "line")
+    if dist.is_initialized():
+        fail("dist cli: the CLI left its process group live")
+    a = torch.load(os.path.join(logs, "lego_a", "torch_checkpoints",
+                                "000030.pt"), weights_only=True)
+    b = torch.load(os.path.join(logs, "lego_dist", "torch_checkpoints",
+                                "000030.pt"), weights_only=True)
+    diffs = walk_diffs(a, b)
+    print(f"dist cli: 30 lego-shaped bf16 steps in a one-rank NCCL world "
+          f"({wall_s:.2f} s wall): every step 2 + 2, every frame "
+          f"{per_frame['fwd']}, launches {counts}; its step-30 checkpoint "
+          f"bitwise phase 7's: {not diffs}", flush=True)
+    if diffs:
+        fail(f"dist cli: the one-rank world's checkpoint differs: "
+             f"{dict(list(diffs.items())[:8])}")
+
+    images, poses = bench_scene(TRAIN_HW, TRAIN_HW)
+    if not initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                                  device="cuda"):
+        fail("dist: initialize_distributed did not start a world")
+    try:
+        try:
+            initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                                   device="cuda")
+            fail("dist: initialize_distributed joined a second world while "
+                 "one was live")
+        except RuntimeError:
+            pass
+        mesh = make_mesh(device="cuda")
+        if not (mesh.distributed and mesh.size == 1):
+            fail(f"dist: make_mesh() under a one-rank world gave {mesh}")
+        runs = {}
+        reset_counts(fm, fb, fq)
+        for fused in (False, True):
+            tcfg = dataclasses.replace(lego_train_config(torch.bfloat16),
+                                       fused_allreduce=fused)
+            state = create_train_state(PRNGKey(SEED + 5), lr=tcfg.lr,
+                                       lr_decay=tcfg.lr_decay,
+                                       mlp=tcfg.render.mlp, device="cuda")
+            tr = Trainer(tcfg, state, images, poses, [0, 1], seed=SEED,
+                         mesh=mesh)
+            runs[fused] = (tr.run(1, 4), tr.state)
+        torch.cuda.synchronize()
+        fused_counts = read_counts(fm, fb, fq)
+    finally:
+        dist.destroy_process_group()
+    (m0, s0), (m1, s1) = runs[False], runs[True]
+    same = m0["loss"] == m1["loss"] and all(
+        torch.equal(x, y) for x, y in zip(
+            tree_leaves({"p": s0.params, "mu": s0.opt_state.mu,
+                         "nu": s0.opt_state.nu}),
+            tree_leaves({"p": s1.params, "mu": s1.opt_state.mu,
+                         "nu": s1.opt_state.nu})))
+    print(f"dist: a second initialize_distributed while the world is live "
+          f"raises; 3 Trainer steps with fused_allreduce bitwise the "
+          f"per-leaf all-reduce (loss {m1['loss']!r}): {same}; launches "
+          f"{fused_counts} (2 + 2 a step); card: {card}", flush=True)
+    if not same or fused_counts != {"fwd": 12, "bwd": 12, "int8": 0,
+                                    "fwd_plain": 0, "bwd_plain": 0,
+                                    "int8_plain": 0}:
+        fail("dist: fused_allreduce differs from the per-leaf all-reduce "
+             "in a one-rank world, or its steps left the kernels")
+    for k, v in fused_counts.items():
+        counts[k] += v
+    return {"counts": counts, "cli_wall_s": wall_s}
+
+
 def check_png_or_ppm(body: bytes, ctype: str, h: int, w: int) -> None:
     if ctype == "image/png":
         if body[:8] != b"\x89PNG\r\n\x1a\n":
@@ -2506,8 +2781,15 @@ def main() -> int:
         occ_cli = phase_occ_cli(fm, fb, fq, card, tmp)
         # -- 10e. the mesh CLI on phase 7's run (main path) ---------------
         mesh = phase_mesh(fm, fb, fq, card, run_a, tmp)
+        # -- 11a. a two-shard mesh on the one card (main path) ------------
+        shards = phase_shards(fm, fb, fq, card, run_a)
+        # -- 11b. a one-rank NCCL world through the CLI (main path) -------
+        dist_cli = phase_dist_cli(fm, fb, fq, card, tmp)
     late = [levers["counts"], lever_cli["counts"], band["counts"],
-            occ_cli["counts"]]
+            occ_cli["counts"], shards["counts"], dist_cli["counts"]]
+    sharded = {"shards": {k: v for k, v in shards.items() if k != "counts"},
+               "dist_cli": {k: v for k, v in dist_cli.items()
+                            if k != "counts"}}
     occ_fwd = (occ_bake["counts"]["fwd"] + occ_serve["counts"]["fwd"]
                + mesh["counts"]["fwd"])
 
@@ -2542,6 +2824,7 @@ def main() -> int:
             "serve": {k: v for k, v in occ_serve.items() if k != "counts"},
             "mesh": {k: v for k, v in mesh.items() if k != "counts"},
             "lpips": lpips},
+        "parallel": sharded,
         "note": "ms/plain_ms/bound_ms at the fine-pass chunk "
                 f"(n={CHUNK * 192}, bf16: fused_nerf_wgmma); fp32 (the "
                 "--no-bf16 path, fused_nerf_ffma) at the same chunk, its "
@@ -2552,8 +2835,10 @@ def main() -> int:
                 "(the levers and the sphere_hi_3000 band) and phase 10's "
                 "(occupancy bakes, occupancy frames, occupancy training "
                 "through the CLI, the mesh grid), whose numbers stand under "
-                "occupancy; no single PyTorch call computes this function, "
-                "so library_ms is null",
+                "occupancy, and phase 11's (a two-shard mesh's steps and "
+                "frames, a one-rank NCCL world through the CLI), whose "
+                "numbers stand under parallel; no single PyTorch call "
+                "computes this function, so library_ms is null",
     }, {
         "name": "fused_nerf_bwd", "route": "cuda",
         "source": "cvnerf_torch/csrc/fused_mlp_bwd.cu",
@@ -2584,7 +2869,8 @@ def main() -> int:
                 "pixel draws' cost); band: phase 9 (sphere_hi_3000); "
                 "occupancy: phase 10d (the occupancy step, 1 + 1 launches, "
                 "against the plain step; the --occ_train CLI runs, whose "
-                "launches count here); "
+                "launches count here); launches include phase 11's "
+                "(sharded steps, the one-rank NCCL world's); "
                 "max_abs_err is the largest per-leaf error "
                 "relative to the leaf's largest gradient; the bound counts "
                 "the least work (wgrad of 12 layers + dgrad of 11), not the "
@@ -2595,7 +2881,8 @@ def main() -> int:
         "source": "cvnerf_torch/csrc/fused_mlp_int8.cu",
         "replaces": "cvnerf_tpu/ops/pallas/fused_mlp_int8.py:268",
         "launches": (int8_counts["int8"] + cli["counts"]["int8"]
-                     + occ_serve["counts"]["int8"]),
+                     + occ_serve["counts"]["int8"]
+                     + shards["counts"]["int8"]),
         "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
         "ms": int8_rows[-1]["ms"], "plain_ms": int8_rows[-1]["plain_ms"],
         "bound_ms": int8_rows[-1]["bound_ms"],
@@ -2604,7 +2891,8 @@ def main() -> int:
         "shapes": int8_rows,
         "note": f"ms/plain_ms/bound_ms at the fine-pass chunk (n={CHUNK * 192}"
                 "), real head scales; launches include phase 10c's "
-                "(--int8 --occupancy merge frames); the bound counts "
+                "(--int8 --occupancy merge frames) and phase 11a's (a "
+                "sharded int8 frame); the bound counts "
                 "1,186,816 int8 "
                 "operations a point at 1,979 TOPS; no single PyTorch call "
                 "computes this function, so library_ms is null; yardstick "

@@ -1,5 +1,5 @@
 """The port's command line: config-driven NeRF training and rendering on
-one NVIDIA card (port of the JAX package's ``cli.py``)::
+NVIDIA cards (port of the JAX package's ``cli.py``)::
 
     python -m cvnerf_torch.cli --config configs/lego.txt
     python -m cvnerf_torch.cli --config configs/demo_sphere.txt --device cpu
@@ -36,9 +36,23 @@ plain re-invocation keeps the record (``--no_reload`` drops it), and
 renders any run so). ``--lpips_weights`` adds LPIPS to the held-out
 scores (``utils/lpips.py``).
 
-Several processes (``--coordinator``, ``--num_processes``,
-``--process_id``) are refused by name, with the ROADMAP item that brings
-them, before anything is written to the run directory.
+Data parallelism runs as in the JAX CLI: ``--coordinator host:port
+--num_processes N --process_id i`` (or the JAX package's environment
+variables) start a process group before anything else (NCCL with one
+rank a card, or gloo under ``--device cpu``), and the trainer always
+takes the ``'rays'`` mesh (``parallel/mesh.py``: every local card of a
+single process, else one shard a rank); frames are sharded over it
+where it has more than one shard. Adaptation: **only rank 0 writes the
+run directory** (``config_resolved.json``, ``scene.json``,
+``metrics.jsonl``, checkpoints, ``best.json``, frames, videos, the
+profiler trace); the JAX package leaves that to orbax, and two ranks
+appending one ``metrics.jsonl`` would corrupt it. The other ranks read
+the shared run directory (resume, ``--ft_path``, the best checkpoint)
+and enter every sharded render (validation, the test eval, videos,
+occupancy bakes), so no collective is left waiting; each computes the
+same validation PSNR from its gathered frame, so ``--track_best``
+decides alike on every rank. The CLI destroys the process group it
+started when it returns.
 """
 
 from __future__ import annotations
@@ -49,22 +63,14 @@ import sys
 
 import numpy as np
 
-MESH_ITEM = "ROADMAP Queue 1 item 11 (data parallelism)"
+class _NoWriter:
+    """What a rank other than 0 holds in place of the run directory's
+    writers (metrics logger, checkpointers): every write is a no-op."""
 
+    def log(self, *args, **kwargs) -> None:
+        pass
 
-def unported(args) -> list[tuple[str, str]]:
-    """``(flag, ROADMAP item)`` for each flag set that the port does not
-    carry yet."""
-    return [(flag, item) for flag, on, item in (
-        ("--coordinator", args.coordinator is not None, MESH_ITEM),
-        ("--num_processes", args.num_processes is not None, MESH_ITEM),
-        ("--process_id", args.process_id is not None, MESH_ITEM)) if on]
-
-
-def _refuse(found: list[tuple[str, str]]) -> None:
-    if found:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(f"{f} ({i})" for f, i in found))
+    log_image = save = wait = close = log
 
 
 def _snapshot(run_dir: str) -> dict:
@@ -201,7 +207,6 @@ def main(argv=None):
     ``--render_test``, the test scores."""
     from cvnerf_torch.config import parse_args
     args = parse_args(argv)
-    _refuse(unported(args))
     if args.pallas == "interpret":
         raise ValueError("--pallas interpret is a Pallas mode: the port runs "
                          "its kernels (auto, on) or the plain PyTorch MLP "
@@ -209,15 +214,27 @@ def main(argv=None):
     run_dir = os.path.join(args.base_dir, args.name)
 
     import torch
+    import torch.distributed as dist
     from cvnerf_torch import resolve_device
-    dev = resolve_device(args.device)
-    anomaly = torch.is_anomaly_enabled()
-    if args.debug_nans:
-        torch.autograd.set_detect_anomaly(True)
+    from cvnerf_torch.parallel.mesh import initialize_distributed
+    # Several processes (opt-in): the process group comes first.
+    started = initialize_distributed(args.coordinator, args.num_processes,
+                                     args.process_id, device=args.device)
     try:
-        return _run(args, dev, run_dir)
+        if started:
+            print(f"Distributed: process {dist.get_rank()} of "
+                  f"{dist.get_world_size()}")
+        dev = resolve_device(args.device)
+        anomaly = torch.is_anomaly_enabled()
+        if args.debug_nans:
+            torch.autograd.set_detect_anomaly(True)
+        try:
+            return _run(args, dev, run_dir)
+        finally:
+            torch.autograd.set_detect_anomaly(anomaly)
     finally:
-        torch.autograd.set_detect_anomaly(anomaly)
+        if started:
+            dist.destroy_process_group()
 
 
 def _run(args, dev, run_dir: str) -> dict:
@@ -231,6 +248,7 @@ def _run(args, dev, run_dir: str) -> dict:
                                               anneal_model_params)
     from cvnerf_torch.ops.fused_mlp import FusedNerfWeights
     from cvnerf_torch.ops.rng import PRNGKey
+    from cvnerf_torch.parallel.mesh import make_mesh
     from cvnerf_torch.render.frames import (render_image,
                                             render_poses_to_frames)
     from cvnerf_torch.render.occupancy import (bake_scene_occupancy,
@@ -260,13 +278,22 @@ def _run(args, dev, run_dir: str) -> dict:
     if args.render_test:
         render_poses = scene.poses[scene.test_idx]
 
+    # One shard per local card, or per rank of a process group; only rank
+    # 0 writes (see the module docstring).
+    mesh = make_mesh(device=dev)
+    writer = not mesh.distributed or mesh.first == 0
+
     # --- run dirs & config snapshot ---
     save_dir = os.path.join(args.save_dir, args.name)
-    os.makedirs(run_dir, exist_ok=True)
-    os.makedirs(save_dir, exist_ok=True)
     resolve_levers(args, run_dir)
     preserve_occ = resolve_occupancy(args, run_dir)
-    snapshot_config(args, run_dir)
+    # Every rank has read the run directory's records before rank 0
+    # rewrites them.
+    mesh.barrier()
+    if writer:
+        os.makedirs(run_dir, exist_ok=True)
+        os.makedirs(save_dir, exist_ok=True)
+        snapshot_config(args, run_dir)
     ckpt_dir = os.path.join(run_dir, CKPT_SUBDIR)
     if args.steps_per_call != 1 or args.netchunk != 1024 * 64:
         print(f"--steps_per_call {args.steps_per_call} and --netchunk "
@@ -301,20 +328,23 @@ def _run(args, dev, run_dir: str) -> dict:
         rcfg_test = dataclasses.replace(rcfg_test,
                                         deterministic_resample=True)
 
-    write_scene_snapshot(
-        run_dir, height=scene.height, width=scene.width, focal=scene.focal,
-        near=scene.near, far=scene.far, ndc=scene.ndc,
-        ndc_variant=args.ndc_variant, white_bkg=args.white_bkg,
-        n_coarse=args.n_coarse_samples, n_fine=args.n_fine_samples,
-        bf16=args.bf16, mlp=mlp, sorted_resample=args.sorted_resample,
-        pallas=args.pallas, calib_poses=scene.poses,
-        occ_train=args.occ_train or preserve_occ is not None,
-        occ_res=(preserve_occ or {}).get("resolution", args.occupancy_res),
-        occ_bound=(preserve_occ or {}).get("bound", args.occupancy_bound),
-        occ_mode=(preserve_occ or {}).get("mode", args.occ_train_mode),
-        occ_interp=(preserve_occ or {}).get("interp", args.occ_interp),
-        occ_floor=(preserve_occ or {}).get("floor", args.occ_floor),
-        freq_anneal=args.freq_anneal, ema_decay=args.ema_decay)
+    if writer:
+        kept = preserve_occ or {}
+        write_scene_snapshot(
+            run_dir, height=scene.height, width=scene.width,
+            focal=scene.focal, near=scene.near, far=scene.far,
+            ndc=scene.ndc, ndc_variant=args.ndc_variant,
+            white_bkg=args.white_bkg, n_coarse=args.n_coarse_samples,
+            n_fine=args.n_fine_samples, bf16=args.bf16, mlp=mlp,
+            sorted_resample=args.sorted_resample, pallas=args.pallas,
+            calib_poses=scene.poses,
+            occ_train=args.occ_train or preserve_occ is not None,
+            occ_res=kept.get("resolution", args.occupancy_res),
+            occ_bound=kept.get("bound", args.occupancy_bound),
+            occ_mode=kept.get("mode", args.occ_train_mode),
+            occ_interp=kept.get("interp", args.occ_interp),
+            occ_floor=kept.get("floor", args.occ_floor),
+            freq_anneal=args.freq_anneal, ema_decay=args.ema_decay)
 
     # The JAX CLI's nets for the same --seed, bit for bit.
     state = create_train_state(PRNGKey(args.seed), lr=args.lr,
@@ -348,6 +378,8 @@ def _run(args, dev, run_dir: str) -> dict:
         # Move the run dir's existing checkpoints (and the best-val ones
         # with their best.json) aside so this run's lower-step saves are
         # neither refused nor shadowed at resume time.
+        if not writer:
+            return
         best_dir = ckpt_dir + "_best"
         have_main = os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir)
         have_best = ((os.path.isdir(best_dir) and os.listdir(best_dir))
@@ -400,7 +432,10 @@ def _run(args, dev, run_dir: str) -> dict:
     else:
         backup_stale_ckpts("--no_reload")
 
-    print(f"Device mesh: 1 x {dev.type}")
+    print(f"Device mesh: {mesh.size} x {dev.type}")
+    # Frames shard only over a mesh of several shards; the trainer always
+    # takes the mesh.
+    frame_mesh = mesh if mesh.size > 1 else None
 
     render_chunk = args.chunk
 
@@ -415,9 +450,13 @@ def _run(args, dev, run_dir: str) -> dict:
             nets, render_poses, scene.height, scene.width, scene.focal,
             scene.near, scene.far, rcfg_test, ndc=scene.ndc,
             ndc_variant=args.ndc_variant, chunk=render_chunk,
-            factor=args.render_factor, on_frame=on_frame, frame_keys=keys,
-            device=dev, key=PRNGKey(args.seed + 1), occupancy=occupancy)
+            factor=args.render_factor,
+            on_frame=on_frame if writer else None, frame_keys=keys,
+            device=dev, key=PRNGKey(args.seed + 1), occupancy=occupancy,
+            mesh=frame_mesh)
         frames = out_frames if not args.render_depth else out_frames["rgb"]
+        if not writer:
+            return frames
         out = write_video(
             os.path.join(save_dir, f"{args.name}_spiral_{step:06d}_rgb.mp4"),
             frames, fps=30)
@@ -486,7 +525,7 @@ def _run(args, dev, run_dir: str) -> dict:
                 torch.as_tensor(scene.poses[int(i)], device=dev), scene.near,
                 scene.far, rcfg_test, ndc=scene.ndc,
                 ndc_variant=args.ndc_variant, chunk=render_chunk,
-                key=PRNGKey(key_seed), occupancy=occupancy)
+                key=PRNGKey(key_seed), occupancy=occupancy, mesh=frame_mesh)
             rgb = out["rgb"].cpu().numpy()
             rgb0 = rgb if rgb0 is None else rgb0
             psnrs.append(psnr_images(rgb, scene.images[int(i)]))
@@ -529,7 +568,7 @@ def _run(args, dev, run_dir: str) -> dict:
                 params, mlp, ndc=scene.ndc, bound=args.occupancy_bound,
                 n_fine=args.n_fine_samples, resolution=args.occupancy_res,
                 compute_dtype=rcfg_test.compute_dtype,
-                kernels=rcfg_test.kernels)
+                kernels=rcfg_test.kernels, mesh=frame_mesh)
             if occupied_fraction(occ) <= 0.0:
                 # A grid with no support would give every ray the
                 # ε-uniform fallback CDF; grid-less rendering is defined.
@@ -594,9 +633,9 @@ def _run(args, dev, run_dir: str) -> dict:
         occlusion_frac=args.occlusion_frac, ema_decay=args.ema_decay,
         render=rcfg_train)
     trainer = Trainer(tcfg, state, scene.images, scene.poses,
-                      scene.train_idx, seed=args.seed,
+                      scene.train_idx, seed=args.seed, mesh=mesh,
                       steps_per_call=args.steps_per_call)
-    logger = MetricsLogger(run_dir)
+    logger = MetricsLogger(run_dir) if writer else _NoWriter()
 
     occ_bake = None
     if args.occ_train:
@@ -643,14 +682,17 @@ def _run(args, dev, run_dir: str) -> dict:
     if args.ckpt_keep < 1:
         sys.exit("--ckpt_keep must be >= 1 (retention of zero checkpoints "
                  "would make every save a no-op)")
-    ckpt_writer = Checkpointer(ckpt_dir, max_to_keep=args.ckpt_keep)
+    ckpt_writer = (Checkpointer(ckpt_dir, max_to_keep=args.ckpt_keep)
+                   if writer else _NoWriter())
 
     # Best-validation model selection (--track_best); the best score
     # persists in best.json, so a resumed run compares against it.
     best = {"psnr": float("-inf"), "step": None}
-    best_writer = (Checkpointer(ckpt_dir + "_best",
-                                max_to_keep=args.ckpt_keep)
-                   if args.track_best and args.val_freq > 0 else None)
+    best_writer = None
+    if args.track_best and args.val_freq > 0:
+        best_writer = (Checkpointer(ckpt_dir + "_best",
+                                    max_to_keep=args.ckpt_keep)
+                       if writer else _NoWriter())
     if best_writer is not None and os.path.exists(best_meta_path) and \
             (latest_step(ckpt_dir + "_best") is not None):
         with open(best_meta_path) as fp:
@@ -715,8 +757,9 @@ def _run(args, dev, run_dir: str) -> dict:
             # exists on disk.
             best_writer.save(tr.state)
             best.update(psnr=v, step=i)
-            with open(best_meta_path, "w") as fp:
-                json.dump(best, fp)
+            if writer:
+                with open(best_meta_path, "w") as fp:
+                    json.dump(best, fp)
             print(f"New best val PSNR {v:.3f} at step {i} "
                   f"(checkpointed to {ckpt_dir}_best)")
 
@@ -744,10 +787,11 @@ def _run(args, dev, run_dir: str) -> dict:
             trainer.run(warm + 1, min(warm + 21, args.iters))
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-        os.makedirs(args.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile_dir,
-                                              "trace.json"))
-        print(f"Profiler trace written to {args.profile_dir}")
+        if writer:
+            os.makedirs(args.profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(args.profile_dir,
+                                                  "trace.json"))
+            print(f"Profiler trace written to {args.profile_dir}")
         final = trainer.run(min(warm + 21, args.iters), args.iters)
     else:
         final = trainer.run(start + 1, args.iters)
@@ -761,6 +805,8 @@ def _run(args, dev, run_dir: str) -> dict:
 
     if best_writer is not None:
         best_writer.close()
+    # Rank 0's last checkpoints are on disk before any rank reads them.
+    mesh.barrier()
     if len(test_views):
         # Held-out test scores on the test views (disjoint from the
         # validation views where the dataset allows).

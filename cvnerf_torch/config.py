@@ -266,8 +266,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dir_freqs", type=int, default=4,
                    help="positional-encoding L for view directions")
     p.add_argument("--coordinator", type=str, default=None,
-                   help="multi-host coordinator address host:port "
-                        "(refused: not ported yet)")
+                   help="multi-process coordinator address host:port — one "
+                        "process per card (NCCL; gloo under --device cpu); "
+                        "also via JAX_COORDINATOR_ADDRESS")
     p.add_argument("--num_processes", type=int, default=None,
                    help="multi-host process count (with --coordinator)")
     p.add_argument("--process_id", type=int, default=None,

@@ -76,6 +76,13 @@ def init_nerf_params(key: torch.Tensor,
     return params
 
 
+def nerf_param_count(params: dict) -> int:
+    """The number of values in a (nested) params dict."""
+    if isinstance(params, dict):
+        return sum(nerf_param_count(v) for v in params.values())
+    return int(params.numel())
+
+
 def freq_window(n_freqs: int, alpha: float) -> torch.Tensor:
     """Per-band linear anneal window: band ``k`` weighs ``clip(alpha - k,
     0, 1)`` (FreeNeRF eq. 3)."""

@@ -318,6 +318,15 @@ class FusedNerfWeights:
         self.wmat, self.wvec = (pack_params(params, cfg, compute_dtype)
                                 if self.device.type == "cuda" else (None, None))
 
+    def to(self, device: torch.device) -> "FusedNerfWeights":
+        """The same net packed on ``device`` (itself when it lies there)."""
+        if self.device == device:
+            return self
+        return FusedNerfWeights(
+            {name: {k: t.to(device) for k, t in layer.items()}
+             for name, layer in self.params.items()},
+            self.cfg, self.compute_dtype)
+
 
 def fused_nerf_plain(params: dict, points: torch.Tensor,
                      viewdirs: torch.Tensor, cfg: NerfMLPConfig,

@@ -145,6 +145,12 @@ class QuantizedNerfWeights:
         self.qmat, self.qvec = (pack_qparams(qp, cfg)
                                 if self.device.type == "cuda" else (None, None))
 
+    def to(self, device: torch.device) -> "QuantizedNerfWeights":
+        """The same net packed on ``device`` (itself when it lies there)."""
+        if self.device == device:
+            return self
+        return QuantizedNerfWeights(self.qp.to(device), self.cfg)
+
 
 def fused_nerf_int8_plain(qp: QuantizedNerfParams, points: torch.Tensor,
                           viewdirs: torch.Tensor,

@@ -92,3 +92,8 @@ def ndc_rays(height: float, width: float, focal: float, near: float,
 
     return (torch.stack([o0, o1, o2], dim=-1),
             torch.stack([d0, d1, d2], dim=-1))
+
+
+# Reference-name alias: ``compute_rays(h, w, f, pose)`` (reference
+# main.py:19-46) is ``ray_grid``, with the same arguments and returns.
+compute_rays = ray_grid

@@ -335,7 +335,7 @@ def main(argv=None) -> int:
     # mode, torch_checkpoints/ the weights.
     from cvnerf_torch.serve import NerfRenderer
     r = NerfRenderer.from_run_dir(args.run, step=args.step, which=args.which,
-                                  device=args.device)
+                                  device=args.device, use_mesh=False)
     net = args.net
     if net == "fine" and r.cfg.n_fine == 0:
         print("n_fine=0 run: meshing the coarse network")

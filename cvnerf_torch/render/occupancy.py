@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, apply_nerf
 from cvnerf_torch.ops.encoding import freq_encode
 from cvnerf_torch.ops.fused_mlp import FusedNerfWeights, fused_nerf_apply
+from cvnerf_torch.parallel.mesh import Mesh, replicate_to_mesh
 
 
 @dataclasses.dataclass
@@ -148,15 +149,18 @@ def bake_scene_occupancy(params: dict, mlp: NerfMLPConfig, *, ndc: bool,
                          bound: float, n_fine: int, resolution: int = 192,
                          dilate: int = 1,
                          compute_dtype: torch.dtype = torch.float32,
-                         kernels: str = "on") -> OccupancyGrid:
+                         kernels: str = "on", mesh: Mesh | None = None):
     """Box choice, net choice (``fine`` unless ``n_fine == 0``) and bake:
     the one entry point of ``NerfRenderer.enable_occupancy`` and the
-    CLI's ``--occ_train`` and ``--render_only --occupancy``."""
+    CLI's ``--occ_train`` and ``--render_only --occupancy``. With
+    ``mesh`` the grid comes back replicated over it
+    (``replicate_to_mesh``)."""
     bb_min, bb_max = scene_bbox(ndc, bound)
     net = "fine" if n_fine > 0 else "coarse"
-    return bake_occupancy(params[net], mlp, bb_min, bb_max,
+    grid = bake_occupancy(params[net], mlp, bb_min, bb_max,
                           resolution=resolution, dilate=dilate,
                           compute_dtype=compute_dtype, kernels=kernels)
+    return grid if mesh is None else replicate_to_mesh(grid, mesh)
 
 
 def occupied_fraction(grid: OccupancyGrid) -> float:

@@ -16,8 +16,12 @@ int8 params (``QuantizedNerfParams``, or its packed
 ``"merge"`` keeps the fine pass's shape, ``"full"`` draws every fine
 sample from the probe CDF (with ``occ_floor`` of them from a stratified
 coverage draw, RNG tag 5), and ``occupancy_termination`` tightens each
-ray's interval by a probe march first. Device meshes come in a later
-slice.
+ray's interval by a probe march first. With a device mesh
+(``parallel/mesh.py``) ``render_rays_chunked`` splits each chunk's rays
+into contiguous shards with their global ids, renders each shard on its
+device and puts the shards back in order (across processes through an
+``all_gather``, so every rank holds the whole result); the draws' keying
+makes that bitwise the unsharded render, up to the kernels' own rounding.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ from cvnerf_torch.ops.quantize import QuantizedNerfParams
 from cvnerf_torch.ops.rng import ray_normal, ray_sorted_uniform, ray_uniform
 from cvnerf_torch.ops.sampling import (merge_sorted, sample_pdf,
                                        stratified_samples)
+from cvnerf_torch.parallel.mesh import (Mesh, ray_sharding, shard_gather,
+                                        to_device)
 from cvnerf_torch.render.occupancy import occupancy_ray_bounds, probe_sigma
 
 
@@ -282,27 +288,56 @@ def render_rays_chunked(params: dict, rays_o: torch.Tensor,
                         near: float, far: float, cfg: RenderConfig,
                         chunk: int = 4096,
                         key: torch.Tensor | None = None,
-                        occupancy=None) -> dict:
+                        occupancy=None, mesh: Mesh | None = None) -> dict:
     """Memory-bounded render of a flat ray batch: a Python loop over
     ``chunk``-ray slices. The rays are padded with zero rays to a chunk
     multiple, as the JAX ``lax.map`` does, and the padding is dropped on
     return, so every chunk has the same shape. Each chunk keys its draws
     by its rays' global ids, so the result does not depend on ``chunk``.
-    ``occupancy`` is a baked grid every chunk renders through."""
+    ``occupancy`` is a baked grid every chunk renders through. With
+    ``mesh``, each chunk's rays split into ``mesh.size`` contiguous shards
+    (``chunk`` must divide into them), each rendered on its shard's device
+    with the params and grid there (``replicate_to_mesh`` values, or
+    copied); the result lies on the rays' device, on every rank."""
     n = rays_o.shape[0]
+    if mesh is not None and chunk % mesh.size != 0:
+        raise ValueError(f"chunk={chunk} must be divisible by mesh size "
+                         f"{mesh.size}")
     n_chunks = -(-n // chunk)
     pad = n_chunks * chunk - n
 
     def pad0(x):
         return torch.cat([x, x.new_zeros(pad, *x.shape[1:])])
 
-    ro, rd, vd = pad0(rays_o), pad0(rays_d), pad0(viewdirs)
-    outs = []
+    out_dev = rays_o.device
+    if mesh is None:
+        shards = [(slice(0, chunk), out_dev)]
+    else:
+        shards = [(ray_sharding(mesh).rows(chunk, s), d)
+                  for s, d in mesh.local_shards]
+    # Per distinct device: the params, the grid and the padded rays there.
+    placed = {d: (to_device(params, d), to_device(occupancy, d),
+                  *(to_device(pad0(x), d) for x in (rays_o, rays_d,
+                                                   viewdirs)))
+              for _, d in shards}
+    outs = [[] for _ in shards]
     for i in range(n_chunks):
-        sl = slice(i * chunk, (i + 1) * chunk)
-        ids = torch.arange(i * chunk, (i + 1) * chunk, dtype=torch.int64,
-                           device=rays_o.device)
-        outs.append(render_rays(params, ro[sl], rd[sl], vd[sl], near, far,
-                                cfg, key=key, ray_ids=ids,
-                                occupancy=occupancy))
-    return {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}
+        for j, (rows, d) in enumerate(shards):
+            p, occ, ro, rd, vd = placed[d]
+            sl = slice(i * chunk + rows.start, i * chunk + rows.stop)
+            ids = torch.arange(sl.start, sl.stop, dtype=torch.int64,
+                               device=d)
+            outs[j].append(render_rays(p, ro[sl], rd[sl], vd[sl], near, far,
+                                       cfg, key=key, ray_ids=ids,
+                                       occupancy=occ))
+    if mesh is None:
+        return {k: torch.cat([o[k] for o in outs[0]])[:n] for k in outs[0][0]}
+    result = {}
+    for k in outs[0][0]:
+        # [n_chunks, chunk / size, ...] a shard, interleaved back to the
+        # chunk-major ray order.
+        pieces = shard_gather(mesh, [torch.stack([o[k] for o in shard_outs])
+                                     for shard_outs in outs], out_dev)
+        full = torch.stack(pieces, 1)
+        result[k] = full.reshape(n_chunks * chunk, *full.shape[3:])[:n]
+    return result

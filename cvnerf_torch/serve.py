@@ -24,7 +24,11 @@ once, here, and reused by every render. ``enable_int8`` quantizes both nets
 and serves through the int8 kernel from then on; ``enable_occupancy`` bakes
 an occupancy grid (``render/occupancy.py``, through the forward kernel) and
 serves through its probe instead of the coarse net. Both read the float
-master copy, so they compose in either order.
+master copy, so they compose in either order. With ``use_mesh`` (the
+default) a host with several cards, or a process group with several
+ranks, splits each chunk's rays over a ``'rays'`` mesh
+(``parallel/mesh.py``) with the nets and the grid replicated over it; on
+one card there is no mesh.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from cvnerf_torch.render.frames import render_image, render_poses_to_frames
 from cvnerf_torch.render.occupancy import (bake_scene_occupancy,
                                           occupied_fraction, scene_bbox)
 from cvnerf_torch.ops.rng import PRNGKey
+from cvnerf_torch.parallel.mesh import Mesh, make_mesh, replicate_to_mesh
 from cvnerf_torch.render.renderer import RenderConfig
 from cvnerf_torch.utils.convert import load_torch_checkpoint
 
@@ -153,11 +158,13 @@ def write_scene_snapshot(run_dir: str, *, height: int, width: int,
 
 
 class NerfRenderer:
-    """A checkpoint loaded for repeated novel-view rendering on one device:
-    the Polyak average of an EMA run, else the params. ``anneal`` applies
-    the ``freq_anneal`` window at that progress to the weights, in
-    float32, before they are packed (``from_run_dir`` passes it for a raw
-    mid-anneal checkpoint)."""
+    """A checkpoint loaded for repeated novel-view rendering: the Polyak
+    average of an EMA run, else the params. ``anneal`` applies the
+    ``freq_anneal`` window at that progress to the weights, in float32,
+    before they are packed (``from_run_dir`` passes it for a raw
+    mid-anneal checkpoint). ``use_mesh`` renders over ``make_mesh()``
+    (or over the given ``Mesh``) when it has more than one shard
+    (``self.mesh``, else None)."""
 
     which: str = "last"
 
@@ -172,8 +179,12 @@ class NerfRenderer:
                  seed: int = 0,
                  deterministic: bool = True,
                  device: str | torch.device = "cuda",
-                 anneal: float | None = None):
+                 anneal: float | None = None,
+                 use_mesh: bool | Mesh = True):
         self.device = resolve_device(device)
+        mesh = use_mesh if isinstance(use_mesh, Mesh) else (
+            make_mesh(device=self.device) if use_mesh else None)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         if cfg is None:
             cfg = RenderConfig(mlp=mlp if mlp is not None
                                else NerfMLPConfig())
@@ -214,17 +225,23 @@ class NerfRenderer:
         self.calib_poses = None
         # Pack once for the kernel; every render reuses the packing.
         if self.cfg.kernels == "on":
-            self._nets = {k: FusedNerfWeights(net, self.cfg.mlp,
-                                              self.cfg.compute_dtype)
-                          for k, net in self.params.items()}
+            self._nets = self._placed(
+                {k: FusedNerfWeights(net, self.cfg.mlp,
+                                     self.cfg.compute_dtype)
+                 for k, net in self.params.items()})
         else:
-            self._nets = self.params
+            self._nets = self._placed(self.params)
+
+    def _placed(self, x):
+        """``x`` replicated over the mesh, or as it is without one."""
+        return x if self.mesh is None else replicate_to_mesh(x, self.mesh)
 
     @classmethod
     def from_run_dir(cls, run_dir: str, *, chunk: int = 8192, seed: int = 0,
                      deterministic: bool = True, which: str = "auto",
                      step: int | None = None,
-                     device: str | torch.device = "cuda") -> "NerfRenderer":
+                     device: str | torch.device = "cuda",
+                     use_mesh: bool | Mesh = True) -> "NerfRenderer":
         """Load a renderer from a run directory: geometry, NDC mode,
         architecture, sample counts and compute dtype from ``scene.json``,
         weights from the newest ``.pt`` under ``torch_checkpoints/``.
@@ -287,7 +304,7 @@ class NerfRenderer:
                 focal=geo["focal"], near=geo["near"], far=geo["far"],
                 ndc=geo["ndc"], ndc_variant=geo["ndc_variant"], cfg=cfg,
                 chunk=chunk, seed=seed, deterministic=deterministic,
-                device=device, anneal=anneal)
+                device=device, anneal=anneal, use_mesh=use_mesh)
         r.which = "best" if use_best else "last"
         if geo.get("calib_poses"):
             r.calib_poses = np.asarray(geo["calib_poses"], np.float32)
@@ -350,7 +367,7 @@ class NerfRenderer:
             occupancy_termination=float(term), occ_floor=int(floor),
             n_coarse=base_c if n_coarse is None else int(n_coarse),
             n_fine=base_f if n_fine is None else int(n_fine))
-        self.occupancy = grid
+        self.occupancy = self._placed(grid)
         return self
 
     def enable_int8(self, *, poses=None, n_calib: int = 1 << 17,
@@ -390,10 +407,11 @@ class NerfRenderer:
         qs = {k: quantize_nerf(net, self.cfg.mlp, pts, dirs)
               for k, net in self._float_params.items()}
         if self.cfg.kernels == "on":
-            self._nets = {k: QuantizedNerfWeights(q, self.cfg.mlp)
-                          for k, q in qs.items()}
+            self._nets = self._placed(
+                {k: QuantizedNerfWeights(q, self.cfg.mlp)
+                 for k, q in qs.items()})
         else:
-            self._nets = qs
+            self._nets = self._placed(qs)
         return self
 
     def extract_mesh(self, *, net: str = "fine", resolution: int = 256,
@@ -433,7 +451,8 @@ class NerfRenderer:
         out = render_image(self._nets, h, w, f, self._pose(c2w), self.near,
                            self.far, self.cfg, ndc=self.ndc,
                            ndc_variant=self.ndc_variant, chunk=self.chunk,
-                           key=self._key, occupancy=self.occupancy)
+                           key=self._key, occupancy=self.occupancy,
+                           mesh=self.mesh)
         return {k: out[k].cpu().numpy() for k in keys}
 
     def render_video(self, poses, factor: int = 0, on_frame=None,
@@ -445,7 +464,7 @@ class NerfRenderer:
             self.near, self.far, self.cfg, ndc=self.ndc,
             ndc_variant=self.ndc_variant, chunk=self.chunk, factor=factor,
             on_frame=on_frame, collect=collect, device=self.device,
-            key=self._key, occupancy=self.occupancy)
+            key=self._key, occupancy=self.occupancy, mesh=self.mesh)
 
     def render_poses_extras(self, poses, factor: int = 0,
                             keys: tuple[str, ...] = ("rgb",)) -> dict:
@@ -456,5 +475,5 @@ class NerfRenderer:
             self.near, self.far, self.cfg, ndc=self.ndc,
             ndc_variant=self.ndc_variant, chunk=self.chunk, factor=factor,
             frame_keys=tuple(keys), device=self.device, key=self._key,
-            occupancy=self.occupancy)
+            occupancy=self.occupancy, mesh=self.mesh)
         return {"rgb": out} if tuple(keys) == ("rgb",) else out

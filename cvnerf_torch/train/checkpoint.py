@@ -192,9 +192,10 @@ def restore_checkpoint(ckpt_dir: str, template: TrainState,
     if not isinstance(blob, dict) or "opt_state" not in blob:
         raise ValueError(
             f"{path} holds parameters only, with no optimizer state (as "
-            "cvnerf-import --export writes them): a run cannot resume from "
-            "it. NerfRenderer serves it; to fine-tune from it, start a run "
-            "from a full checkpoint")
+            "an export writes them): a run cannot resume from it. "
+            "NerfRenderer serves it; to fine-tune from it, import it "
+            "(python -m cvnerf_torch.utils.convert <file.pt> <run>) and "
+            "pass --ft_path <run>/torch_checkpoints")
     device = tree_leaves(template.params)[0].device
 
     def nets(sds: dict, what: str) -> dict:

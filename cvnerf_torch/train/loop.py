@@ -1,5 +1,5 @@
 """The train step and the host-side training loop (port of the JAX
-package's ``train/loop.py``, single device).
+package's ``train/loop.py``).
 
 One step, as the JAX step computes it: split the step key into image,
 pixel and render keys; draw one training image (``randint``) and
@@ -32,11 +32,24 @@ decay, the count advances, as optax does), and their updates are zeroed,
 so the coarse net stays as it was at the switch. ``Trainer.set_occupancy``
 and ``maybe_set_occupancy`` install the grid.
 
+Data parallelism (``parallel/mesh.py``): ``make_train_step(cfg, mesh)``
+splits the ray batch over the mesh's ``'rays'`` axis. Every shard draws
+the same global batch from the same key (pixels, ray batching, precrop;
+once per distinct device), takes its contiguous rows with their *global*
+ray ids, and computes its loss with the regularizers and its gradients;
+then the shards average the loss, ``mse_fine`` and every gradient leaf
+(``shard_mean``: one all-reduce per leaf across processes, or with
+``TrainConfig.fused_allreduce`` one all-reduce of the concatenated
+gradients and ``[loss, mse_fine]``). Adam, the EMA slot and the occupancy
+step's frozen coarse net then run on the averaged gradients, alike on
+every rank, so the state stays replicated; inside one process the state
+lives on the mesh's first device and its params are copied to the other
+devices each step. One shard is the unsharded step, bitwise.
+
 The step runs eagerly: the Feistel pixel draw runs on the host and is
 copied to the card without waiting for it, the parity draw (a sort over
 the whole grid) runs on the card; the render and the backward are the
-device's work. Data parallelism raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+device's work.
 """
 
 from __future__ import annotations
@@ -55,6 +68,9 @@ from cvnerf_torch.ops.rays import (ndc_rays, rays_for_pixels,
 from cvnerf_torch.ops.rng import (PRNGKey, choice_without_replacement,
                                   fold_in, randint,
                                   sample_without_replacement, split)
+from cvnerf_torch.parallel.mesh import (Mesh, ray_sharding,
+                                        replicate_to_mesh, shard_mean,
+                                        to_device)
 from cvnerf_torch.render.occupancy import occupied_fraction
 from cvnerf_torch.render.renderer import RenderConfig, render_rays
 from cvnerf_torch.train.state import (TrainState, ema_update, make_optimizer,
@@ -64,8 +80,9 @@ from cvnerf_torch.train.state import (TrainState, ema_update, make_optimizer,
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training configuration: the JAX ``TrainConfig``'s fields and
-    defaults (see its notes). ``fused_allreduce`` belongs to data
-    parallelism, which this port does not carry yet."""
+    defaults (see its notes). ``fused_allreduce`` averages the shards'
+    gradients and ``[loss, mse_fine]`` in one flat all-reduce instead of
+    one a leaf (equal to fp32 rounding); it is ignored without a mesh."""
     height: int
     width: int
     focal: float
@@ -92,15 +109,8 @@ class TrainConfig:
     render: RenderConfig = RenderConfig()
 
 
-MESH_ITEM = "ROADMAP Queue 1 item 11 (data parallelism)"
-
-
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise for what this port does not carry (``fused_allreduce``) and
-    for the JAX step's invalid configurations."""
-    if cfg.fused_allreduce:
-        raise NotImplementedError(
-            f"not ported yet: fused_allreduce ({MESH_ITEM})")
+    """Raise for the JAX step's invalid configurations."""
     if cfg.pixel_sampling not in ("prp", "parity", "replace"):
         raise ValueError(f"bad pixel_sampling: {cfg.pixel_sampling!r}")
     if cfg.n_rays > cfg.height * cfg.width and not cfg.ray_batching:
@@ -186,17 +196,22 @@ def schedules(cfg: TrainConfig, step: int) -> tuple[float, float, float]:
     return float(noise), float(anneal), float(dist)
 
 
-def make_train_step(cfg: TrainConfig, mesh=None,
+def make_train_step(cfg: TrainConfig, mesh: Mesh | None = None,
                     with_occupancy: bool = False) -> Callable:
     """``step_fn(state, key, images, poses, train_idx, precrop) ->
     (new_state, metrics)``: the JAX ``make_train_step(cfg, mesh=None)``.
     ``images [N, H, W, 3]`` and ``poses [N, 3, 4]`` lie on the params'
-    device, ``train_idx`` (int64) on any; the metrics are 0-d tensors on
-    the params' device. With ``with_occupancy=True`` the step takes a baked
+    device (or, with a mesh, are ``replicate_to_mesh`` values),
+    ``train_idx`` (int64) on any; the metrics are 0-d tensors on the
+    params' device. With ``with_occupancy=True`` the step takes a baked
     ``OccupancyGrid`` after the state: ``step_fn(state, occupancy, key,
-    ...)`` (the occupancy step, see the module docstring)."""
-    if mesh is not None:
-        raise NotImplementedError(f"device meshes: {MESH_ITEM}")
+    ...)`` (the occupancy step, see the module docstring). With ``mesh``
+    the batch is split over its shards (see the module docstring);
+    ``n_rays`` must divide into them."""
+    if mesh is not None and cfg.n_rays % mesh.size != 0:
+        raise ValueError(
+            f"n_rays={cfg.n_rays} must be divisible by the mesh size "
+            f"{mesh.size}")
     check_supported(cfg)
     opt = make_optimizer(cfg.lr, cfg.lr_decay)
     rcfg = cfg.render
@@ -205,7 +220,9 @@ def make_train_step(cfg: TrainConfig, mesh=None,
         rcfg = dataclasses.replace(rcfg, return_weights=True)
 
     def pick_rays(key, images, poses, train_idx, precrop):
-        """The step's rays and their target colours."""
+        """The step's global batch on the images' device: rays (NDC-warped
+        when ``cfg.ndc``), pre-NDC unit view directions and target
+        colours."""
         k_img, k_pix = key
         dev = images.device
         if cfg.ray_batching and not precrop:
@@ -220,35 +237,30 @@ def make_train_step(cfg: TrainConfig, mesh=None,
             target = images[im_idx, py, px]
             rays_o, rays_d = rays_for_pixels_batched(
                 px, py, w, h, cfg.focal, poses[im_idx])
-            return rays_o, rays_d, target
-        j = int(randint(k_img, (), 0, train_idx.shape[0]))
-        im = int(train_idx[j])
-        py, px = _sample_pixels(k_pix, cfg, precrop, dev)
-        target = images[im][py, px]
-        rays_o, rays_d = rays_for_pixels(px, py, cfg.width, cfg.height,
-                                         cfg.focal, poses[im])
-        return rays_o, rays_d, target
-
-    def step_fn(state: TrainState, occupancy, key: torch.Tensor,
-                images: torch.Tensor, poses: torch.Tensor,
-                train_idx: torch.Tensor, precrop: bool):
-        k_img, k_pix, k_render = split(key, 3)
-        dev = images.device
-        rays_o, rays_d, target = pick_rays((k_img, k_pix), images, poses,
-                                           train_idx, precrop)
+        else:
+            j = int(randint(k_img, (), 0, train_idx.shape[0]))
+            im = int(train_idx[j])
+            py, px = _sample_pixels(k_pix, cfg, precrop, dev)
+            target = images[im][py, px]
+            rays_o, rays_d = rays_for_pixels(px, py, cfg.width, cfg.height,
+                                             cfg.focal, poses[im])
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         if cfg.ndc:
             rays_o, rays_d = ndc_rays(cfg.height, cfg.width, cfg.focal, 1.0,
                                       rays_o, rays_d, variant=cfg.ndc_variant)
-        n = cfg.n_rays
-        ray_ids = torch.arange(n, dtype=torch.int64, device=dev)
+        return rays_o, rays_d, viewdirs, target
+
+    def shard_grads(params, occupancy, k_render, batch, rows, schedule):
+        """One shard's rays ``rows`` of the global ``batch``: (loss,
+        mse_fine, the gradient of every leaf of ``params``)."""
+        noise_scale, anneal, dist_scale = schedule
+        rays_o, rays_d, viewdirs, target = (x[rows] for x in batch)
+        dev = target.device
+        n = rows.stop - rows.start
+        ray_ids = torch.arange(rows.start, rows.stop, dtype=torch.int64,
+                               device=dev)
         near = torch.full((n,), cfg.near, dtype=torch.float32, device=dev)
         far = torch.full((n,), cfg.far, dtype=torch.float32, device=dev)
-        noise_scale, anneal, dist_scale = schedules(cfg, state.step)
-        params = {net: {name: {p: t.detach().requires_grad_()
-                               for p, t in layer.items()}
-                        for name, layer in tree.items()}
-                  for net, tree in state.params.items()}
         # The anneal transforms the weights inside the loss, so autograd
         # gives grad(raw) = window · grad(windowed): a closed band's
         # gradient is exactly 0.
@@ -278,23 +290,78 @@ def make_train_step(cfg: TrainConfig, mesh=None,
         # exactly zero, and Adam must still see it.
         flat = torch.autograd.grad(loss, leaves,
                                    allow_unused=occupancy is not None)
-        it = iter(g if g is not None else torch.zeros_like(x)
-                  for g, x in zip(flat, leaves))
+        grads = [g if g is not None else torch.zeros_like(x)
+                 for g, x in zip(flat, leaves)]
+        return loss.detach(), mse_fine.detach(), grads
+
+    def average(per_shard, like):
+        """The shards' (loss, mse_fine, grads) averaged over the mesh."""
+        if mesh is None:
+            return per_shard[0]
+        if cfg.fused_allreduce:
+            # One collective for everything: the flattened gradients with
+            # the two scalars packed onto the end.
+            (packed,) = shard_mean(mesh, [
+                [torch.cat([*(g.reshape(-1) for g in grads),
+                            torch.stack([loss, mse])])]
+                for loss, mse, grads in per_shard])
+            sizes = [x.numel() for x in like]
+            parts = torch.split(packed[:-2], sizes)
+            return (packed[-2], packed[-1],
+                    [p.reshape(x.shape) for p, x in zip(parts, like)])
+        loss, mse, *grads = shard_mean(
+            mesh, [[loss, mse, *grads] for loss, mse, grads in per_shard])
+        return loss, mse, grads
+
+    def step_fn(state: TrainState, occupancy, key: torch.Tensor,
+                images, poses, train_idx: torch.Tensor, precrop: bool):
+        k_img, k_pix, k_render = split(key, 3)
+        schedule = schedules(cfg, state.step)
+        home = tree_leaves(state.params)[0].device
+        if mesh is None:
+            shards = [(slice(0, cfg.n_rays), images.device)]
+        else:
+            shards = [(ray_sharding(mesh).rows(cfg.n_rays, s), dev)
+                      for s, dev in mesh.local_shards]
+        # Per distinct device: the global batch, drawn there from the
+        # same key, and the params as leaves of a graph.
+        batch, params, occ = {}, {}, {}
+        per_shard = []
+        for rows, dev in shards:
+            if dev not in batch:
+                batch[dev] = pick_rays((k_img, k_pix),
+                                       to_device(images, dev),
+                                       to_device(poses, dev), train_idx,
+                                       precrop)
+                params[dev] = {
+                    net: {name: {p: t.detach().requires_grad_()
+                                 for p, t in layer.items()}
+                          for name, layer in tree.items()}
+                    for net, tree in to_device(state.params, dev).items()}
+                occ[dev] = (None if occupancy is None
+                            else to_device(occupancy, dev))
+            per_shard.append(shard_grads(params[dev], occ[dev], k_render,
+                                         batch[dev], rows, schedule))
+        loss, mse_fine, flat = average(per_shard,
+                                       tree_leaves(state.params))
+        it = iter(to_device(g, home) for g in flat)
         grads = {net: {name: {p: next(it) for p in layer}
                        for name, layer in tree.items()}
-                 for net, tree in params.items()}
-        new_params, opt_state = opt.update(grads, state.opt_state, params)
+                 for net, tree in state.params.items()}
+        new_params, opt_state = opt.update(grads, state.opt_state,
+                                           state.params)
         if with_occupancy:
             # Zeroed coarse updates (optax's p + 0): the momentum from the
             # warm-up would otherwise keep moving the frozen coarse net.
             new_params = {**new_params, "coarse": {
                 name: {p: t.detach() + 0.0 for p, t in layer.items()}
-                for name, layer in params["coarse"].items()}}
+                for name, layer in state.params["coarse"].items()}}
         ema = state.ema_params
         if cfg.ema_decay > 0.0:
             ema = ema_update(ema, new_params, cfg.ema_decay)
-        metrics = {"loss": loss.detach(), "mse_fine": mse_fine.detach(),
-                   "psnr": -10.0 * torch.log10(mse_fine.detach()),
+        loss, mse_fine = to_device(loss, home), to_device(mse_fine, home)
+        metrics = {"loss": loss, "mse_fine": mse_fine,
+                   "psnr": -10.0 * torch.log10(mse_fine),
                    "grad_norm": global_norm(grads)}
         return TrainState(params=new_params, opt_state=opt_state,
                           step=state.step + 1, ema_params=ema), metrics
@@ -302,8 +369,7 @@ def make_train_step(cfg: TrainConfig, mesh=None,
     if with_occupancy:
         return step_fn
 
-    def step_no_occ(state: TrainState, key: torch.Tensor,
-                    images: torch.Tensor, poses: torch.Tensor,
+    def step_no_occ(state: TrainState, key: torch.Tensor, images, poses,
                     train_idx: torch.Tensor, precrop: bool):
         return step_fn(state, None, key, images, poses, train_idx, precrop)
 
@@ -314,13 +380,15 @@ class Trainer:
     """Host-side training driver: the step, the per-step keys
     (``fold_in(PRNGKey(seed), i)``) and the periodic callbacks, as the JAX
     ``Trainer`` runs them. The data goes to the device of the state's
-    params. ``steps_per_call > 1`` runs the same single steps one after
-    another (the JAX scan is numerically the single steps)."""
+    params; with a ``mesh``, the state goes to the mesh's first device and
+    the images, poses and any occupancy grid are replicated over it
+    (``replicate_to_mesh``). ``steps_per_call > 1`` runs the same single
+    steps one after another (the JAX scan is numerically the single
+    steps)."""
 
     def __init__(self, cfg: TrainConfig, state: TrainState, images, poses,
-                 train_idx, seed: int = 0, mesh=None, steps_per_call: int = 1):
-        if mesh is not None:
-            raise NotImplementedError(f"device meshes: {MESH_ITEM}")
+                 train_idx, seed: int = 0, mesh: Mesh | None = None,
+                 steps_per_call: int = 1):
         if not 0.0 <= cfg.ema_decay < 1.0:
             raise ValueError(f"ema_decay must be in [0, 1), got "
                              f"{cfg.ema_decay}")
@@ -345,8 +413,9 @@ class Trainer:
                     f"n_rays={cfg.n_rays} exceeds the ray-batching pool of "
                     f"{pool} pixels across the train split")
         self.cfg = cfg
-        self.state = state
-        self.step_fn = make_train_step(cfg)
+        self.mesh = mesh
+        self.step_fn = make_train_step(cfg, mesh)
+        self.state = state if mesh is None else to_device(state, mesh.home)
         # Occupancy training: set_occupancy installs a grid and the
         # occupancy step.
         self.occupancy = None
@@ -354,20 +423,27 @@ class Trainer:
         # steps_per_call is accepted for the JAX signature and changes nothing.
         del steps_per_call
         self.base_key = PRNGKey(seed)
-        dev = tree_leaves(state.params)[0].device
+        dev = tree_leaves(self.state.params)[0].device
         self.images = torch.as_tensor(images, dtype=torch.float32).to(dev)
         self.poses = torch.as_tensor(poses, dtype=torch.float32)[:, :3, :4]
         self.poses = self.poses.to(dev)
+        if mesh is not None:
+            self.images = replicate_to_mesh(self.images, mesh)
+            self.poses = replicate_to_mesh(self.poses, mesh)
+        # Read on the host (the image draw); the ray-batching draw copies
+        # it to each shard's device.
         self.train_idx = torch.as_tensor(train_idx, dtype=torch.int64)
         self.callbacks: list[tuple[int, Callable]] = []
         self._last_metrics: dict[str, Any] = {}
 
     def set_occupancy(self, grid) -> None:
         """Install (or refresh) a baked ``OccupancyGrid``: the following
-        steps are occupancy steps through it."""
-        self.occupancy = grid
+        steps are occupancy steps through it (replicated over the mesh)."""
+        self.occupancy = (grid if self.mesh is None
+                          else replicate_to_mesh(grid, self.mesh))
         if self._step_fn_occ is None:
-            self._step_fn_occ = make_train_step(self.cfg, with_occupancy=True)
+            self._step_fn_occ = make_train_step(self.cfg, self.mesh,
+                                                with_occupancy=True)
 
     def maybe_set_occupancy(self, grid, occupied_frac: float | None = None
                             ) -> str:

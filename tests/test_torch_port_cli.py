@@ -2,7 +2,8 @@
 CPU: train, checkpoint, resume and render; fresh runs and their backups;
 best-validation tracking; crash recovery from the best checkpoint; serving
 the run; the training levers' flags (and the recorded ``freq_anneal`` and
-``ema_decay`` staying in force on resume); the flags still refused; and
+``ema_decay`` staying in force on resume); the flags once refused, the
+multi-process ones among them; and
 parity with the JAX package's CLI, plain and with EMA, the frequency anneal
 and the noise decay on.
 
@@ -269,7 +270,8 @@ REFUSED = [
       "--occupancy_res", "8"], "--occ_train", "item 10"),
     (["--occupancy", "merge"], "--occupancy", "item 10"),
     (["--lpips_weights", "missing.npz"], "--lpips_weights", "item 10"),
-    (["--coordinator", "localhost:1234"], "--coordinator", "item 11"),
+    (["--coordinator", "localhost:{port}", "--num_processes", "1",
+      "--process_id", "0"], "--coordinator", "item 11"),
     (["--num_processes", "2"], "--num_processes", "item 11"),
     (["--process_id", "0"], "--process_id", "item 11"),
 ]
@@ -291,9 +293,15 @@ LEVER_RECORD = {"--ema_decay": ("ema_decay", 0.99, "ema_decay"),
                               for r in REFUSED])
 def test_unported_flags_are_refused_before_anything_is_written(
         blender_dir, tmp_path, capsys, flags, name, item):
-    """The flags of ROADMAP Queue 1 item 11 are refused by name before
-    anything is written. Those of items 9 and 10, once refused here, now
-    run: the item-9 run records the resolved flag (``--freq_anneal 0.08``
+    """The flags of ROADMAP Queue 1 items 9, 10 and 11, once refused here
+    before anything was written, now run. Item 11: the three flags start a
+    one-rank gloo world (the JAX CLI's "Distributed: process 0 of 1"), the
+    run trains and writes its run directory, and the process group is
+    gone when the CLI returns; a coordinator without the world size
+    raises before anything is written; ``--num_processes`` or
+    ``--process_id`` alone is ignored, as in the JAX CLI (no coordinator,
+    no process group). The item-9 run records the resolved flag
+    (``--freq_anneal 0.08``
     of 12 iters is 1 step), and a recorded ``freq_anneal`` or ``ema_decay``
     stays in force when the resumed run omits the flag; ``--occ_train``
     records its bake in ``scene.json``, ``--occupancy`` is ignored during
@@ -328,12 +336,25 @@ def test_unported_flags_are_refused_before_anything_is_written(
         if name == "--lpips_weights":
             assert "--lpips_weights ignored: 24x24 frames" in printed
         return
-    if item != "item 9":
-        with pytest.raises(NotImplementedError) as e:
-            cli.main([*base, "--iters", "3", *flags])
-        assert f"not ported yet: {name} (ROADMAP Queue 1 {item}" in \
-            str(e.value)
-        assert not os.path.exists(logdir)
+    if item == "item 11":
+        import torch.distributed as dist
+        from test_torch_port_parallel import free_port
+        flags = [f.format(port=free_port()) for f in flags]
+        if name == "--coordinator":
+            with pytest.raises(ValueError, match="num_processes"):
+                cli.main([*base, "--iters", "3", *flags[:2]])
+            assert not os.path.exists(logdir)
+        out = cli.main([*base, "--iters", "4", *flags])
+        assert np.isfinite(out["loss"]) and np.isfinite(out["test_psnr"])
+        assert not dist.is_initialized()
+        printed = capsys.readouterr().out
+        assert ("Distributed: process 0 of 1" in printed) == (
+            name == "--coordinator")
+        assert "Device mesh: 1 x cpu" in printed
+        run_dir = os.path.join(logdir, "x")
+        assert max(r["step"] for r in _records(run_dir) if "loss" in r) == 3
+        assert tckpt.latest_step(os.path.join(run_dir,
+                                              "torch_checkpoints")) == 3
         return
     key, value, recorded = LEVER_RECORD[name]
     out = cli.main([*base, "--iters", "12", *flags])

@@ -164,3 +164,116 @@ def test_stochastic_configs_match_jax(change):
                             tcfg)
     with pytest.raises(ValueError, match="kernels"):
         dataclasses.replace(tcfg, kernels="auto").check_supported()
+
+
+# ---------- the reference-shaped API (tests/test_render_api.py) ----------
+
+API = dict(xyz_freqs=4, dir_freqs=2, trunk_width=64, head_width=32)
+API_C2W = np.array([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 4.0]],
+                   np.float32)
+
+
+def _api_params():
+    p = {"coarse": jax_init(jax.random.PRNGKey(0), JaxCfg(**API)),
+         "fine": jax_init(jax.random.PRNGKey(1), JaxCfg(**API))}
+    return p, params_from_jax(jax.tree.map(np.asarray, p))
+
+
+def test_compute_rays_alias_and_the_reexports():
+    """``ops.compute_rays`` is ``ray_grid``, as in the JAX package, and each
+    subpackage re-exports the JAX subpackage's public names."""
+    import importlib
+    from cvnerf_torch.ops import compute_rays, ray_grid
+    c2w = torch.eye(4)[:3]
+    a, b = compute_rays(4, 6, 8.0, c2w), ray_grid(4, 6, 8.0, c2w)
+    assert torch.equal(a[1], b[1]) and compute_rays is ray_grid
+    for sub in ("ops", "render", "models", "train", "data", "parallel",
+                "utils"):
+        want = importlib.import_module(f"cvnerf_tpu.{sub}").__all__
+        got = importlib.import_module(f"cvnerf_torch.{sub}")
+        assert set(want) <= set(got.__all__), (sub, set(want) - set(
+            got.__all__))
+        assert all(hasattr(got, name) for name in got.__all__), sub
+
+
+@pytest.mark.parametrize("source", ["c2w", "rays"])
+def test_render_matches_the_jax_render(source):
+    """``render`` with ``c2w=`` or with the frame's ``rays=`` (shaped
+    ``[H, W, 3]``) against the JAX ``render`` of the same key: rgb and the
+    extras' shapes, and the ray batch equal to the frame."""
+    from cvnerf_tpu.ops import ray_grid as jax_ray_grid
+    from cvnerf_tpu.render import render as jax_render
+    from cvnerf_torch.ops import ray_grid
+    from cvnerf_torch.render import render
+    jp, tp = _api_params()
+    jcfg = JaxRender(n_coarse=8, n_fine=8, mlp=JaxCfg(**API), pallas="off"
+                     ).eval_mode()
+    tcfg = RenderConfig(n_coarse=8, n_fine=8, mlp=NerfMLPConfig(**API)
+                        ).eval_mode()
+    kw = dict(chunk=64, ndc=False, near=2.0, far=6.0)
+    if source == "c2w":
+        want = jax_render(jax.random.PRNGKey(0), jp, 8, 10, 9.0,
+                          c2w=jnp.asarray(API_C2W), cfg=jcfg, **kw)
+        got = render(tp, 8, 10, 9.0, c2w=API_C2W, cfg=tcfg,
+                     key=PRNGKey(0), **kw)
+    else:
+        want = jax_render(jax.random.PRNGKey(0), jp, 8, 10, 9.0,
+                          rays=jax_ray_grid(8, 10, 9.0,
+                                            jnp.asarray(API_C2W)),
+                          cfg=jcfg, **kw)
+        got = render(tp, 8, 10, 9.0,
+                     rays=ray_grid(8, 10, 9.0, torch.from_numpy(API_C2W)),
+                     cfg=tcfg, key=PRNGKey(0), **kw)
+        frame, _ = render(tp, 8, 10, 9.0, c2w=API_C2W, cfg=tcfg,
+                          key=PRNGKey(0), **kw)
+        np.testing.assert_allclose(got[0].numpy(), frame.numpy(),
+                                   rtol=1e-4, atol=1e-5)
+    (rgb, extras), (jrgb, jextras) = got, want
+    assert rgb.shape == (8, 10, 3) and extras["acc"].shape == (8, 10)
+    assert extras["rgb_coarse"].shape == (8, 10, 3)
+    assert set(extras) == set(jextras)
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(jrgb), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_render_requires_exactly_one_source_and_defaults_to_ndc():
+    """``render`` refuses both or neither of ``rays=``/``c2w=``, and its
+    ``ndc`` defaults to True, as the reference's does."""
+    from cvnerf_torch.render import render
+    _, tp = _api_params()
+    cfg = RenderConfig(n_coarse=4, n_fine=0, mlp=NerfMLPConfig(**API)
+                       ).eval_mode()
+    with pytest.raises(ValueError, match="exactly one"):
+        render(tp, 8, 8, 9.0, cfg=cfg)
+    with pytest.raises(ValueError, match="exactly one"):
+        render(tp, 8, 8, 9.0, cfg=cfg, c2w=API_C2W,
+               rays=ray_grid_np(8, 8, 9.0))
+    c2w = np.array([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 0.0]],
+                   np.float32)
+    default, _ = render(tp, 8, 8, 10.0, chunk=64, c2w=c2w, cfg=cfg)
+    ndc, _ = render(tp, 8, 8, 10.0, chunk=64, c2w=c2w, ndc=True, cfg=cfg)
+    plain, _ = render(tp, 8, 8, 10.0, chunk=64, c2w=c2w, ndc=False,
+                      cfg=cfg)
+    assert torch.equal(default, ndc) and not torch.allclose(default, plain)
+
+
+def ray_grid_np(h, w, focal):
+    from cvnerf_torch.ops import ray_grid
+    return ray_grid(h, w, focal, torch.from_numpy(API_C2W))
+
+
+@pytest.mark.parametrize("kw", [{}, TINY], ids=["reference", "tiny"])
+def test_nerf_param_count_matches_jax(kw):
+    """``nerf_param_count`` of the port's net is the JAX count (the
+    reference net: 11 linear layers + the alpha head, ``tests/
+    test_mlp.py:30``)."""
+    from cvnerf_tpu.models import nerf_param_count as jax_count
+    from cvnerf_torch.models import nerf_param_count
+    want = jax_init(jax.random.PRNGKey(0), JaxCfg(**kw))
+    got = nerf_param_count(params_from_jax(jax.tree.map(np.asarray, want)))
+    assert got == jax_count(want)
+    if not kw:
+        assert got == sum(i * o + o for i, o in [
+            (63, 256), (256, 256), (256, 256), (256, 256), (256, 256),
+            (319, 256), (256, 256), (256, 256), (256, 256), (256, 1),
+            (283, 128), (128, 3)])

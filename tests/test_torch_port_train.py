@@ -48,6 +48,7 @@ from cvnerf_torch.data.synthetic import (bench_scene, pose_spherical,
                                          render_sphere_scene)
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
 from cvnerf_torch.ops.rng import PRNGKey, fold_in
+from cvnerf_torch.parallel.mesh import make_mesh
 from cvnerf_torch.render.renderer import (RenderConfig, render_rays,
                                           render_rays_chunked)
 from cvnerf_torch.train.loop import TrainConfig, Trainer, make_train_step
@@ -331,10 +332,12 @@ def test_trainer_steps_match_the_step_function():
     (dict(fused_allreduce=True), "Queue 1 item 11"),
 ])
 def test_unported_options_raise(change, item):
-    """The levers of ROADMAP Queue 1 item 9, once refused here, now build a
-    step and train through ``Trainer``; ``fused_allreduce`` (item 11) and
-    device meshes still raise naming their item, and an impossible draw
-    still raises."""
+    """The levers of ROADMAP Queue 1 item 9 and ``fused_allreduce`` (item
+    11), once refused here, now build a step and train through
+    ``Trainer``: each item-9 lever alone, ``fused_allreduce`` on a
+    2-shard CPU mesh. A ``Trainer`` takes a mesh (once refused too), a
+    mesh that does not divide ``n_rays`` raises with the JAX message, and
+    an impossible draw still raises."""
     base = TrainConfig(height=8, width=8, focal=10.0, near=2.0, far=6.0,
                        n_rays=16, render=RenderConfig(
                            n_coarse=4, n_fine=4, noise_std=1.0,
@@ -344,16 +347,20 @@ def test_unported_options_raise(change, item):
                                mlp=NerfMLPConfig(**TINY), device="cpu",
                                ema=cfg.ema_decay > 0)
     images, poses = bench_scene(8, 8)
-    if item.endswith("item 11"):
-        with pytest.raises(NotImplementedError, match=item):
-            make_train_step(cfg)
-    else:
-        tr = Trainer(cfg, state, images, poses, [0, 1])
-        m = tr.run(1, 3)
-        assert tr.state.step == 2 and all(np.isfinite(v) for v in m.values())
-        assert (tr.state.ema_params is not None) == (cfg.ema_decay > 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        Trainer(base, state, images, poses, [0], mesh=object())
+    mesh = make_mesh(devices=["cpu"] * 2)
+    tr = Trainer(cfg, state, images, poses, [0, 1],
+                 mesh=mesh if item.endswith("item 11") else None)
+    m = tr.run(1, 3)
+    assert tr.state.step == 2 and all(np.isfinite(v) for v in m.values())
+    assert (tr.state.ema_params is not None) == (cfg.ema_decay > 0)
+    state = create_train_state(PRNGKey(0), mlp=NerfMLPConfig(**TINY),
+                               device="cpu")
+    tr = Trainer(base, state, images, poses, [0], mesh=mesh)
+    m = tr.run(1, 3)
+    assert tr.state.step == 2 and all(np.isfinite(v) for v in m.values())
+    with pytest.raises(ValueError, match="divisible by the mesh size 3"):
+        Trainer(base, state, images, poses, [0],
+                mesh=make_mesh(devices=["cpu"] * 3))
     with pytest.raises(ValueError, match="exceeds"):
         make_train_step(dataclasses.replace(base, n_rays=65))
 
