@@ -132,7 +132,29 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      steps: every step 2 + 2, every frame 80, its step-30 checkpoint
      bitwise phase 7's), then in a world of the script's own a second
      ``initialize_distributed`` refused while it is live and 3 ``Trainer``
-     steps with ``fused_allreduce`` bitwise the per-leaf all-reduce.
+     steps with ``fused_allreduce`` bitwise the per-leaf all-reduce, and
+     whether the NCCL all-reduce was captured in the CLI's blocks;
+  12. blocks of steps as CUDA-graph replays (``make_train_scan``, the
+     CLI's ``--steps_per_call 10``, which phases 7-11's CLI runs use), with
+     every draw on the card: a. the draw kernels (``threefry_bits``,
+     ``feistel_draw``, ``csrc/threefry.cu``) against their plain versions,
+     bitwise over two launches, at the key derivations', the lego step's
+     ray streams' and the Feistel draws' shapes (m = 2^k, 2^k +- 1, the
+     200, 400 and 800 pixel grids, the 8 x 800 x 800 ray-batching pool),
+     ptxas spills 0, timed against their plain versions; b. ``Trainer(
+     steps_per_call=10)`` against single steps from one state at phase 5's
+     shape across the precrop switch and two callbacks (plain; occupancy
+     with a rebake copied in at a callback; EMA + anneal; noise,
+     regularizers and ray batching; parity; a two-shard mesh of the one
+     card): params, moments, count, step and EMA slot bitwise, no plain
+     call, each captured step launching what an eager step launches (2 +
+     2, 1 + 1 through a grid, 2 + 2 a shard); c. eager
+     steps and blocks of 10 one-step graph replays in interleaved rounds
+     (``scripts/time_block_graphs.py`` adds a graph of 10 steps), median ms
+     a step, the profiler's idle share, the capture seconds and graph pool
+     bytes; d. phase 7's run at
+     ``--steps_per_call 1``: its checkpoints at 30 and 60 bitwise phase
+     7's at 10.
 The launch counts of phases 2, 2b, 3, 3b, 5, 5b, 7, 8, 9, 10 and 11 (the
 main paths) are reset just before each phase (each CLI call of phase 7) and read just
 after: the kernels must have launched exactly as often as the chunking
@@ -142,10 +164,14 @@ CLI's chunk 4096, or as many int8 launches and no forward launch under
 backward launches per train step, 1 + 1 per occupancy step, counted step
 by step in phases 7 and 10d; ceil(res^3 / 65,536) per bake; on a
 two-shard mesh 2 + 2 a shard a step, 2 a chunk a shard a frame), and the
-plain versions not at all.
+plain versions not at all. A train step captured in a CUDA graph is counted
+as it runs: its launches are taken off the counters at the capture and
+added again at each replay (``Blocks``); the draw kernels count every
+launch after phase 12a's comparisons (9 threefry and 1 Feistel a lego
+step).
 
 Prints the card's name and power limit, one JSON line of per-kernel
-numbers, the list of kernels exercised, and as its last line
+numbers (phase 12's under ``threefry_bits``'s ``"scan"`` key), the list of kernels exercised, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 CUDA is unavailable or the port's package is not beside this script.
 """
@@ -649,6 +675,25 @@ def calibrate(fb, cfg, params, w, pts, dirs, g, whole, want) -> None:
              f"{tol:g}: the check could not see a dropped tail ({dt})")
 
 
+# The counters read_counts reports (the MLP kernels and their plain
+# versions); Blocks also keeps the draws' (threefry, feistel).
+MLP_COUNTS = ("fwd", "bwd", "int8", "fwd_plain", "bwd_plain", "int8_plain")
+
+
+def all_counters(fm, fb, fq) -> dict:
+    from cvnerf_torch.ops import threefry as tf
+    return {"fwd": (fm.fused_nerf_apply, "launches"),
+            "bwd": (fb.fused_nerf_bwd, "launches"),
+            "int8": (fq.fused_nerf_apply_int8, "launches"),
+            "fwd_plain": (fm.fused_nerf_plain, "calls"),
+            "bwd_plain": (fb.fused_nerf_bwd_plain, "calls"),
+            "int8_plain": (fq.fused_nerf_int8_plain, "calls"),
+            "threefry": (tf.threefry_bits, "launches"),
+            "feistel": (tf.feistel_draw, "launches"),
+            "threefry_plain": (tf.threefry_bits_plain, "calls"),
+            "feistel_plain": (tf.feistel_draw_plain, "calls")}
+
+
 def reset_counts(fm, fb, fq) -> None:
     fm.fused_nerf_apply.launches = 0
     fm.fused_nerf_plain.calls = 0
@@ -705,9 +750,21 @@ def phase_train(fm, fb, fq, card: str):
     tr.add_callback(1, on_step)
     torch.cuda.synchronize()
     reset_counts(fm, fb, fq)
+    before = BLOCKS.read()
     tr.run(1, 1 + TRAIN_STEPS)
     torch.cuda.synchronize()
     counts = read_counts(fm, fb, fq)
+    draws = {k: v - before[k] for k, v in BLOCKS.read().items()
+             if k not in MLP_COUNTS}
+    # A step's draws on the card: its key (fold_in), the image, pixel and
+    # render keys (split), the image (randint: a split and two bits), both
+    # ray streams (a fold_in and the bits each), the pixels (Feistel).
+    print(f"train: the draws' launches {draws} (expected threefry "
+          f"{9 * TRAIN_STEPS}, feistel {TRAIN_STEPS}, plain 0)", flush=True)
+    if draws != {"threefry": 9 * TRAIN_STEPS, "feistel": TRAIN_STEPS,
+                 "threefry_plain": 0, "feistel_plain": 0}:
+        fail("train: the step's draws did not run exactly through the "
+             "draw kernels")
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     wall_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
     med = float(np.median(step_ms))
@@ -983,10 +1040,88 @@ class PerCall:
         setattr(self.module, self.name, self.orig)
 
 
+class Blocks:
+    """Launch accounting for blocks of captured train steps
+    (``make_train_scan``), installed for the whole run. A step recorded
+    into a CUDA graph runs nothing at its capture and runs again at every
+    replay, while each wrapper counts its Python calls: this takes a
+    captured step's counts back off the counters at its capture and adds
+    them again for every replayed step, so every counter reads what ran on
+    the card (the eager warm-up before a capture included). While
+    ``into(list)`` is active, each step of a block is appended to that
+    list (a step-by-step ``PerCall`` record) as the launches of one step,
+    and each block's record to ``blocks``."""
+
+    def __init__(self, counters: dict):
+        self.counters = counters          # name -> (object, attribute)
+        self.deltas: list | None = None
+        self.blocks: list[dict] = []
+
+    def read(self) -> dict:
+        return {k: getattr(o, a) for k, (o, a) in self.counters.items()}
+
+    def _add(self, delta: dict, times: int) -> None:
+        for k, (o, a) in self.counters.items():
+            setattr(o, a, getattr(o, a) + times * delta[k])
+
+    def into(self, deltas: list):
+        outer = self
+
+        class Into:
+            def __enter__(self):
+                outer.deltas = deltas
+
+            def __exit__(self, *exc):
+                outer.deltas = None
+        return Into()
+
+    def _mlp(self, d: dict) -> dict:
+        return {k: d[k] for k in MLP_COUNTS}
+
+    def install(self) -> None:
+        from cvnerf_torch.train import loop
+        rec, block = self, loop._Block
+        body, call = block._body, block.__call__
+
+        def counted_body(blk, *a, write: bool = True, **kw):
+            before = rec.read()
+            out = body(blk, *a, write=write, **kw)
+            d = {k: v - before[k] for k, v in rec.read().items()}
+            if torch.cuda.is_available() and \
+                    torch.cuda.is_current_stream_capturing():
+                rec._add(d, -1)
+                blk.captured_launches = d
+            elif write and rec.deltas is not None:
+                rec.deltas.append(rec._mlp(d))     # an eager block's step
+            return out
+
+        def counted_call(blk, *a, **kw):
+            stats, before = dict(blk.stats), rec.read()
+            out = call(blk, *a, **kw)
+            replayed = blk.stats["replayed_steps"] - stats["replayed_steps"]
+            if replayed:
+                rec._add(blk.captured_launches, replayed)
+                if rec.deltas is not None:
+                    rec.deltas.extend(rec._mlp(blk.captured_launches)
+                                      for _ in range(replayed))
+            rec.blocks.append({
+                "steps": blk.block, "replayed": replayed,
+                "captures": blk.stats["captures"] - stats["captures"],
+                "per_step": dict(getattr(blk, "captured_launches", {})),
+                "delta": {k: v - before[k] for k, v in rec.read().items()},
+                "eager_reason": blk.eager_reason})
+            return out
+        block._body, block.__call__ = counted_body, counted_call
+
+
+BLOCKS: Blocks | None = None
+
+
 def drive_cli(fm, fb, fq, argv: list[str]) -> tuple:
     """``cvnerf_torch.cli.main(argv)`` with the counts set to 0 just
     before and read just after; returns (result, counts, per-step launch
-    counts, per-frame launch counts)."""
+    counts, per-frame launch counts). A block's steps count one by one
+    (``Blocks``), in order with the single steps."""
     from cvnerf_torch import cli
     from cvnerf_torch.render import frames
     from cvnerf_torch.train import loop
@@ -994,7 +1129,8 @@ def drive_cli(fm, fb, fq, argv: list[str]) -> tuple:
     def counts():
         return read_counts(fm, fb, fq)
     with PerCall(counts, loop, "make_train_step", factory=True) as steps, \
-            PerCall(counts, frames, "render_image") as frame_calls:
+            PerCall(counts, frames, "render_image") as frame_calls, \
+            BLOCKS.into(steps.deltas):
         torch.cuda.synchronize()
         reset_counts(fm, fb, fq)
         result = cli.main(argv)
@@ -1464,13 +1600,16 @@ def phase_levers(fm, fb, fq, card: str) -> dict:
               f"{o['host_growth_us']} us, device {o['device_growth_us']} "
               f"us", flush=True)
 
-    # The pixel draws at the lego shape: the Feistel draw on the host, the
-    # parity permutation of all 160,000 pixels on the card.
+    # The pixel draws at the lego shape, both on the card: the Feistel draw
+    # (one kernel launch) and the parity permutation of all 160,000
+    # pixels.
     key, n_rays = PRNGKey(SEED), lever_config({}).n_rays
     walls = []
     for _ in range(7):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sample_without_replacement(key, n_rays, TRAIN_HW * TRAIN_HW)
+        sample_without_replacement(key, n_rays, TRAIN_HW * TRAIN_HW, "cuda")
+        torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     prp_ms = float(np.median(walls))
     parity_ms = time_ms(lambda: choice_without_replacement(
@@ -1484,7 +1623,7 @@ def phase_levers(fm, fb, fq, card: str) -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
     parity_wall_ms = float(np.median(walls))
     print(f"levers: pixel draw at {TRAIN_HW}x{TRAIN_HW}: prp (Feistel, "
-          f"host) {prp_ms:.3f} ms wall; parity (2-round sort of "
+          f"card) {prp_ms:.3f} ms wall; parity (2-round sort of "
           f"{TRAIN_HW * TRAIN_HW} keys, card) {parity_ms:.3f} ms by CUDA "
           f"events, {parity_wall_ms:.3f} ms wall; launches {total}; card: "
           f"{card}", flush=True)
@@ -1608,7 +1747,8 @@ def phase_band(fm, fb, fq, card: str, tmp: str) -> dict:
     def counts():
         return read_counts(fm, fb, fq)
     with PerCall(counts, loop, "make_train_step", factory=True) as steps, \
-            PerCall(counts, frames, "render_image") as frame_calls:
+            PerCall(counts, frames, "render_image") as frame_calls, \
+            BLOCKS.into(steps.deltas):
         torch.cuda.synchronize()
         reset_counts(fm, fb, fq)
         res = quality_run.run(["--scene", "sphere_hi", "--iters", "3000",
@@ -2145,7 +2285,11 @@ def phase_occ_cli(fm, fb, fq, card: str, tmp: str) -> dict:
     total = {k: 0 for k in read_counts(fm, fb, fq)}
 
     def drive(argv, plain_steps, occ_steps, n_frames, n_bakes):
+        n_blocks = len(BLOCKS.blocks)
         _, counts, steps, frames = drive_cli(fm, fb, fq, argv)
+        # Each capture's eager warm-up step launches once more.
+        warm = sum(b["captures"] * b["per_step"]["fwd"]
+                   for b in BLOCKS.blocks[n_blocks:])
         check_calls(f"occ cli {argv[-6:]} plain steps", steps[:plain_steps],
                     plain_steps, {"fwd": 2, "bwd": 2})
         check_calls(f"occ cli {argv[-6:]} occupancy steps",
@@ -2153,7 +2297,7 @@ def phase_occ_cli(fm, fb, fq, card: str, tmp: str) -> dict:
         check_calls(f"occ cli {argv[-6:]} frames", frames, n_frames,
                     occ_frame)
         want = (2 * plain_steps + occ_steps + n_frames * occ_frame["fwd"]
-                + n_bakes * bake)
+                + n_bakes * bake + warm)
         if counts["fwd"] != want or counts["fwd_plain"] \
                 or counts["bwd_plain"]:
             fail(f"occ cli {argv[-6:]}: launches {counts}, expected "
@@ -2489,6 +2633,7 @@ def phase_dist_cli(fm, fb, fq, card: str, tmp: str) -> dict:
             return out.write(s)
 
     t0 = time.perf_counter()
+    n_blocks = len(BLOCKS.blocks)
     with contextlib.redirect_stdout(Tee()):
         _, counts, steps, frames = drive_cli(
             fm, fb, fq, [*base, "--name", "lego_dist", "--iters", "31",
@@ -2496,6 +2641,16 @@ def phase_dist_cli(fm, fb, fq, card: str, tmp: str) -> dict:
                          "--num_processes", "1", "--process_id", "0"])
     wall_s = time.perf_counter() - t0
     printed = out.getvalue()
+    blocks = BLOCKS.blocks[n_blocks:]
+    reasons = {b["eager_reason"] for b in blocks} - {None}
+    nccl = (f"eager: {sorted(reasons)}" if reasons else
+            f"captured: {sum(b['replayed'] for b in blocks)} steps replayed "
+            f"in {len(blocks)} blocks, {sum(b['captures'] for b in blocks)} "
+            "captures")
+    print(f"dist cli: the NCCL all-reduce in a block of {BLOCK}: {nccl}",
+          flush=True)
+    if not blocks:
+        fail("dist cli: no block of steps ran")
     check_calls("dist cli steps", steps, 30, {"fwd": 2, "bwd": 2})
     check_calls("dist cli frames", frames, 4, per_frame)
     if "Distributed: process 0 of 1" not in printed or \
@@ -2565,7 +2720,336 @@ def phase_dist_cli(fm, fb, fq, card: str, tmp: str) -> dict:
              "in a one-rank world, or its steps left the kernels")
     for k, v in fused_counts.items():
         counts[k] += v
-    return {"counts": counts, "cli_wall_s": wall_s}
+    return {"counts": counts, "cli_wall_s": wall_s, "nccl_blocks": nccl}
+
+
+# -- phase 12: blocks of steps as CUDA-graph replays, every draw on the card -
+
+# 32-bit integer operations a second: a Hopper SM issues 64 INT32 lanes a
+# clock (16 a partition), so 132 SMs x 64 lanes x 1.98 GHz.
+H100_INT_OPS = 132 * 64 * 1.98e9
+# Integer operations of one threefry-2x32 of a counter pair: 2 key adds, the
+# parity word (2 xors), 20 rounds of add, rotate and xor, 5 injections of 3
+# adds (csrc/threefry.cu).
+THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
+# One Feistel encryption: the halves (3), 4 rounds of a round-key xor, a
+# threefry, a xor and a mask (3 + THREEFRY_OPS), the join (2), and the
+# range test of the walk (1).
+FEISTEL_OPS = 3 + 4 * (3 + THREEFRY_OPS) + 2 + 1
+# The draws' domains: powers of two (no cycle walk), one above and below
+# (the longest walks), the lego pixel grids (200x200, 400x400, 800x800) and
+# the ray-batching pool of 8 views of 800x800.
+FEISTEL_DRAWS = [(1024, 1024), (1023, 1023), (1025, 1025), (1024, 2 ** 20),
+                 (1024, 2 ** 20 + 1), (1024, 2 ** 20 - 1), (1024, 40_000),
+                 (1024, 160_000), (4096, 160_000), (1024, 640_000),
+                 (1024, 8 * 800 * 800)]
+BLOCK = 10                    # the CLI's --steps_per_call default
+SCAN_ROUNDS = 4
+
+
+def device_ms(fn, n: int = 200) -> float:
+    """Milliseconds a launch of ``fn`` takes on the card, host excluded:
+    ``n`` launches captured in one CUDA graph, replayed between CUDA
+    events (a launch of a tiny kernel takes less time on the card than its
+    wrapper on the host, so events around single launches time the host)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return time_ms(graph.replay, reps=7, warmup=2) / n
+
+
+def feistel_encryptions(tf, key, n: int, m: int) -> int:
+    """The encryptions a draw's data needs: one an element, and one more
+    for each pass the element spends out of ``[0, m)``."""
+    hb, passes = tf.feistel_plan(m)
+    mask = (1 << hb) - 1
+    k = key & 0xFFFFFFFF
+
+    def encrypt(x):
+        left, right = (x >> hb) & mask, x & mask
+        for rnd in range(4):
+            f, _ = tf.threefry2x32(k[0] ^ rnd, k[1], right,
+                                   torch.full_like(right, rnd))
+            left, right = right, (left ^ f) & mask
+        return (left << hb) | right
+    y = encrypt(torch.arange(n, dtype=torch.int64, device=key.device))
+    total = n
+    for _ in range(passes):
+        out = y >= m
+        total += int(out.sum())
+        y = torch.where(out, encrypt(y), y)
+    return total
+
+
+def phase_draws(fm, card: str) -> list[dict]:
+    """12a: the draw kernels against their plain versions on the card,
+    bitwise, at the key derivations', the lego step's ray streams' and the
+    Feistel draws' shapes, each launched twice; ptxas spills 0; the
+    kernels and the plain versions timed at the step's largest shapes.
+    The launches made here are taken back off the counters."""
+    from cvnerf_torch.ops import threefry as tf
+    from cvnerf_torch.ops.rng import PRNGKey
+    lib = fm.build_library("threefry", verbose=True)
+    check_ptxas(fm, lib, "threefry_bits_kernel")
+    check_ptxas(fm, lib, "feistel_draw_kernel")
+    saved = (tf.threefry_bits.launches, tf.feistel_draw.launches)
+    dev = torch.device("cuda")
+    ids = torch.arange(1024, dtype=torch.int64, device=dev)
+    step = torch.tensor([12], dtype=torch.int64, device=dev)
+    cases = {                      # name -> (args, kwargs) of threefry_bits
+        "fold_in": ((1, 1), dict(c1=12)),
+        "fold_in_device_step": ((1, 1), dict(c1=step)),
+        "split_3": ((1, 3), {}),
+        "bits_1": ((1, 1), dict(layout="xor")),
+        "bits_131072": ((1, 131072), dict(layout="xor")),
+        "rays_1024x64": ((1024, 32), dict(c0=ids, layout="split",
+                                          width=64)),
+        "rays_1024x129": ((1024, 65), dict(c0=ids, layout="split",
+                                           width=129)),
+        "rays_1024x193": ((1024, 97), dict(c0=ids, layout="split",
+                                           width=193)),
+    }
+    rows, bad = [], []
+    for seed in (SEED, SEED + 7):
+        key = PRNGKey(seed).to(dev)
+        for name, (a, kw) in cases.items():
+            got = tf.threefry_bits(key, *a, **kw)
+            again = tf.threefry_bits(key, *a, **kw)
+            want = tf.threefry_bits_plain(key, *a, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, again) and torch.equal(got, want)):
+                bad.append(("threefry_bits", name, seed))
+        for n, m in FEISTEL_DRAWS:
+            got = tf.feistel_draw(key, n, m)
+            again = tf.feistel_draw(key, n, m)
+            want = tf.feistel_draw_plain(key, n, m)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, again) and torch.equal(got, want)
+                    and got.unique().numel() == n):
+                bad.append(("feistel_draw", (n, m), seed))
+    print(f"draws: threefry_bits at {len(cases)} shapes and feistel_draw at "
+          f"{len(FEISTEL_DRAWS)} (n, m), 2 keys, each bitwise its plain "
+          f"version over two launches: {not bad}", flush=True)
+    if bad:
+        fail(f"draw kernels disagree with their plain versions: {bad[:6]}")
+    key = PRNGKey(SEED).to(dev)
+    (a, kw) = cases["rays_1024x129"]
+    pairs = a[0] * a[1]
+    t_ms = device_ms(lambda: tf.threefry_bits(key, *a, **kw))
+    t_plain = time_ms(lambda: tf.threefry_bits_plain(key, *a, **kw), reps=7)
+    ops = pairs * THREEFRY_OPS
+    nbytes = 16 + 8 * a[0] + 8 * a[0] * kw["width"]
+    bound = max(ops / H100_INT_OPS, nbytes / H100_BYTES_PER_S) * 1e3
+    rows.append({"name": "threefry_bits", "shape": "rays 1024 x 129 (the "
+                 "fine pass's sorted uniforms, 65 counter pairs a ray)",
+                 "ms": t_ms, "plain_ms": t_plain, "bound_ms": bound,
+                 "bound_by": ("operations" if ops / H100_INT_OPS
+                              >= nbytes / H100_BYTES_PER_S else "bytes"),
+                 "ops": ops, "bytes": nbytes})
+    for n, m in ((1024, 160_000), (1024, 8 * 800 * 800)):
+        enc = feistel_encryptions(tf, key, n, m)
+        t_ms = device_ms(lambda: tf.feistel_draw(key, n, m))
+        t_plain = time_ms(lambda: tf.feistel_draw_plain(key, n, m), reps=3,
+                          warmup=1)
+        ops, nbytes = enc * FEISTEL_OPS, 16 + 8 * n
+        bound = max(ops / H100_INT_OPS, nbytes / H100_BYTES_PER_S) * 1e3
+        rows.append({"name": "feistel_draw", "shape": f"n={n}, m={m}",
+                     "ms": t_ms, "plain_ms": t_plain, "bound_ms": bound,
+                     "bound_by": ("operations" if ops / H100_INT_OPS
+                                  >= nbytes / H100_BYTES_PER_S
+                                  else "bytes"),
+                     "encryptions": enc, "ops": ops, "bytes": nbytes})
+    for r in rows:
+        print(f"draws: {r['name']} {r['shape']}: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.3f} ms), bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']}; card: {card}", flush=True)
+    tf.threefry_bits.launches, tf.feistel_draw.launches = saved
+    return rows
+
+
+def scan_trainer(tcfg, state, images, poses, spc: int, mesh=None):
+    """A ``Trainer`` of ``spc`` steps a call."""
+    from cvnerf_torch.train import loop
+    return loop.Trainer(tcfg, state, images, poses, [0, 1], seed=SEED,
+                        steps_per_call=spc, mesh=mesh)
+
+
+def phase_blocks(fm, fb, fq, card: str) -> dict:
+    """12b: ``Trainer(steps_per_call=10)`` against ``steps_per_call=1``
+    from one state at phase 5's shape, steps 1-40 across the precrop switch
+    at 12 and callbacks at 16 and 32: plain, occupancy (a rebake copied in
+    at the first callback), EMA + anneal, noise + regularizers + ray
+    batching, parity, and a two-shard mesh of the one card. Params, both
+    moments, the count, the step and the EMA slot bitwise; no plain call;
+    each captured step's launches 2 + 2 (1 + 1 occupancy, 2 + 2 a shard),
+    and the blocks' run as many draws as the single steps' plus the
+    warm-ups'."""
+    from cvnerf_torch.data.synthetic import bench_scene
+    from cvnerf_torch.ops.rng import PRNGKey
+    from cvnerf_torch.parallel.mesh import make_mesh
+    from cvnerf_torch.render.occupancy import bake_occupancy
+    from cvnerf_torch.train.loop import state_leaves
+    from cvnerf_torch.train.state import create_train_state
+    images, poses = bench_scene(TRAIN_HW, TRAIN_HW)
+    cases = {"plain": {}, "occupancy": {},
+             "ema_anneal": dict(ema_decay=0.999, freq_anneal=100),
+             "levers": dict(noise_decay=100, distortion_loss=0.01,
+                            distortion_ramp=20, occlusion_loss=0.01,
+                            ray_batching=True),
+             "parity": dict(pixel_sampling="parity"), "two_shards": {}}
+    out = {}
+    for name, change in cases.items():
+        tcfg = dataclasses.replace(lego_train_config(torch.bfloat16),
+                                   precrop_iters=12, **change)
+        if name == "levers":      # the noise schedule needs density noise
+            tcfg = dataclasses.replace(tcfg, render=dataclasses.replace(
+                tcfg.render, noise_std=1.0))
+        init = create_train_state(PRNGKey(SEED + 9), lr=tcfg.lr,
+                                  lr_decay=tcfg.lr_decay,
+                                  mlp=tcfg.render.mlp, device="cuda",
+                                  ema=bool(change.get("ema_decay")))
+        runs = {}
+        mesh = (make_mesh(devices=["cuda:0", "cuda:0"])
+                if name == "two_shards" else None)
+        for spc in (1, BLOCK):
+            tr = scan_trainer(tcfg, init, images, poses, spc, mesh=mesh)
+            if name == "occupancy":
+                grid = bake_occupancy(init.params["fine"], tcfg.render.mlp,
+                                      (-1.5,) * 3, (1.5,) * 3, 64,
+                                      compute_dtype=torch.bfloat16)
+                grid.values.add_(1.0)    # young nets may bake empty
+                tr.set_occupancy(grid)
+
+                def rebake(i, t, m, grid=grid):
+                    if i == 16:
+                        t.set_occupancy(dataclasses.replace(
+                            grid, values=grid.values * 0.5))
+                tr.add_callback(16, rebake)
+            else:
+                tr.add_callback(16, lambda i, t, m: None)
+            n_blocks = len(BLOCKS.blocks)
+            torch.cuda.synchronize()
+            before = BLOCKS.read()
+            m = tr.run(1, 41)
+            torch.cuda.synchronize()
+            runs[spc] = (tr, m, {k: v - before[k]
+                                 for k, v in BLOCKS.read().items()},
+                         BLOCKS.blocks[n_blocks:])
+        (t1, m1, c1, _), (tk, mk, ck, blocks) = runs[1], runs[BLOCK]
+        same = m1["loss"] == mk["loss"] and t1.state.step == tk.state.step \
+            and t1.state.opt_state.count == tk.state.opt_state.count \
+            and all(torch.equal(a, b) for a, b in zip(
+                state_leaves(t1.state), state_leaves(tk.state)))
+        # Each captured step launches 2 + 2 (1 + 1 through the grid, 2 + 2
+        # a shard), and the blocks' run launches what the single steps'
+        # run does, plus one eager warm-up step a capture.
+        mlp = {"occupancy": {"fwd": 1, "bwd": 1},
+               "two_shards": {"fwd": 4, "bwd": 4}}.get(name,
+                                                      {"fwd": 2, "bwd": 2})
+        graphed = [b for b in blocks if b["replayed"]]
+        keys = ("fwd", "bwd", "threefry", "feistel")
+        warm = {k: sum(b["captures"] * b["per_step"][k] for b in graphed)
+                for k in keys}
+        ok_launch = bool(graphed) and all(
+            {k: b["per_step"][k] for k in mlp} == mlp
+            and b["replayed"] == b["steps"] for b in graphed) and all(
+                ck[k] == c1[k] + warm[k] for k in keys)
+        plain = {k: c1[k] + ck[k] for k in c1 if k.endswith("plain")}
+        ok_plain = not any(plain.values())
+        stats = tk.scan_fn.runner.stats if name != "occupancy" else \
+            tk._scan_fn_occ.runner.stats
+        print(f"blocks {name}: 40 steps, K={BLOCK} blocks "
+              f"{[(b['replayed'], b['captures']) for b in blocks]} (replayed "
+              f"steps, captures) against single steps: bitwise {same}; "
+              f"launches a captured step "
+              f"{graphed[0]['per_step'] if graphed else None}; plain calls "
+              f"{plain}; stats {stats}", flush=True)
+        if not (same and ok_launch and ok_plain):
+            fail(f"blocks {name}: not bitwise the single steps, or the "
+                 f"captured step's launches are off")
+        out[name] = {"bitwise": same,
+                     "per_step": graphed[0]["per_step"] if graphed else None,
+                     "stats": stats, "counts": ck}
+    return out
+
+
+def phase_block_timing(fm, fb, fq, card: str) -> dict:
+    """12c: phase 5's step as eager steps and as blocks of 10 one-step
+    graph replays, SCAN_ROUNDS rounds of 10 steps each in turn (the order
+    alternating), median ms a step by CUDA events; the device's idle share
+    of each by the profiler, the capture seconds and the graph pool's
+    bytes."""
+    from cvnerf_torch.data.synthetic import bench_scene
+    from cvnerf_torch.ops.rng import PRNGKey
+    from cvnerf_torch.train.state import create_train_state
+    images, poses = bench_scene(TRAIN_HW, TRAIN_HW)
+    tcfg = lego_train_config(torch.bfloat16)
+    kinds = {"eager": 1, "graph_1": BLOCK}
+    trs = {}
+    for kind, spc in kinds.items():
+        state = create_train_state(PRNGKey(SEED), lr=tcfg.lr,
+                                   lr_decay=tcfg.lr_decay,
+                                   mlp=tcfg.render.mlp, device="cuda")
+        trs[kind] = scan_trainer(tcfg, state, images, poses, spc)
+        trs[kind].run(1, 1 + BLOCK)                      # capture, warm
+    times = {k: [] for k in kinds}
+    nxt = {k: 1 + BLOCK for k in kinds}
+    order = list(kinds)
+    for r in range(SCAN_ROUNDS):
+        for kind in order[r % 2:] + order[:r % 2]:
+            tr, i = trs[kind], nxt[kind]
+            torch.cuda.synchronize()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            tr.run(i, i + BLOCK)
+            ev1.record()
+            torch.cuda.synchronize()
+            times[kind].append(ev0.elapsed_time(ev1) / BLOCK)
+            nxt[kind] = i + BLOCK
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    split = {k: profile_steps(trs[k], nxt[k], 2 * BLOCK, med[k])
+             for k in kinds}
+    stats = {k: trs[k].scan_fn.runner.stats for k in kinds if k != "eager"}
+    caps = {k: (round(v["capture_s"], 3), v["pool_bytes"])
+            for k, v in stats.items()}
+    print(f"block timing: median ms a step over {SCAN_ROUNDS} interleaved "
+          f"rounds of {BLOCK}: eager {med['eager']:.3f} "
+          f"({[round(x, 3) for x in times['eager']]}), one-step graph x10 "
+          f"{med['graph_1']:.3f} ({[round(x, 3) for x in times['graph_1']]})"
+          f"; device idle "
+          f"{ {k: round(v['idle_share'] or 0, 4) for k, v in split.items()} }"
+          f"; capture s and pool bytes {caps}; card: {card}", flush=True)
+    return {"median_ms": med, "rounds_ms": times, "split": split,
+            "stats": stats}
+
+
+def phase_cli_spc(fm, fb, fq, card: str, tmp: str) -> dict:
+    """12d: phase 7's uninterrupted run again at ``--steps_per_call 1``:
+    its checkpoints at 30 and 60 bitwise those of phase 7's run at the
+    default 10 (whose stop at 30 and resume, phase 7, were at 10 too)."""
+    logs = os.path.join(tmp, "cli_logs")
+    _, counts, steps, _ = drive_cli(
+        fm, fb, fq, [*cli_base(tmp), "--name", "lego_spc1", "--iters", "61",
+                     "--steps_per_call", "1"])
+    check_calls("cli --steps_per_call 1 steps", steps, 60,
+                {"fwd": 2, "bwd": 2})
+    diffs = {}
+    for step in ("000030.pt", "000060.pt"):
+        a, b = (torch.load(os.path.join(logs, run, "torch_checkpoints",
+                                        step), weights_only=True)
+                for run in ("lego_a", "lego_spc1"))
+        diffs.update({f"{step}:{k}": v for k, v in walk_diffs(a, b).items()})
+    print(f"cli --steps_per_call 1 against 10: checkpoints at 30 and 60 "
+          f"bitwise: {not diffs}; launches {counts}; card: {card}",
+          flush=True)
+    if diffs:
+        fail(f"cli: --steps_per_call 1 and 10 differ: "
+             f"{dict(list(diffs.items())[:8])}")
+    return {"counts": counts, "bitwise": not diffs}
 
 
 def check_png_or_ppm(body: bytes, ctype: str, h: int, w: int) -> None:
@@ -2623,6 +3107,10 @@ def main() -> int:
     from cvnerf_torch.render.renderer import RenderConfig
     from cvnerf_torch.server import build_parser, make_server, renderer_from_args
 
+    global BLOCKS
+    from cvnerf_torch.ops import threefry as tf
+    BLOCKS = Blocks(all_counters(fm, fb, fq))
+    BLOCKS.install()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
@@ -2635,6 +3123,11 @@ def main() -> int:
     bwd_rows = phase_backward(fm, fb, cfg, params)
     # -- 1c. the int8 kernel against its plain version --------------------
     int8_rows = phase_int8(fm, fq, tq, rng, cfg, params)
+    # -- 12a. the draw kernels against their plain versions ---------------
+    draw_rows = phase_draws(fm, card)
+    # From here on every draw launch counts (the comparisons above are
+    # taken back off the counters).
+    tf.threefry_bits.launches = tf.feistel_draw.launches = 0
 
     with tempfile.TemporaryDirectory() as tmp:
         run = os.path.join(tmp, "lego_serve")
@@ -2785,8 +3278,17 @@ def main() -> int:
         shards = phase_shards(fm, fb, fq, card, run_a)
         # -- 11b. a one-rank NCCL world through the CLI (main path) -------
         dist_cli = phase_dist_cli(fm, fb, fq, card, tmp)
+        # -- 12d. phase 7's run at --steps_per_call 1 against 10 ----------
+        cli_spc = phase_cli_spc(fm, fb, fq, card, tmp)
+    # -- 12b. blocks of captured steps against single steps (main path) --
+    blocks = phase_blocks(fm, fb, fq, card)
+    # -- 12c. blocks against single steps, timed -------------------------
+    block_timing = phase_block_timing(fm, fb, fq, card)
     late = [levers["counts"], lever_cli["counts"], band["counts"],
-            occ_cli["counts"], shards["counts"], dist_cli["counts"]]
+            occ_cli["counts"], shards["counts"], dist_cli["counts"],
+            cli_spc["counts"], *({k: v[k] for k in MLP_COUNTS}
+                                 for v in (b["counts"]
+                                           for b in blocks.values()))]
     sharded = {"shards": {k: v for k, v in shards.items() if k != "counts"},
                "dist_cli": {k: v for k, v in dist_cli.items()
                             if k != "counts"}}
@@ -2899,10 +3401,61 @@ def main() -> int:
                 "int8_gemm_chain_ms (the products unfused through "
                 f"torch._int_mm) {int8_rows[-1]['int8_gemm_chain_ms']:.4f}",
     }]}
+    fold = draw_rows[0]
+    walk = draw_rows[1]
+    scan_note = {"blocks": blocks, "timing": block_timing,
+                 "cli_spc": {k: v for k, v in cli_spc.items()
+                             if k != "counts"},
+                 "nccl_blocks": dist_cli["nccl_blocks"]}
+    report["kernels"] += [{
+        "name": "threefry_bits", "route": "cuda",
+        "source": "cvnerf_torch/csrc/threefry.cu",
+        "replaces": "cvnerf_tpu/ops/rng.py:36",
+        "launches": tf.threefry_bits.launches, "max_abs_err": 0.0,
+        "ms": fold["ms"], "plain_ms": fold["plain_ms"],
+        "bound_ms": fold["bound_ms"], "bound_by": fold["bound_by"],
+        "library_ms": None, "shapes": [fold],
+        "scan": scan_note,
+        "note": "no TPU kernel: the JAX package's threefry2x32 (rng.py:36, "
+                "under jax.random's fold_in, split, bits and _ray_bits "
+                "rng.py:71) is plain jnp; ms at the fine pass's sorted "
+                "uniforms (1024 rays x 129 words); bitwise its plain "
+                "version at every shape of phase 12a (max_abs_err 0); "
+                "launches: every launch after phase 12a's comparisons, "
+                "the eager steps' and each replayed step's (9 a lego "
+                "step) and the renders' draws; the bound counts "
+                f"{THREEFRY_OPS} 32-bit integer operations a counter pair "
+                f"at {H100_INT_OPS:.3g}/s against the int64 words written; "
+                "no single PyTorch call computes threefry, so library_ms "
+                "is null; scan: phase 12's blocks (12b), their timing "
+                "against eager steps (12c, ms a step, the profiler's idle "
+                "share, capture seconds, pool bytes) and the CLI at "
+                "--steps_per_call 1 against 10 (12d)",
+    }, {
+        "name": "feistel_draw", "route": "cuda",
+        "source": "cvnerf_torch/csrc/threefry.cu",
+        "replaces": "cvnerf_tpu/ops/rng.py:141",
+        "launches": tf.feistel_draw.launches, "max_abs_err": 0.0,
+        "ms": walk["ms"], "plain_ms": walk["plain_ms"],
+        "bound_ms": walk["bound_ms"], "bound_by": walk["bound_by"],
+        "library_ms": None, "shapes": draw_rows[1:],
+        "note": "no TPU kernel: the JAX package's "
+                "sample_without_replacement (rng.py:141) is plain jnp; ms "
+                "at the lego step's draw (1024 of 400x400 pixels); bitwise "
+                "its plain version at every (n, m) of phase 12a; launches: "
+                "one a step after phase 12a's comparisons; the bound counts "
+                f"{FEISTEL_OPS} integer operations an encryption, as many "
+                "encryptions as this draw's cycle walks took (encryptions), "
+                "against the int64 indices written; no single PyTorch call "
+                "computes the draw, so library_ms is null",
+    }]
+    if not (tf.threefry_bits.launches and tf.feistel_draw.launches):
+        fail("the draw kernels did not launch on the main path")
     print(json.dumps(report), flush=True)
     print(f"card: {card}", flush=True)
     print('kernels: ["fused_nerf_apply", "fused_nerf_bwd", '
-          '"fused_nerf_apply_int8"]', flush=True)
+          '"fused_nerf_apply_int8", "threefry_bits", "feistel_draw"]',
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -295,11 +295,9 @@ def _run(args, dev, run_dir: str) -> dict:
         os.makedirs(save_dir, exist_ok=True)
         snapshot_config(args, run_dir)
     ckpt_dir = os.path.join(run_dir, CKPT_SUBDIR)
-    if args.steps_per_call != 1 or args.netchunk != 1024 * 64:
-        print(f"--steps_per_call {args.steps_per_call} and --netchunk "
-              f"{args.netchunk} are accepted without effect: the port runs "
-              "one train step at a time (numerically the JAX scan's steps) "
-              "and has no separate network chunking")
+    if args.netchunk != 1024 * 64:
+        print(f"--netchunk {args.netchunk} is accepted without effect: the "
+              "port has no separate network chunking")
 
     # --- model / state ---
     mlp = NerfMLPConfig(xyz_freqs=args.xyz_freqs, dir_freqs=args.dir_freqs,

@@ -291,9 +291,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "batches). Precrop warm-up steps keep single-image "
                         "center-crop semantics")
     p.add_argument("--steps_per_call", type=int, default=10,
-                   help="train steps per device dispatch in the JAX "
-                        "package (a lax.scan block, numerically the single "
-                        "steps); accepted without effect here")
+                   help="train steps per dispatch: a block of this many "
+                        "steps runs as CUDA-graph replays on a card (the "
+                        "JAX package's lax.scan block), bitwise the single "
+                        "steps; 1 runs single steps")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train and render on (default "
                         "cuda; pass cpu to run on the CPU)")

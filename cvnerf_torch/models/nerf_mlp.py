@@ -83,30 +83,38 @@ def nerf_param_count(params: dict) -> int:
     return int(params.numel())
 
 
-def freq_window(n_freqs: int, alpha: float) -> torch.Tensor:
+def freq_window(n_freqs: int, alpha: float | torch.Tensor) -> torch.Tensor:
     """Per-band linear anneal window: band ``k`` weighs ``clip(alpha - k,
-    0, 1)`` (FreeNeRF eq. 3)."""
-    k = torch.arange(n_freqs, dtype=torch.float32)
-    return torch.clamp(torch.tensor(alpha, dtype=torch.float32) - k, 0.0, 1.0)
+    0, 1)`` (FreeNeRF eq. 3), in float32; a 0-d tensor ``alpha`` gives the
+    window on its device."""
+    if not torch.is_tensor(alpha):
+        alpha = torch.tensor(alpha, dtype=torch.float32)
+    k = torch.arange(n_freqs, dtype=torch.float32, device=alpha.device)
+    return torch.clamp(alpha - k, 0.0, 1.0)
 
 
-def encoding_mask(dim: int, n_freqs: int, alpha: float) -> torch.Tensor:
+def encoding_mask(dim: int, n_freqs: int,
+                  alpha: float | torch.Tensor) -> torch.Tensor:
     """Feature-space anneal mask in :func:`freq_encode`'s layout: identity
     features pass, band ``k``'s ``2*dim`` features scale by the window."""
     band = freq_window(n_freqs, alpha).repeat_interleave(2 * dim)
-    return torch.cat([torch.ones(dim), band])
+    return torch.cat([torch.ones(dim, device=band.device), band])
 
 
 def anneal_nerf_params(params: dict, cfg: NerfMLPConfig,
-                       progress: float) -> dict:
+                       progress: float | torch.Tensor) -> dict:
     """Coarse-to-fine frequency annealing as a weight-row transform: scale
     the encoding-facing rows of ``l1``, of ``l6``'s skip part and of
     ``l10``'s dir part. Identical to masking the encodings themselves, so
     the kernel and the plain version anneal alike. ``progress`` is rounded
     to float32 first and ``alpha = progress · L`` formed in float32, as
-    the JAX transform forms them."""
-    progress = float(np.float32(progress))
+    the JAX transform forms them. A 0-d float32 tensor ``progress`` on the
+    params' device (the train step's) forms the masks there, without a
+    host copy: the float32 product rounds as the float64 one of its two
+    float32 factors does."""
     w1 = params["l1"]["w"]
+    if not torch.is_tensor(progress):
+        progress = float(np.float32(progress))
     mx = encoding_mask(3, cfg.xyz_freqs,
                        progress * cfg.xyz_freqs).to(w1.device, w1.dtype)
     md = encoding_mask(3, cfg.dir_freqs,
@@ -126,7 +134,7 @@ def anneal_nerf_params(params: dict, cfg: NerfMLPConfig,
 
 
 def anneal_model_params(params: dict, cfg: NerfMLPConfig,
-                        progress: float) -> dict:
+                        progress: float | torch.Tensor) -> dict:
     """:func:`anneal_nerf_params` over a ``{"coarse", "fine"}`` dict."""
     return {name: anneal_nerf_params(net, cfg, progress)
             for name, net in params.items()}

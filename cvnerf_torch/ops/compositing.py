@@ -9,6 +9,26 @@ import torch
 INF_DIST = 1e10
 
 
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis whose backward reads no value
+    on the host. PyTorch's own backward asks the host whether any factor is
+    zero (a device sync, which a CUDA graph's capture refuses); the
+    compositor's factors ``1 - alpha + 1e-10`` are never zero, so this is
+    the branch it then takes: the reversed cumulative sum of ``output ·
+    grad`` over the factors."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def volume_render(raw_rgba: torch.Tensor, t_vals: torch.Tensor,
                   ray_dirs: torch.Tensor, noise_std: float = 0.0,
                   white_bkg: bool = False,
@@ -35,9 +55,9 @@ def volume_render(raw_rgba: torch.Tensor, t_vals: torch.Tensor,
         sigma = sigma + noise * noise_std
 
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * deltas)
-    trans = torch.cumprod(
+    trans = _Cumprod.apply(
         torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10],
-                  dim=-1), dim=-1)[..., :-1]
+                  dim=-1))[..., :-1]
     weights = alpha * trans
 
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)

@@ -1,21 +1,25 @@
 """Counter-based per-ray RNG and the key derivations of ``jax.random``,
 bit for bit (port of the JAX package's ``ops/rng.py``).
 
-A key is a CPU ``int64`` tensor of its two 32-bit words, exactly the
-``uint32[2]`` data of a JAX ``PRNGKey``. Every stream here equals the one
-the JAX package draws from the same key: the renderer's per-ray jitter,
-resample and noise (``ray_uniform`` / ``ray_sorted_uniform`` /
-``ray_normal``, keyed by ``(key, tag, global ray id)``), the trainer's pixel
-draws (``sample_without_replacement``, and ``permutation`` /
-``choice_without_replacement`` for its ``"parity"`` sampling), the key derivations the
-train step uses (``PRNGKey``, ``fold_in``, ``split``, ``randint``,
-``bernoulli``) and the int8 calibration's draws (``uniform``, ``randint``,
-``normal``), as JAX 0.9.0 computes them with
+A key is an ``int64`` tensor of its two 32-bit words, exactly the
+``uint32[2]`` data of a JAX ``PRNGKey``, on any device. Every stream here
+equals the one the JAX package draws from the same key: the renderer's
+per-ray jitter, resample and noise (``ray_uniform`` / ``ray_sorted_uniform``
+/ ``ray_normal``, keyed by ``(key, tag, global ray id)``), the trainer's
+pixel draws (``sample_without_replacement``, and ``permutation`` /
+``choice_without_replacement`` for its ``"parity"`` sampling), the key
+derivations the train step uses (``PRNGKey``, ``fold_in``, ``split``,
+``randint``, ``bernoulli``) and the int8 calibration's draws (``uniform``,
+``randint``, ``normal``), as JAX 0.9.0 computes them with
 ``jax_threefry_partitionable`` on (its default).
 
-PyTorch has no full uint32 arithmetic, so words are held in ``int64`` and
-masked to 32 bits after every add and shift. Draws run on the device of
-the ray ids; key derivations are a few scalars and run on the CPU.
+Every function takes the key words from the tensor on the key's own device
+and draws there (``device=`` moves the key first): on a card the threefry
+and Feistel kernels of ``ops/threefry.py`` read the words from device
+memory, so no draw or key derivation reads a device value back to the host
+and a train step can be captured in a CUDA graph; on the CPU their plain
+versions run. PyTorch has no full uint32 arithmetic, so the plain versions
+hold words in ``int64`` masked to 32 bits after every add and shift.
 """
 
 from __future__ import annotations
@@ -25,82 +29,68 @@ import math
 import numpy as np
 import torch
 
+from cvnerf_torch.ops.threefry import (check_key, feistel_draw, threefry2x32,
+                                       threefry_bits)
+
+__all__ = ["PRNGKey", "key_on", "fold_in", "split", "random_bits",
+           "uniform", "normal", "bernoulli", "randint", "ray_uniform",
+           "ray_sorted_uniform", "ray_normal", "sample_without_replacement",
+           "permutation", "choice_without_replacement", "threefry2x32"]
+
 _M32 = 0xFFFFFFFF
-_ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
-_PARITY = 0x1BD11BDA
-
-
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) & _M32) | (x >> (32 - r))
-
-
-def threefry2x32(k0, k1, c0, c1) -> tuple[torch.Tensor, torch.Tensor]:
-    """Threefry-2x32, 20 rounds (Salmon et al., SC'11; the hash under
-    ``jax.random``). Keys are Python ints or int64 tensors, counters int64
-    tensors of 32-bit words, all broadcastable against the counters; returns the two output
-    words as int64 tensors in ``[0, 2^32)``."""
-    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = (c0 + k0) & _M32
-    x1 = (c1 + k1) & _M32
-    for block in range(5):
-        for r in range(4):
-            x0 = (x0 + x1) & _M32
-            x1 = _rotl(x1, _ROTATIONS[(4 * block + r) % 8]) ^ x0
-        x0 = (x0 + ks[(block + 1) % 3]) & _M32
-        x1 = (x1 + ks[(block + 2) % 3] + block + 1) & _M32
-    return x0, x1
 
 
 def PRNGKey(seed: int) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` for a seed in the int32 range: the key
-    words are ``(0, seed mod 2^32)``."""
+    words are ``(0, seed mod 2^32)``, on the CPU."""
     seed = int(seed)
     if not -2 ** 31 <= seed < 2 ** 31:
         raise ValueError(f"seed must fit in int32, got {seed}")
     return torch.tensor([0, seed & _M32], dtype=torch.int64)
 
 
-def key_words(key: torch.Tensor) -> tuple[int, int]:
-    """The two 32-bit words of a key as Python ints."""
-    if key.shape != (2,):
-        raise ValueError(f"a key is a [2] tensor of words, got "
-                         f"{list(key.shape)}")
-    k = key.tolist()
-    return int(k[0]) & _M32, int(k[1]) & _M32
+def key_on(key: torch.Tensor,
+           device: str | torch.device | None = None) -> torch.Tensor:
+    """``key`` on ``device`` (itself when it lies there or ``device`` is
+    None). A key on the host goes to a card through pinned memory, without
+    waiting for the card's queue."""
+    check_key(key)
+    if device is None:
+        return key
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if key.device == dev:
+        return key
+    if key.device.type == "cpu" and dev.type == "cuda":
+        return key.pin_memory().to(dev, non_blocking=True)
+    return key.to(dev)
 
 
-def _key(w0, w1) -> torch.Tensor:
-    return torch.tensor([int(w0), int(w1)], dtype=torch.int64)
-
-
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in``: threefry of the seed words ``(0, data)``."""
-    k0, k1 = key_words(key)
-    o0, o1 = threefry2x32(k0, k1, torch.tensor(0),
-                          torch.tensor(int(data) & _M32))
-    return _key(o0, o1)
+def fold_in(key: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
+    """``jax.random.fold_in``: threefry of the seed words ``(0, data)``.
+    ``data`` is a Python int or a one-value int64 tensor on the key's
+    device (read there: a step index inside a captured block)."""
+    if torch.is_tensor(data):
+        return threefry_bits(key, 1, 1, c1=data.reshape(1)).reshape(2)
+    return threefry_bits(key, 1, 1, c1=int(data) & _M32).reshape(2)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (partitionable layout): key ``i`` is the
     threefry pair of counter ``(0, i)``. Returns ``[num, 2]``."""
-    k0, k1 = key_words(key)
-    o0, o1 = threefry2x32(k0, k1, torch.zeros(num, dtype=torch.int64),
-                          torch.arange(num, dtype=torch.int64))
-    return torch.stack([o0, o1], dim=-1)
+    return threefry_bits(key, 1, num).reshape(num, 2)
 
 
 def random_bits(key: torch.Tensor, shape: tuple[int, ...],
-                device: str | torch.device = "cpu") -> torch.Tensor:
+                device: str | torch.device | None = None) -> torch.Tensor:
     """32-bit ``jax.random.bits`` (partitionable layout): the threefry
     pair of the flat index ``(hi, lo)``, xor-ed."""
-    k0, k1 = key_words(key)
     size = math.prod(shape)
     if size >= 2 ** 32:
         raise ValueError("at most 2^32 - 1 values per draw")
-    idx = torch.arange(size, dtype=torch.int64, device=device)
-    o0, o1 = threefry2x32(k0, k1, torch.zeros_like(idx), idx)
-    return (o0 ^ o1).reshape(shape)
+    return threefry_bits(key_on(key, device), 1, size,
+                         layout="xor").reshape(shape)
 
 
 def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
@@ -112,7 +102,7 @@ def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape: tuple[int, ...],
-            device: str | torch.device = "cpu", minval: float = 0.0,
+            device: str | torch.device | None = None, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` over ``[minval, maxval)`` in float32: the unit
     floats as ``floats * (maxval - minval) + minval``, held at ``minval``
@@ -121,8 +111,9 @@ def uniform(key: torch.Tensor, shape: tuple[int, ...],
     exact in float64, so forming them there and rounding once is that
     FMA."""
     floats = _bits_to_unit_float(random_bits(key, shape, device))
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    # Filled on the device (no host copy): the same float32 roundings.
+    lo = torch.full((), minval, dtype=torch.float32, device=floats.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=floats.device)
     fma = floats.double() * (hi - lo).double() + lo.double()
     return torch.maximum(lo, fma.float())
 
@@ -142,27 +133,30 @@ def _erfinv(v: torch.Tensor) -> torch.Tensor:
 
 
 def normal(key: torch.Tensor, shape: tuple[int, ...],
-           device: str | torch.device = "cpu") -> torch.Tensor:
+           device: str | torch.device | None = None) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2)·erfinv(u)`` of uniforms
     over ``[nextafter(-1, 0), 1)`` (bit for bit JAX's)."""
     return _SQRT2 * _erfinv(uniform(key, shape, device, _ABOVE_MINUS_ONE, 1.0))
 
 
-def bernoulli(key: torch.Tensor, p: float = 0.5) -> bool:
-    """``jax.random.bernoulli(key, p)`` for one scalar draw."""
-    return bool(uniform(key, ()) < torch.tensor(p, dtype=torch.float32))
+def bernoulli(key: torch.Tensor, p: float = 0.5) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p)`` for one scalar draw: a 0-d bool
+    tensor on the key's device."""
+    return uniform(key, ()) < torch.full((), p, dtype=torch.float32,
+                                         device=key.device)
 
 
 def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int,
-            maxval: int, device: str | torch.device = "cpu") -> torch.Tensor:
+            maxval: int, device: str | torch.device | None = None
+            ) -> torch.Tensor:
     """``jax.random.randint`` into int32 ``[minval, maxval)``: two 32-bit
     draws from ``split(key)`` combined modulo the span, with uint32
     wrap-around where JAX's arithmetic wraps."""
     if not -2 ** 31 <= minval <= maxval <= 2 ** 31 - 1:
         raise ValueError("randint bounds must fit in int32")
-    k1, k2 = split(key)
-    higher = random_bits(k1, shape, device)
-    lower = random_bits(k2, shape, device)
+    k1, k2 = split(key_on(key, device))
+    higher = random_bits(k1, shape)
+    lower = random_bits(k2, shape)
     span = maxval - minval if maxval > minval else 1
     mult = (2 ** 16) % span
     mult = ((mult * mult) & _M32) % span
@@ -176,14 +170,12 @@ def _ray_bits(key: torch.Tensor, tag: int, ray_ids: torch.Tensor,
     """``[len(ray_ids), n]`` 32-bit words, entry ``(i, j)`` a function of
     ``(key, tag, ray_ids[i], j, n)``: counters ``(ray_id, 0..m-1)`` with
     ``m = ceil(n/2)``, output words laid out ``[o0 | o1][:n]`` — streams
-    are stable per ``(tag, n)``, not prefix-stable across ``n``."""
-    k0, k1 = key_words(fold_in(key, tag))
-    m = (n + 1) // 2
-    ids = ray_ids.to(torch.int64) & _M32
-    c0 = ids[:, None].expand(ids.shape[0], m)
-    c1 = torch.arange(m, dtype=torch.int64, device=ids.device)[None, :]
-    o0, o1 = threefry2x32(k0, k1, c0, c1.expand_as(c0))
-    return torch.cat([o0, o1], dim=-1)[:, :n]
+    are stable per ``(tag, n)``, not prefix-stable across ``n``. Drawn on
+    the ray ids' device."""
+    key = fold_in(key_on(key, ray_ids.device), tag)
+    ids = ray_ids.to(torch.int64).contiguous()
+    return threefry_bits(key, ids.shape[0], (n + 1) // 2, c0=ids,
+                         layout="split", width=n)
 
 
 def ray_uniform(key: torch.Tensor, tag: int, ray_ids: torch.Tensor,
@@ -215,73 +207,50 @@ def ray_normal(key: torch.Tensor, tag: int, ray_ids: torch.Tensor,
 
 
 def sample_without_replacement(key: torch.Tensor, n: int, m: int,
-                               device: str | torch.device = "cpu"
+                               device: str | torch.device | None = None
                                ) -> torch.Tensor:
-    """``n`` distinct indices in ``[0, m)`` (int64): a keyed 4-round
-    Feistel permutation of ``[0, 2^bits)`` evaluated at ``0..n-1`` and made
-    domain-exact by cycle walking, with the JAX package's static pass count.
-    An element stays put once in range, so a pass only re-encrypts the
-    elements still out of range and the walk stops when none are left —
-    the same values as the JAX ``fori_loop``, which re-encrypts every
-    out-of-range element on each of its passes."""
+    """``n`` distinct indices in ``[0, m)`` (int64, on the key's device): a
+    keyed 4-round Feistel permutation of ``[0, 2^bits)`` evaluated at
+    ``0..n-1`` and made domain-exact by cycle walking, with the JAX
+    package's static pass count (``ops/threefry.py::feistel_draw``, one
+    kernel launch on a card)."""
     if n > m:
         raise ValueError(f"cannot draw {n} distinct values from [0, {m})")
-    base = torch.arange(n, dtype=torch.int64, device=device)
-    if m <= 2:
-        if m == 2 and bernoulli(key):
-            return 1 - base
-        return base
-    total_bits = max(2, (m - 1).bit_length())
-    total_bits += total_bits % 2
-    hb = total_bits // 2
-    mask = (1 << hb) - 1
-    k0, k1 = key_words(key)
-
-    def encrypt(x):
-        left = (x >> hb) & mask
-        right = x & mask
-        for rnd in range(4):
-            f, _ = threefry2x32(k0 ^ rnd, k1, right,
-                                torch.full_like(right, rnd))
-            left, right = right, (left ^ f) & mask
-        return (left << hb) | right
-
-    y = encrypt(base)
-    p = m / float(1 << total_bits)
-    passes = (0 if p >= 1.0
-              else int(np.ceil(-40.0 * np.log(2.0) / np.log1p(-p))))
-    for _ in range(passes):
-        out = y >= m
-        if not bool(out.any()):
-            break
-        y = torch.where(out, encrypt(y), y)
-    return torch.where(y < m, y, base)
+    key = key_on(key, device)
+    if m > 2:
+        return feistel_draw(key, n, m)
+    base = torch.arange(n, dtype=torch.int64, device=key.device)
+    if m == 2:
+        return torch.where(bernoulli(key), 1 - base, base)
+    return base
 
 
 def permutation(key: torch.Tensor, n: int,
-                device: str | torch.device = "cpu") -> torch.Tensor:
+                device: str | torch.device | None = None) -> torch.Tensor:
     """``jax.random.permutation(key, n)`` (int64): JAX's ``_shuffle`` of
     ``arange(n)``, ``ceil(3·ln n / ln(2^32 - 1))`` rounds (1 up to n =
     1,625, 2 up to about 2.6 M, 3 beyond), each splitting the key, drawing
     one 32-bit word per element and sorting the elements by their words
     with a stable sort, so equal words keep their order as in
     ``lax.sort_key_val``. The words are compared as unsigned (they are held
-    in int64). Runs on ``device``."""
-    x = torch.arange(n, dtype=torch.int64, device=device)
+    in int64). Runs on the key's device (``device`` moves it first)."""
+    key = key_on(key, device)
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
     rounds = int(np.ceil(3 * np.log(max(1, n))
                          / np.log(np.iinfo(np.uint32).max)))
     for _ in range(rounds):
         key, sub = split(key)
-        words = random_bits(sub, (n,), device)
+        words = random_bits(sub, (n,))
         x = x[torch.sort(words, stable=True).indices]
     return x
 
 
 def choice_without_replacement(key: torch.Tensor, n: int, m: int,
-                               device: str | torch.device = "cpu"
+                               device: str | torch.device | None = None
                                ) -> torch.Tensor:
     """``jax.random.choice(key, m, (n,), replace=False)``: the first ``n``
-    entries of ``permutation(key, m)`` (int64, on ``device``)."""
+    entries of ``permutation(key, m)`` (int64, on the key's device or
+    ``device``)."""
     if n > m:
         raise ValueError(f"cannot draw {n} distinct values from [0, {m})")
     return permutation(key, m, device)[:n]

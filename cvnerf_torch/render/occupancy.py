@@ -181,9 +181,12 @@ def probe_sigma(grid: OccupancyGrid, points: torch.Tensor,
 
 
 def _upper(grid: OccupancyGrid, minus: int) -> torch.Tensor:
-    rx, ry, rz = grid.values.shape
-    return torch.tensor([rx - minus, ry - minus, rz - minus],
-                        dtype=torch.float32, device=grid.values.device)
+    """``res - minus`` per axis, float32 on the grid's device, filled there
+    (no host copy, so a probe can be captured in a CUDA graph)."""
+    up = grid.values.new_empty(3)
+    for axis, r in enumerate(grid.values.shape):
+        up[axis].fill_(r - minus)
+    return up
 
 
 def occupancy_sigma(grid: OccupancyGrid, points: torch.Tensor) -> torch.Tensor:

@@ -39,7 +39,8 @@ from cvnerf_torch.ops.fused_mlp_int8 import (QuantizedNerfWeights,
                                              fused_nerf_apply_int8,
                                              fused_nerf_int8_plain)
 from cvnerf_torch.ops.quantize import QuantizedNerfParams
-from cvnerf_torch.ops.rng import ray_normal, ray_sorted_uniform, ray_uniform
+from cvnerf_torch.ops.rng import (key_on, ray_normal, ray_sorted_uniform,
+                                  ray_uniform)
 from cvnerf_torch.ops.sampling import (merge_sorted, sample_pdf,
                                        stratified_samples)
 from cvnerf_torch.parallel.mesh import (Mesh, ray_sharding, shard_gather,
@@ -198,6 +199,8 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
                          "noise_std or a stochastic resample): pass key=")
     n_rays = rays_o.shape[0]
     dev = rays_o.device
+    if key is not None:
+        key = key_on(key, dev)       # every draw below reads it there
     if ray_ids is None:
         ray_ids = torch.arange(n_rays, dtype=torch.int64, device=dev)
     if occupancy is not None and cfg.occupancy_termination > 0.0:

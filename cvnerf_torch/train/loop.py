@@ -46,10 +46,18 @@ every rank, so the state stays replicated; inside one process the state
 lives on the mesh's first device and its params are copied to the other
 devices each step. One shard is the unsharded step, bitwise.
 
-The step runs eagerly: the Feistel pixel draw runs on the host and is
-copied to the card without waiting for it, the parity draw (a sort over
-the whole grid) runs on the card; the render and the backward are the
-device's work.
+Every draw of the step runs on the params' device (the threefry and
+Feistel kernels of ``ops/threefry.py`` on a card), the image and pixel
+picks are device gathers, and the per-step scalars (Adam's learning rate
+and bias corrections, the noise, anneal and distortion schedules) enter as
+one float32 row formed on the host (``step_row``). So a step reads no
+device value back to the host, and ``make_train_scan`` captures it in a
+CUDA graph: a block of ``steps_per_call`` steps is then one dispatch of
+graph replays, as a block is one ``lax.scan`` program in the JAX package.
+The eager step and the captured one are one code path
+(``_build_step_core``): the eager step hands it a one-row table, the
+captured step reads its row from the block's table through a device
+counter.
 """
 
 from __future__ import annotations
@@ -66,14 +74,15 @@ from cvnerf_torch.ops.compositing import distortion_loss, occlusion_loss
 from cvnerf_torch.ops.rays import (ndc_rays, rays_for_pixels,
                                    rays_for_pixels_batched)
 from cvnerf_torch.ops.rng import (PRNGKey, choice_without_replacement,
-                                  fold_in, randint,
+                                  fold_in, key_on, randint,
                                   sample_without_replacement, split)
-from cvnerf_torch.parallel.mesh import (Mesh, ray_sharding,
+from cvnerf_torch.parallel.mesh import (Mesh, Replicated, ray_sharding,
                                         replicate_to_mesh, shard_mean,
                                         to_device)
 from cvnerf_torch.render.occupancy import occupied_fraction
 from cvnerf_torch.render.renderer import RenderConfig, render_rays
-from cvnerf_torch.train.state import (TrainState, ema_update, make_optimizer,
+from cvnerf_torch.train.state import (Adam, AdamState, TrainState,
+                                      clone_tree, ema_update, make_optimizer,
                                       tree_leaves)
 
 
@@ -134,11 +143,12 @@ def check_supported(cfg: TrainConfig) -> None:
 
 
 def _sample_pixels(key: torch.Tensor, cfg: TrainConfig, precrop: bool,
-                   device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """``n_rays`` (py, px) pixel coordinates (int64, on ``device``): the
-    centre-crop grid during warm-up, then the whole image. The Feistel and
-    with-replacement draws run on the host, the parity permutation on
-    ``device``."""
+                   device: torch.device | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``n_rays`` (py, px) pixel coordinates (int64, drawn on the key's
+    device, or on ``device``): the centre-crop grid during warm-up, then
+    the whole image."""
+    key = key_on(key, device)
     h, w = cfg.height, cfg.width
     if precrop:
         dh = int(h // 2 * cfg.precrop_frac)
@@ -149,19 +159,18 @@ def _sample_pixels(key: torch.Tensor, cfg: TrainConfig, precrop: bool,
         y0 = x0 = 0
         gh, gw = h, w
     if cfg.pixel_sampling == "parity":
-        flat = choice_without_replacement(key, cfg.n_rays, gh * gw, device)
+        flat = choice_without_replacement(key, cfg.n_rays, gh * gw)
+    elif cfg.pixel_sampling == "prp":
+        flat = sample_without_replacement(key, cfg.n_rays, gh * gw)
     else:
-        if cfg.pixel_sampling == "prp":
-            flat = sample_without_replacement(key, cfg.n_rays, gh * gw)
-        else:
-            flat = randint(key, (cfg.n_rays,), 0, gh * gw).to(torch.int64)
-        flat = _to(flat, device)
+        flat = randint(key, (cfg.n_rays,), 0, gh * gw).to(torch.int64)
     return y0 + flat // gw, x0 + flat % gw
 
 
-def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """A host tensor onto ``device`` without making the host wait for the
-    device's queue (pinned staging)."""
+def staged(values: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, copied through pinned memory
+    without making the host wait for the device's queue."""
+    t = torch.from_numpy(np.ascontiguousarray(values))
     if device.type == "cpu":
         return t
     return t.pin_memory().to(device, non_blocking=True)
@@ -196,18 +205,27 @@ def schedules(cfg: TrainConfig, step: int) -> tuple[float, float, float]:
     return float(noise), float(anneal), float(dist)
 
 
-def make_train_step(cfg: TrainConfig, mesh: Mesh | None = None,
-                    with_occupancy: bool = False) -> Callable:
-    """``step_fn(state, key, images, poses, train_idx, precrop) ->
-    (new_state, metrics)``: the JAX ``make_train_step(cfg, mesh=None)``.
-    ``images [N, H, W, 3]`` and ``poses [N, 3, 4]`` lie on the params'
-    device (or, with a mesh, are ``replicate_to_mesh`` values),
-    ``train_idx`` (int64) on any; the metrics are 0-d tensors on the
-    params' device. With ``with_occupancy=True`` the step takes a baked
-    ``OccupancyGrid`` after the state: ``step_fn(state, occupancy, key,
-    ...)`` (the occupancy step, see the module docstring). With ``mesh``
-    the batch is split over its shards (see the module docstring);
-    ``n_rays`` must divide into them."""
+# The columns of a step's scalar row: Adam's (``Adam.scalars``), then the
+# schedules'.
+ROW = ("lr_step", "bc1", "bc2", "noise", "anneal", "dist")
+
+
+def step_row(cfg: TrainConfig, opt: Adam, step: int,
+             count: int) -> np.ndarray:
+    """The float32 scalars of the step taken from ``state.step == step``
+    with Adam's update count ``count`` (columns ``ROW``), formed on the
+    host as the single step formed them before it read them from a row."""
+    return np.concatenate([opt.scalars(count),
+                           np.array(schedules(cfg, step), np.float32)])
+
+
+def _build_step_core(cfg: TrainConfig, mesh: Mesh | None,
+                     with_occupancy: bool) -> Callable:
+    """``core(state, occupancy, key, row, images, poses, train_idx,
+    precrop) -> (new_state, metrics)``: the step of ``make_train_step``
+    with its scalars read from ``row`` (a float32 ``[len(ROW)]`` tensor on
+    the params' device) and not from ``state.step`` or the Adam count, so
+    the same function runs eagerly and inside a captured graph."""
     if mesh is not None and cfg.n_rays % mesh.size != 0:
         raise ValueError(
             f"n_rays={cfg.n_rays} must be divisible by the mesh size "
@@ -219,43 +237,46 @@ def make_train_step(cfg: TrainConfig, mesh: Mesh | None = None,
         # The regularizers read the fine pass's weights and depths.
         rcfg = dataclasses.replace(rcfg, return_weights=True)
 
-    def pick_rays(key, images, poses, train_idx, precrop):
+    def pick_rays(keys, images, poses, train_idx, precrop):
         """The step's global batch on the images' device: rays (NDC-warped
         when ``cfg.ndc``), pre-NDC unit view directions and target
-        colours."""
-        k_img, k_pix = key
+        colours. Every pick is a device gather of device-drawn indices."""
         dev = images.device
+        k_img, k_pix = (key_on(k, dev) for k in keys)
+        train_idx = to_device(train_idx, dev)
+        h, w = cfg.height, cfg.width
+        pixels = images.reshape(-1, 3)
         if cfg.ray_batching and not precrop:
             # n_rays (image, pixel) pairs over the whole train split, one
             # Feistel draw over n_train·H·W.
-            h, w = cfg.height, cfg.width
-            flat = _to(sample_without_replacement(
-                k_pix, cfg.n_rays, train_idx.shape[0] * h * w), dev)
-            im_idx = train_idx.to(dev)[flat // (h * w)]
+            flat = sample_without_replacement(
+                k_pix, cfg.n_rays, train_idx.shape[0] * h * w)
+            im_idx = train_idx.index_select(0, flat // (h * w))
             pix = flat % (h * w)
             py, px = pix // w, pix % w
-            target = images[im_idx, py, px]
+            target = pixels.index_select(0, im_idx * (h * w) + pix)
             rays_o, rays_d = rays_for_pixels_batched(
-                px, py, w, h, cfg.focal, poses[im_idx])
+                px, py, w, h, cfg.focal, poses.index_select(0, im_idx))
         else:
-            j = int(randint(k_img, (), 0, train_idx.shape[0]))
-            im = int(train_idx[j])
-            py, px = _sample_pixels(k_pix, cfg, precrop, dev)
-            target = images[im][py, px]
+            j = randint(k_img, (1,), 0, train_idx.shape[0])
+            im = train_idx.index_select(0, j.to(torch.int64))
+            py, px = _sample_pixels(k_pix, cfg, precrop)
+            target = pixels.index_select(0, (im * h + py) * w + px)
             rays_o, rays_d = rays_for_pixels(px, py, cfg.width, cfg.height,
-                                             cfg.focal, poses[im])
+                                             cfg.focal,
+                                             poses.index_select(0, im)[0])
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         if cfg.ndc:
             rays_o, rays_d = ndc_rays(cfg.height, cfg.width, cfg.focal, 1.0,
                                       rays_o, rays_d, variant=cfg.ndc_variant)
         return rays_o, rays_d, viewdirs, target
 
-    def shard_grads(params, occupancy, k_render, batch, rows, schedule):
+    def shard_grads(params, occupancy, k_render, batch, rows, row):
         """One shard's rays ``rows`` of the global ``batch``: (loss,
         mse_fine, the gradient of every leaf of ``params``)."""
-        noise_scale, anneal, dist_scale = schedule
         rays_o, rays_d, viewdirs, target = (x[rows] for x in batch)
         dev = target.device
+        noise_scale, anneal, dist_scale = to_device(row, dev)[3:].unbind(0)
         n = rows.stop - rows.start
         ray_ids = torch.arange(rows.start, rows.stop, dtype=torch.int64,
                                device=dev)
@@ -277,8 +298,8 @@ def make_train_step(cfg: TrainConfig, mesh: Mesh | None = None,
         else:
             loss = mse_fine + torch.mean((out["rgb_coarse"] - target) ** 2)
         if cfg.distortion_loss > 0.0:
-            coef = _f32(np.float32(cfg.distortion_loss)
-                        * np.float32(dist_scale))
+            # float32(weight) · float32(scale), one rounding, as before.
+            coef = dist_scale * _f32(cfg.distortion_loss)
             loss = loss + coef * torch.mean(
                 distortion_loss(out["weights"], out["t"], near, far))
         if cfg.occlusion_loss > 0.0:
@@ -313,11 +334,11 @@ def make_train_step(cfg: TrainConfig, mesh: Mesh | None = None,
             mesh, [[loss, mse, *grads] for loss, mse, grads in per_shard])
         return loss, mse, grads
 
-    def step_fn(state: TrainState, occupancy, key: torch.Tensor,
-                images, poses, train_idx: torch.Tensor, precrop: bool):
-        k_img, k_pix, k_render = split(key, 3)
-        schedule = schedules(cfg, state.step)
+    def core(state: TrainState, occupancy, key: torch.Tensor,
+             row: torch.Tensor, images, poses, train_idx: torch.Tensor,
+             precrop: bool):
         home = tree_leaves(state.params)[0].device
+        k_img, k_pix, k_render = split(key_on(key, home), 3)
         if mesh is None:
             shards = [(slice(0, cfg.n_rays), images.device)]
         else:
@@ -341,7 +362,7 @@ def make_train_step(cfg: TrainConfig, mesh: Mesh | None = None,
                 occ[dev] = (None if occupancy is None
                             else to_device(occupancy, dev))
             per_shard.append(shard_grads(params[dev], occ[dev], k_render,
-                                         batch[dev], rows, schedule))
+                                         batch[dev], rows, row))
         loss, mse_fine, flat = average(per_shard,
                                        tree_leaves(state.params))
         it = iter(to_device(g, home) for g in flat)
@@ -349,7 +370,7 @@ def make_train_step(cfg: TrainConfig, mesh: Mesh | None = None,
                        for name, layer in tree.items()}
                  for net, tree in state.params.items()}
         new_params, opt_state = opt.update(grads, state.opt_state,
-                                           state.params)
+                                           state.params, row[:3])
         if with_occupancy:
             # Zeroed coarse updates (optax's p + 0): the momentum from the
             # warm-up would otherwise keep moving the frozen coarse net.
@@ -366,6 +387,34 @@ def make_train_step(cfg: TrainConfig, mesh: Mesh | None = None,
         return TrainState(params=new_params, opt_state=opt_state,
                           step=state.step + 1, ema_params=ema), metrics
 
+    return core
+
+
+def make_train_step(cfg: TrainConfig, mesh: Mesh | None = None,
+                    with_occupancy: bool = False) -> Callable:
+    """``step_fn(state, key, images, poses, train_idx, precrop) ->
+    (new_state, metrics)``: the JAX ``make_train_step(cfg, mesh=None)``.
+    ``images [N, H, W, 3]`` and ``poses [N, 3, 4]`` lie on the params'
+    device (or, with a mesh, are ``replicate_to_mesh`` values),
+    ``train_idx`` (int64) on any; the key on any device (it is moved to
+    the params'); the metrics are 0-d tensors on the params' device. With
+    ``with_occupancy=True`` the step takes a baked ``OccupancyGrid`` after
+    the state: ``step_fn(state, occupancy, key, ...)`` (the occupancy
+    step, see the module docstring). With ``mesh`` the batch is split over
+    its shards (see the module docstring); ``n_rays`` must divide into
+    them. The step's scalar row (``step_row`` of the state's step and Adam
+    count) goes to the device with one pinned copy."""
+    core = _build_step_core(cfg, mesh, with_occupancy)
+    opt = make_optimizer(cfg.lr, cfg.lr_decay)
+
+    def step_fn(state: TrainState, occupancy, key: torch.Tensor,
+                images, poses, train_idx: torch.Tensor, precrop: bool):
+        home = tree_leaves(state.params)[0].device
+        row = staged(step_row(cfg, opt, state.step, state.opt_state.count),
+                     home)
+        return core(state, occupancy, key, row, images, poses, train_idx,
+                    precrop)
+
     if with_occupancy:
         return step_fn
 
@@ -376,15 +425,247 @@ def make_train_step(cfg: TrainConfig, mesh: Mesh | None = None,
     return step_no_occ
 
 
+def state_leaves(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor a step reads and writes: params, Adam moments, EMA."""
+    return (tree_leaves(state.params) + tree_leaves(state.opt_state.mu)
+            + tree_leaves(state.opt_state.nu)
+            + (tree_leaves(state.ema_params)
+               if state.ema_params is not None else []))
+
+
+def _grid_tensors(grid) -> list[torch.Tensor]:
+    """The tensors of a grid (each copy of a replicated one)."""
+    grids = (list(grid.copies.values()) if isinstance(grid, Replicated)
+             else [grid])
+    return [t for g in grids for t in (g.values, g.bbox_min, g.inv_spacing)]
+
+
+def _graph_sig(home: torch.device, occupancy, images, poses,
+               train_idx) -> tuple:
+    """What a captured graph reads outside the scan's buffers: the
+    address and shape of the data and the grid tensors (a graph of another
+    shape at the same address would index the wrong layout)."""
+    return tuple((t.data_ptr(), tuple(t.shape)) for t in (
+        *(to_device(x, home) for x in (images, poses, train_idx)),
+        *(_grid_tensors(occupancy) if occupancy is not None else [])))
+
+
+class _Block:
+    """The program of ``make_train_scan``: static buffers for the state,
+    the block's per-step tables and, on a card, one CUDA graph per
+    ``precrop`` variant (see ``make_train_scan``)."""
+
+    def __init__(self, cfg: TrainConfig, block: int, mesh: Mesh | None,
+                 with_occupancy: bool):
+        if block < 1:
+            raise ValueError(f"block={block} must be positive")
+        self.cfg, self.block, self.mesh = cfg, block, mesh
+        self.core = _build_step_core(cfg, mesh, with_occupancy)
+        self.opt = make_optimizer(cfg.lr, cfg.lr_decay)
+        self.stats = {"captures": 0, "replayed_steps": 0, "eager_steps": 0,
+                      "capture_s": 0.0, "pool_bytes": 0}
+        self.eager_reason: str | None = None
+        self._bufs: dict | None = None
+        self._graphs: dict = {}
+
+    def _static(self, state: TrainState) -> dict:
+        """The static buffers, holding ``state`` (copied in unless the
+        state already is them)."""
+        leaves = state_leaves(state)
+        b = self._bufs
+        same = (b is not None and len(b["leaves"]) == len(leaves) and all(
+            x.shape == y.shape and x.device == y.device
+            for x, y in zip(b["leaves"], leaves)))
+        if not same:
+            home = leaves[0].device
+            params = clone_tree(state.params)
+            mu, nu = (clone_tree(state.opt_state.mu),
+                      clone_tree(state.opt_state.nu))
+            ema = (clone_tree(state.ema_params)
+                   if state.ema_params is not None else None)
+            b = self._bufs = {
+                "params": params, "mu": mu, "nu": nu, "ema": ema,
+                "key": torch.zeros(2, dtype=torch.int64, device=home),
+                "steps": torch.zeros(self.block, dtype=torch.int64,
+                                     device=home),
+                "rows": torch.zeros(self.block, len(ROW),
+                                    dtype=torch.float32, device=home),
+                "counter": torch.zeros(1, dtype=torch.int64, device=home)}
+            b["leaves"] = state_leaves(self._state(0, 0))
+            self._graphs.clear()
+        elif any(x is not y for x, y in zip(b["leaves"], leaves)):
+            torch._foreach_copy_(b["leaves"], leaves)
+        return b
+
+    def _state(self, step: int, count: int) -> TrainState:
+        b = self._bufs
+        return TrainState(params=b["params"],
+                          opt_state=AdamState(count=count, mu=b["mu"],
+                                              nu=b["nu"]),
+                          step=step, ema_params=b["ema"])
+
+    def _body(self, occupancy, images, poses, train_idx, precrop: bool,
+              write: bool = True) -> dict:
+        """One step of the block: row ``counter`` of the tables, the step,
+        its new state written into the static buffers, the counter
+        advanced. ``write=False`` (the warm-up) drops the results."""
+        b = self._bufs
+        idx = b["counter"]
+        key = fold_in(b["key"], b["steps"].index_select(0, idx))
+        row = b["rows"].index_select(0, idx)[0]
+        new, metrics = self.core(self._state(0, 0), occupancy, key, row,
+                                 images, poses, train_idx, precrop)
+        if write:
+            torch._foreach_copy_(b["leaves"], state_leaves(new))
+            idx.add_(1)
+        return metrics
+
+    def _eager(self, reason: str) -> None:
+        """Run this scan's blocks as eager steps from now on, and say so
+        once."""
+        if self.eager_reason is None:
+            self.eager_reason = reason
+            print(f"make_train_scan: {reason}: each block runs as "
+                  f"{self.block} eager steps", flush=True)
+
+    def _graph(self, occupancy, images, poses, train_idx, precrop: bool):
+        """The graph of this variant, captured on first use (and again when
+        the data or the grid is another tensor or another shape)."""
+        home = self._bufs["counter"].device
+        sig = _graph_sig(home, occupancy, images, poses, train_idx)
+        if not precrop:
+            # Precrop blocks come first in a run: free their graph's pool
+            # (a later precrop block would capture again).
+            self._graphs.pop(True, None)
+        got = self._graphs.get(precrop)
+        if got is not None and got[0] == sig:
+            return got[1], got[2]
+        t0 = time.perf_counter()
+        # Eager warm-up on a side stream (builds the kernels, cuBLAS's
+        # handles, the NCCL communicator), as torch.cuda.graphs asks.
+        side = torch.cuda.Stream(device=home)
+        side.wait_stream(torch.cuda.current_stream(home))
+        with torch.cuda.stream(side):
+            self._body(occupancy, images, poses, train_idx, precrop,
+                       write=False)
+        torch.cuda.current_stream(home).wait_stream(side)
+        torch.cuda.synchronize(home)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(home)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(home), torch.cuda.graph(graph):
+            metrics = self._body(occupancy, images, poses, train_idx,
+                                 precrop)
+        self.stats["captures"] += 1
+        self.stats["capture_s"] += time.perf_counter() - t0
+        self.stats["pool_bytes"] += (torch.cuda.memory_reserved(home)
+                                     - reserved)
+        self._graphs[precrop] = (sig, graph, metrics)
+        return graph, metrics
+
+    def __call__(self, state: TrainState, occupancy, base_key, images,
+                 poses, train_idx, start: int, precrop: bool):
+        b = self._static(state)
+        home = b["counter"].device
+        rows = np.stack([step_row(self.cfg, self.opt, state.step + k,
+                                  state.opt_state.count + k)
+                         for k in range(self.block)])
+        b["rows"].copy_(staged(rows, home))
+        b["steps"].copy_(staged(np.arange(start, start + self.block,
+                                          dtype=np.int64), home))
+        b["key"].copy_(key_on(base_key, home))
+        b["counter"].zero_()
+        if (home.type == "cuda" and self.mesh is not None
+                and len(set(self.mesh.devices)) > 1):
+            self._eager("several cards in one process")
+        graphed = home.type == "cuda" and self.eager_reason is None
+        if graphed:
+            try:
+                graph, out = self._graph(occupancy, images, poses,
+                                         train_idx, precrop)
+            except RuntimeError as err:
+                if self.mesh is None or not self.mesh.distributed:
+                    raise
+                # NCCL's graph support refused the all-reduce.
+                self._eager("the all-reduce was not captured ("
+                            f"{str(err).splitlines()[0]})")
+                b["counter"].zero_()
+                graphed = False
+        if graphed:
+            for _ in range(self.block):
+                graph.replay()
+            metrics = {k: v.clone() for k, v in out.items()}
+            self.stats["replayed_steps"] += self.block
+        else:
+            for _ in range(self.block):
+                metrics = self._body(occupancy, images, poses, train_idx,
+                                     precrop)
+            self.stats["eager_steps"] += self.block
+        return (self._state(state.step + self.block,
+                            state.opt_state.count + self.block), metrics)
+
+
+def make_train_scan(cfg: TrainConfig, block: int, mesh: Mesh | None = None,
+                    with_occupancy: bool = False) -> Callable:
+    """``scan_fn(state, base_key, images, poses, train_idx, start, precrop)
+    -> (new_state, last_metrics)`` runs ``block`` consecutive steps
+    ``start .. start + block - 1`` (the JAX ``make_train_scan``; with
+    ``with_occupancy=True`` the grid follows the state, as in
+    ``make_train_step``). Step ``i``'s key is ``fold_in(base_key, i)`` and
+    its scalars ``step_row`` of the state's step and count advanced by
+    ``i - start``, so the block is bitwise ``block`` single steps.
+
+    The state's tensors move into static buffers owned by the scan (a
+    copy, unless the state passed in is the one the last block returned),
+    the block's keys' step indices and scalar rows into static tables
+    (one pinned copy each), and every step reads its row through a device
+    counter and writes its new state back into the buffers. The returned
+    state holds those buffers: like the JAX scan's donated input, it is
+    overwritten by the next block, so a caller that keeps a copy copies
+    it before then (a checkpoint's host copy does).
+
+    On a card (``mesh=None``, a one-shard mesh, or shards that share one
+    card) one step is captured in a CUDA graph after one eager warm-up step
+    on a side stream, one graph per ``precrop`` value (the precrop graph is
+    dropped once a block without precrop runs), recaptured when the data or
+    the grid is another tensor or another shape (``Trainer.set_occupancy``
+    refreshes its grid in place, so a rebake keeps the graph), and a block
+    is ``block`` replays with no host read of a device value. Launch counters count Python calls, so
+    the captured steps' launches are counted once at capture (``stats``:
+    captures, replayed and eager steps, capture seconds, the bytes the
+    captures reserved). Under a NCCL
+    process group the all-reduce is captured too; where NCCL refuses, the
+    blocks run as eager steps and one line says so. Several cards in one
+    process run eager steps (``eager_reason``), and the CPU runs the same
+    body ``block`` times without a graph."""
+    runner = _Block(cfg, block, mesh, with_occupancy)
+    if with_occupancy:
+        def scan_fn(state: TrainState, occupancy, base_key: torch.Tensor,
+                    images, poses, train_idx: torch.Tensor, start: int,
+                    precrop: bool):
+            return runner(state, occupancy, base_key, images, poses,
+                          train_idx, start, precrop)
+    else:
+        def scan_fn(state: TrainState, base_key: torch.Tensor, images,
+                    poses, train_idx: torch.Tensor, start: int,
+                    precrop: bool):
+            return runner(state, None, base_key, images, poses, train_idx,
+                          start, precrop)
+    scan_fn.runner = runner
+    return scan_fn
+
+
 class Trainer:
     """Host-side training driver: the step, the per-step keys
     (``fold_in(PRNGKey(seed), i)``) and the periodic callbacks, as the JAX
     ``Trainer`` runs them. The data goes to the device of the state's
-    params; with a ``mesh``, the state goes to the mesh's first device and
-    the images, poses and any occupancy grid are replicated over it
-    (``replicate_to_mesh``). ``steps_per_call > 1`` runs the same single
-    steps one after another (the JAX scan is numerically the single
-    steps)."""
+    params (the image indices too, and the base key); with a ``mesh``, the
+    state goes to the mesh's first device and the images, poses and any
+    occupancy grid are replicated over it (``replicate_to_mesh``).
+    ``steps_per_call > 1`` runs full blocks of that many steps through
+    ``make_train_scan`` (on a card, one dispatch of graph replays); a
+    block ends where the precrop flag changes and where a callback fires,
+    and a shorter stretch runs as single steps (``_block_len``)."""
 
     def __init__(self, cfg: TrainConfig, state: TrainState, images, poses,
                  train_idx, seed: int = 0, mesh: Mesh | None = None,
@@ -415,35 +696,52 @@ class Trainer:
         self.cfg = cfg
         self.mesh = mesh
         self.step_fn = make_train_step(cfg, mesh)
+        self.steps_per_call = max(1, steps_per_call)
+        self.scan_fn = (make_train_scan(cfg, self.steps_per_call, mesh)
+                        if self.steps_per_call > 1 else None)
         self.state = state if mesh is None else to_device(state, mesh.home)
         # Occupancy training: set_occupancy installs a grid and the
-        # occupancy step.
+        # occupancy step (and scan); a rebake refreshes the grid in place.
         self.occupancy = None
         self._step_fn_occ: Callable | None = None
-        # steps_per_call is accepted for the JAX signature and changes nothing.
-        del steps_per_call
-        self.base_key = PRNGKey(seed)
+        self._scan_fn_occ: Callable | None = None
         dev = tree_leaves(self.state.params)[0].device
+        self.base_key = key_on(PRNGKey(seed), dev)
         self.images = torch.as_tensor(images, dtype=torch.float32).to(dev)
         self.poses = torch.as_tensor(poses, dtype=torch.float32)[:, :3, :4]
         self.poses = self.poses.to(dev)
         if mesh is not None:
             self.images = replicate_to_mesh(self.images, mesh)
             self.poses = replicate_to_mesh(self.poses, mesh)
-        # Read on the host (the image draw); the ray-batching draw copies
-        # it to each shard's device.
-        self.train_idx = torch.as_tensor(train_idx, dtype=torch.int64)
+        # On the device: the image draw gathers from it there.
+        self.train_idx = torch.as_tensor(np.asarray(train_idx),
+                                         dtype=torch.int64).to(dev)
         self.callbacks: list[tuple[int, Callable]] = []
         self._last_metrics: dict[str, Any] = {}
 
     def set_occupancy(self, grid) -> None:
         """Install (or refresh) a baked ``OccupancyGrid``: the following
-        steps are occupancy steps through it (replicated over the mesh)."""
-        self.occupancy = (grid if self.mesh is None
-                          else replicate_to_mesh(grid, self.mesh))
+        steps are occupancy steps through it (replicated over the mesh).
+        The first grid is installed as given; a refresh at the same
+        resolution is copied into its tensors, so captured blocks keep
+        reading them (the JAX trainer reuses its compiled programs the same
+        way); a grid of another size replaces it."""
+        new = grid if self.mesh is None else replicate_to_mesh(grid,
+                                                                self.mesh)
+        old = self.occupancy
+        if old is not None and [(t.shape, t.device)
+                                for t in _grid_tensors(old)] == [
+                (t.shape, t.device) for t in _grid_tensors(new)]:
+            torch._foreach_copy_(_grid_tensors(old), _grid_tensors(new))
+        else:
+            self.occupancy = new
         if self._step_fn_occ is None:
             self._step_fn_occ = make_train_step(self.cfg, self.mesh,
                                                 with_occupancy=True)
+            if self.steps_per_call > 1:
+                self._scan_fn_occ = make_train_scan(
+                    self.cfg, self.steps_per_call, self.mesh,
+                    with_occupancy=True)
 
     def maybe_set_occupancy(self, grid, occupied_frac: float | None = None
                             ) -> str:
@@ -478,30 +776,62 @@ class Trainer:
         self._last_metrics = m
         return m
 
+    def _block_len(self, i: int, iters: int) -> int:
+        """Steps to run in one dispatch starting at ``i``: the scan block
+        size, shortened so the precrop flag stays constant and no callback
+        would fire before the block's last step (fires after step j where
+        j % every == 0 and j > 0; a fire exactly at the last step is fine —
+        the block returns that step's metrics)."""
+        n = min(self.steps_per_call, iters - i)
+        if i < self.cfg.precrop_iters:
+            n = min(n, self.cfg.precrop_iters - i)
+        for every, _ in self.callbacks:
+            j = i if (i % every == 0 and i > 0) else i + every - i % every
+            if j < i + n - 1:
+                n = j - i + 1
+        return max(1, n)
+
     def run(self, start: int, iters: int) -> dict:
         """Train steps ``start .. iters - 1`` (the reference's 1-based
-        loop); returns the last step's metrics as floats with
+        loop): full blocks through the scan, anything shorter as single
+        steps; returns the last step's metrics as floats with
         ``rays_per_sec`` over the window since the last callback."""
         if start >= iters:
             return dict(self._last_metrics)
         t0 = time.time()
         rays_done = 0
-        for i in range(start, iters):
-            args = (fold_in(self.base_key, i), self.images, self.poses,
-                    self.train_idx, i < self.cfg.precrop_iters)
-            if self.occupancy is not None:
-                self.state, metrics = self._step_fn_occ(
-                    self.state, self.occupancy, *args)
+        i = start
+        while i < iters:
+            precrop = i < self.cfg.precrop_iters
+            n = self._block_len(i, iters)
+            occ = self.occupancy
+            data = (self.images, self.poses, self.train_idx)
+            if n > 1 and n == self.steps_per_call:
+                if occ is not None:
+                    self.state, metrics = self._scan_fn_occ(
+                        self.state, occ, self.base_key, *data, i, precrop)
+                else:
+                    self.state, metrics = self.scan_fn(
+                        self.state, self.base_key, *data, i, precrop)
             else:
-                self.state, metrics = self.step_fn(self.state, *args)
-            rays_done += self.cfg.n_rays
+                n = 1
+                key = fold_in(self.base_key, i)
+                if occ is not None:
+                    self.state, metrics = self._step_fn_occ(
+                        self.state, occ, key, *data, precrop)
+                else:
+                    self.state, metrics = self.step_fn(
+                        self.state, key, *data, precrop)
+            last = i + n - 1
+            i += n
+            rays_done += n * self.cfg.n_rays
             final_m = None
             for every, fn in self.callbacks:
-                if i % every == 0 and i > 0:
+                if last % every == 0 and last > 0:
                     if final_m is None:
                         final_m = self._finalize_metrics(metrics, rays_done,
                                                          t0)
-                    fn(i, self, final_m)
+                    fn(last, self, final_m)
             if final_m is not None:
                 # Slow callbacks do not count against rays_per_sec.
                 t0 = time.time()

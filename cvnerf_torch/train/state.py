@@ -5,8 +5,13 @@ Adam(b1 0.9, b2 0.999, eps 1e-8) over both nets with the exponential decay
 ``lr · 0.1^(k / (1000 · lr_decay))``, written out as optax computes it, in
 float32: ``k`` is the update count, 0 at the first update; the moments are
 ``(1 - b) · g^p + b · m``, bias-corrected by ``1 - b^(k+1)``; the update is
-``-lr(k) · m̂ / (sqrt(v̂) + eps)`` (eps outside the root). The optimizer
-returns new tensors and leaves its inputs as they were, like the JAX one.
+``-lr(k) · m̂ / (sqrt(v̂) + eps)`` (eps outside the root). The per-update
+scalars ``-lr(k)``, ``1 - b1^(k+1)`` and ``1 - b2^(k+1)`` are formed on
+the CPU in float32 (``Adam.scalars``) and enter the update as a float32
+tensor on the params' device, so a step captured in a CUDA graph reads
+each update's own values from a table instead of freezing them. The
+optimizer returns new tensors and leaves its inputs as they were, like the
+JAX one.
 An EMA run (``--ema_decay``) also carries the Polyak average of the params
 (``ema_update``).
 """
@@ -83,16 +88,23 @@ class Adam:
         return AdamState(count=0, mu=zeros,
                          nu=_tree_map(torch.zeros_like, zeros))
 
+    def scalars(self, count: int) -> np.ndarray:
+        """The float32 scalars of update ``count`` (0 at the first):
+        ``(-lr(count), 1 - b1^(count+1), 1 - b2^(count+1))``, each formed
+        on the CPU in float32."""
+        c1 = count + 1
+        return torch.stack([-self.learning_rate(count),
+                            1 - _f32(self.b1) ** c1,
+                            1 - _f32(self.b2) ** c1]).numpy()
+
     @torch.no_grad()
-    def update(self, grads: dict, state: AdamState,
-               params: dict) -> tuple[dict, AdamState]:
-        """One Adam step: ``(new params, new state)``. The scalars are
-        float32 values computed on the CPU and passed as Python floats
-        (exact), so a step on the card needs no host-device copy."""
+    def update(self, grads: dict, state: AdamState, params: dict,
+               scalars: torch.Tensor) -> tuple[dict, AdamState]:
+        """One Adam step: ``(new params, new state)``. ``scalars`` is
+        :meth:`scalars` of ``state.count`` as a float32 ``[3]`` tensor on
+        the params' device (the train step's row)."""
+        step, bc1, bc2 = scalars.unbind(0)
         c1 = state.count + 1
-        bc1 = float(1 - _f32(self.b1) ** c1)
-        bc2 = float(1 - _f32(self.b2) ** c1)
-        step = -float(self.learning_rate(state.count))
         mu = _tree_map(lambda g, m: (1 - self.b1) * g + self.b1 * m,
                        grads, state.mu)
         nu = _tree_map(lambda g, v: (1 - self.b2) * (g * g) + self.b2 * v,
