@@ -154,7 +154,29 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      a step, the profiler's idle share, the capture seconds and graph pool
      bytes; d. phase 7's run at
      ``--steps_per_call 1``: its checkpoints at 30 and 60 bitwise phase
-     7's at 10.
+     7's at 10;
+  13. a frame as one CUDA-graph dispatch (``render/frames.py``: every
+     frame path, phases 2-11's included, replays a captured frame
+     program): a. on phase 7's run (and an fp32 run directory), each frame
+     variant (bf16, fp32, int8, occupancy merge and full with both probes,
+     full with ``--occ_term``, int8 through a grid, ``--stochastic``, a
+     two-shard mesh of the one card) through its renderer's program: a
+     pose's first frame, the same pose replayed, another pose and key
+     replayed and that frame through the program's body run eagerly, the
+     replays bitwise their eager frames (rgb, rgb_coarse, acc, depth),
+     every frame exactly the variant's launches and no plain call, one
+     capture; b. eager frames against replays in interleaved rounds (CUDA
+     events and wall clock), each split by the profiler into the forward
+     kernels, other device work and idle time, capture seconds and pool
+     bytes, at 400x400 chunk 8192 (bf16, int8, full nearest, merge
+     trilinear), bf16 at factor 2 and 4, 200x200 at chunk 4096, and the
+     probes of one chunk inside a graph (``python3
+     scripts/time_frame_graphs.py`` adds a graph of one chunk replayed
+     through a device counter, the design the frame program did not
+     take); c. ``render_video`` of 3 poses bitwise 3 ``render_pose``
+     calls; d. phase 7's validations and test frames one capture and 5
+     replays, each logged validation PSNR equal to the same views scored
+     through eager frames from the step's checkpoint.
 The launch counts of phases 2, 2b, 3, 3b, 5, 5b, 7, 8, 9, 10 and 11 (the
 main paths) are reset just before each phase (each CLI call of phase 7) and read just
 after: the kernels must have launched exactly as often as the chunking
@@ -166,12 +188,16 @@ by step in phases 7 and 10d; ceil(res^3 / 65,536) per bake; on a
 two-shard mesh 2 + 2 a shard a step, 2 a chunk a shard a frame), and the
 plain versions not at all. A train step captured in a CUDA graph is counted
 as it runs: its launches are taken off the counters at the capture and
-added again at each replay (``Blocks``); the draw kernels count every
+added again at each replay, and so is a frame replayed from a frame
+program's graph (``Graphs``: the first frame of a program runs eagerly,
+then the body is captured); the draw kernels count every
 launch after phase 12a's comparisons (9 threefry and 1 Feistel a lego
 step).
 
 Prints the card's name and power limit, one JSON line of per-kernel
-numbers (phase 12's under ``threefry_bits``'s ``"scan"`` key), the list of kernels exercised, and as its last line
+numbers (phase 12's under ``threefry_bits``'s ``"scan"`` key, phase 13's
+under ``fused_nerf_apply``'s ``"frames"``), the list of kernels
+exercised, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 CUDA is unavailable or the port's package is not beside this script.
 """
@@ -676,7 +702,7 @@ def calibrate(fb, cfg, params, w, pts, dirs, g, whole, want) -> None:
 
 
 # The counters read_counts reports (the MLP kernels and their plain
-# versions); Blocks also keeps the draws' (threefry, feistel).
+# versions); Graphs also keeps the draws' (threefry, feistel).
 MLP_COUNTS = ("fwd", "bwd", "int8", "fwd_plain", "bwd_plain", "int8_plain")
 
 
@@ -750,11 +776,11 @@ def phase_train(fm, fb, fq, card: str):
     tr.add_callback(1, on_step)
     torch.cuda.synchronize()
     reset_counts(fm, fb, fq)
-    before = BLOCKS.read()
+    before = GRAPHS.read()
     tr.run(1, 1 + TRAIN_STEPS)
     torch.cuda.synchronize()
     counts = read_counts(fm, fb, fq)
-    draws = {k: v - before[k] for k, v in BLOCKS.read().items()
+    draws = {k: v - before[k] for k, v in GRAPHS.read().items()
              if k not in MLP_COUNTS}
     # A step's draws on the card: its key (fold_in), the image, pixel and
     # render keys (split), the image (randint: a split and two bits), both
@@ -1040,22 +1066,25 @@ class PerCall:
         setattr(self.module, self.name, self.orig)
 
 
-class Blocks:
-    """Launch accounting for blocks of captured train steps
-    (``make_train_scan``), installed for the whole run. A step recorded
-    into a CUDA graph runs nothing at its capture and runs again at every
-    replay, while each wrapper counts its Python calls: this takes a
-    captured step's counts back off the counters at its capture and adds
-    them again for every replayed step, so every counter reads what ran on
-    the card (the eager warm-up before a capture included). While
+class Graphs:
+    """Launch accounting for programs replayed from CUDA graphs (blocks of
+    train steps, ``make_train_scan``, and frame programs,
+    ``render/frames.py``; both ``utils/graphs.py::GraphProgram``),
+    installed for the whole run. Work recorded into a graph runs nothing at
+    its capture and runs again at every replay, while each wrapper counts
+    its Python calls: this takes a capture's counts back off the counters
+    and adds them again at every replay, so every counter reads what ran
+    on the card (the eager warm-up before a capture included). While
     ``into(list)`` is active, each step of a block is appended to that
     list (a step-by-step ``PerCall`` record) as the launches of one step,
-    and each block's record to ``blocks``."""
+    and each block's record to ``blocks``; ``totals`` counts frame
+    programs' captures, replays and eager frames over the run."""
 
     def __init__(self, counters: dict):
         self.counters = counters          # name -> (object, attribute)
         self.deltas: list | None = None
         self.blocks: list[dict] = []
+        self.totals = {"captures": 0, "replays": 0, "eager_frames": 0}
 
     def read(self) -> dict:
         return {k: getattr(o, a) for k, (o, a) in self.counters.items()}
@@ -1079,49 +1108,84 @@ class Blocks:
         return {k: d[k] for k in MLP_COUNTS}
 
     def install(self) -> None:
+        from cvnerf_torch.render import frames
         from cvnerf_torch.train import loop
-        rec, block = self, loop._Block
-        body, call = block._body, block.__call__
+        from cvnerf_torch.utils.graphs import GraphProgram
+        rec = self
+        capture, replay = GraphProgram._capture, GraphProgram._replay
+        body, call = loop._Block._body, loop._Block.__call__
+        run = frames.FrameProgram.run
+
+        def counted_capture(prog, device, mesh, collective, fn,
+                            warm_up=None):
+            seen = {}
+
+            def counted():
+                before = rec.read()
+                out = fn()
+                seen.update({k: v - before[k]
+                             for k, v in rec.read().items()})
+                return out
+            got = capture(prog, device, mesh, collective, counted,
+                          warm_up or fn)
+            if got is not None:
+                rec._add(seen, -1)
+                prog.__dict__.setdefault("captured", {})[id(got[0])] = seen
+                prog.captured_launches = seen
+            return got
+
+        def counted_replay(prog, graph, times: int = 1):
+            replay(prog, graph, times)
+            d = prog.captured[id(graph)]
+            rec._add(d, times)
+            if isinstance(prog, loop._Block) and rec.deltas is not None:
+                rec.deltas.extend(rec._mlp(d) for _ in range(times))
 
         def counted_body(blk, *a, write: bool = True, **kw):
             before = rec.read()
             out = body(blk, *a, write=write, **kw)
-            d = {k: v - before[k] for k, v in rec.read().items()}
-            if torch.cuda.is_available() and \
-                    torch.cuda.is_current_stream_capturing():
-                rec._add(d, -1)
-                blk.captured_launches = d
-            elif write and rec.deltas is not None:
-                rec.deltas.append(rec._mlp(d))     # an eager block's step
+            capturing = (torch.cuda.is_available()
+                         and torch.cuda.is_current_stream_capturing())
+            if write and not capturing and rec.deltas is not None:
+                rec.deltas.append(rec._mlp(       # an eager block's step
+                    {k: v - before[k] for k, v in rec.read().items()}))
             return out
 
         def counted_call(blk, *a, **kw):
             stats, before = dict(blk.stats), rec.read()
             out = call(blk, *a, **kw)
-            replayed = blk.stats["replayed_steps"] - stats["replayed_steps"]
-            if replayed:
-                rec._add(blk.captured_launches, replayed)
-                if rec.deltas is not None:
-                    rec.deltas.extend(rec._mlp(blk.captured_launches)
-                                      for _ in range(replayed))
             rec.blocks.append({
-                "steps": blk.block, "replayed": replayed,
+                "steps": blk.block,
+                "replayed": blk.stats["replayed_steps"]
+                - stats["replayed_steps"],
                 "captures": blk.stats["captures"] - stats["captures"],
                 "per_step": dict(getattr(blk, "captured_launches", {})),
                 "delta": {k: v - before[k] for k, v in rec.read().items()},
                 "eager_reason": blk.eager_reason})
             return out
-        block._body, block.__call__ = counted_body, counted_call
+
+        def counted_run(prog):
+            stats = dict(prog.stats)
+            out = run(prog)
+            for k in rec.totals:
+                rec.totals[k] += prog.stats[k] - stats[k]
+            return out
+        GraphProgram._capture = counted_capture
+        GraphProgram._replay = counted_replay
+        loop._Block._body, loop._Block.__call__ = counted_body, counted_call
+        frames.FrameProgram.run = counted_run
 
 
-BLOCKS: Blocks | None = None
+GRAPHS: Graphs | None = None
 
 
 def drive_cli(fm, fb, fq, argv: list[str]) -> tuple:
     """``cvnerf_torch.cli.main(argv)`` with the counts set to 0 just
     before and read just after; returns (result, counts, per-step launch
     counts, per-frame launch counts). A block's steps count one by one
-    (``Blocks``), in order with the single steps."""
+    (``Graphs``), in order with the single steps; a replayed frame counts
+    what it launched. ``drive_cli.programs`` holds the call's
+    frame-program captures, replays and eager frames."""
     from cvnerf_torch import cli
     from cvnerf_torch.render import frames
     from cvnerf_torch.train import loop
@@ -1129,13 +1193,15 @@ def drive_cli(fm, fb, fq, argv: list[str]) -> tuple:
     def counts():
         return read_counts(fm, fb, fq)
     with PerCall(counts, loop, "make_train_step", factory=True) as steps, \
-            PerCall(counts, frames, "render_image") as frame_calls, \
-            BLOCKS.into(steps.deltas):
+            PerCall(counts, frames.FramePrograms, "__call__") as frame_calls, \
+            GRAPHS.into(steps.deltas):
         torch.cuda.synchronize()
         reset_counts(fm, fb, fq)
+        before = dict(GRAPHS.totals)
         result = cli.main(argv)
         torch.cuda.synchronize()
         total = read_counts(fm, fb, fq)
+    drive_cli.programs = {k: v - before[k] for k, v in GRAPHS.totals.items()}
     return result, total, steps.deltas, frame_calls.deltas
 
 
@@ -1197,6 +1263,7 @@ def phase_cli(fm, fb, fq, card: str, tmp: str) -> dict:
     _, counts, steps, frames = drive_cli(
         fm, fb, fq, [*base, "--name", "lego_a", "--iters", "61"])
     cli_wall_s = time.perf_counter() - t0
+    programs = drive_cli.programs
     add(counts)
     check_calls("cli train steps", steps, 60, {"fwd": 2, "bwd": 2})
     check_calls("cli validation and test frames", frames, 6, per_frame)
@@ -1341,7 +1408,7 @@ def phase_cli(fm, fb, fq, card: str, tmp: str) -> dict:
             "ckpt_enqueue_ms": enqueue_ms, "ckpt_drain_ms": drain_ms,
             "fixture_s": fixture_s, "cli_wall_s": cli_wall_s,
             "scene_load_s": load_s, "ssim_ms": ssim_ms,
-            "served_frame_ms": frame_ms,
+            "served_frame_ms": frame_ms, "frame_programs": programs,
             "test_psnr": test_rec[-1]["test_psnr"],
             "int8_test_psnr": q["test_psnr"], "fp32_loss": f32["loss"]}
 
@@ -1747,8 +1814,8 @@ def phase_band(fm, fb, fq, card: str, tmp: str) -> dict:
     def counts():
         return read_counts(fm, fb, fq)
     with PerCall(counts, loop, "make_train_step", factory=True) as steps, \
-            PerCall(counts, frames, "render_image") as frame_calls, \
-            BLOCKS.into(steps.deltas):
+            PerCall(counts, frames.FramePrograms, "__call__") as frame_calls, \
+            GRAPHS.into(steps.deltas):
         torch.cuda.synchronize()
         reset_counts(fm, fb, fq)
         res = quality_run.run(["--scene", "sphere_hi", "--iters", "3000",
@@ -1866,7 +1933,7 @@ def phase_int8_serve(fm, fb, fq, run: str, c2w, bf16_renderer, rgb_bf16,
 
     # The same pose through the plain int8 version on the card, from the
     # served renderer's quantized nets: the kernel repeats every rounding.
-    c2w_t = renderer._pose(c2w)
+    c2w_t = pose_on_card(c2w)
     calls = fq.fused_nerf_int8_plain.calls
     launches = fq.fused_nerf_apply_int8.launches
     plain = render_image({k: w.qp for k, w in renderer._nets.items()},
@@ -2109,7 +2176,7 @@ def phase_occ_serve(fm, fb, fq, card: str, run: str) -> dict:
                      {"int8" if int8 else "fwd": per_frame * n_frames})
         for k, v in s["startup"].items():
             total[k] += v + s["frames"][k]
-        c2w_t = r._pose(c2w)
+        c2w_t = pose_on_card(c2w)
         rcfg = dataclasses.replace(r.cfg, kernels="off", return_weights=True)
         nets = ({k: w.qp for k, w in r._nets.items()} if int8
                 else r.params)
@@ -2285,11 +2352,11 @@ def phase_occ_cli(fm, fb, fq, card: str, tmp: str) -> dict:
     total = {k: 0 for k in read_counts(fm, fb, fq)}
 
     def drive(argv, plain_steps, occ_steps, n_frames, n_bakes):
-        n_blocks = len(BLOCKS.blocks)
+        n_blocks = len(GRAPHS.blocks)
         _, counts, steps, frames = drive_cli(fm, fb, fq, argv)
         # Each capture's eager warm-up step launches once more.
         warm = sum(b["captures"] * b["per_step"]["fwd"]
-                   for b in BLOCKS.blocks[n_blocks:])
+                   for b in GRAPHS.blocks[n_blocks:])
         check_calls(f"occ cli {argv[-6:]} plain steps", steps[:plain_steps],
                     plain_steps, {"fwd": 2, "bwd": 2})
         check_calls(f"occ cli {argv[-6:]} occupancy steps",
@@ -2633,7 +2700,7 @@ def phase_dist_cli(fm, fb, fq, card: str, tmp: str) -> dict:
             return out.write(s)
 
     t0 = time.perf_counter()
-    n_blocks = len(BLOCKS.blocks)
+    n_blocks = len(GRAPHS.blocks)
     with contextlib.redirect_stdout(Tee()):
         _, counts, steps, frames = drive_cli(
             fm, fb, fq, [*base, "--name", "lego_dist", "--iters", "31",
@@ -2641,7 +2708,7 @@ def phase_dist_cli(fm, fb, fq, card: str, tmp: str) -> dict:
                          "--num_processes", "1", "--process_id", "0"])
     wall_s = time.perf_counter() - t0
     printed = out.getvalue()
-    blocks = BLOCKS.blocks[n_blocks:]
+    blocks = GRAPHS.blocks[n_blocks:]
     reasons = {b["eager_reason"] for b in blocks} - {None}
     nccl = (f"eager: {sorted(reasons)}" if reasons else
             f"captured: {sum(b['replayed'] for b in blocks)} steps replayed "
@@ -2930,14 +2997,14 @@ def phase_blocks(fm, fb, fq, card: str) -> dict:
                 tr.add_callback(16, rebake)
             else:
                 tr.add_callback(16, lambda i, t, m: None)
-            n_blocks = len(BLOCKS.blocks)
+            n_blocks = len(GRAPHS.blocks)
             torch.cuda.synchronize()
-            before = BLOCKS.read()
+            before = GRAPHS.read()
             m = tr.run(1, 41)
             torch.cuda.synchronize()
             runs[spc] = (tr, m, {k: v - before[k]
-                                 for k, v in BLOCKS.read().items()},
-                         BLOCKS.blocks[n_blocks:])
+                                 for k, v in GRAPHS.read().items()},
+                         GRAPHS.blocks[n_blocks:])
         (t1, m1, c1, _), (tk, mk, ck, blocks) = runs[1], runs[BLOCK]
         same = m1["loss"] == mk["loss"] and t1.state.step == tk.state.step \
             and t1.state.opt_state.count == tk.state.opt_state.count \
@@ -3052,6 +3119,397 @@ def phase_cli_spc(fm, fb, fq, card: str, tmp: str) -> dict:
     return {"counts": counts, "bitwise": not diffs}
 
 
+# -- phase 13: a frame as one CUDA-graph dispatch ----------------------------
+
+FRAME_ROUNDS = 4              # interleaved rounds of eager and graphed frames
+FRAMES_A_ROUND = 2
+FRAME_KEYS = ("rgb", "rgb_coarse", "acc", "depth")
+
+
+def copies(out: dict) -> dict:
+    return {k: v.clone() for k, v in out.items()}
+
+
+def frame_inputs(r, c2w, key=None, factor: int = 0, **change) -> dict:
+    """The dynamic inputs of a frame of renderer ``r`` (nets, focal,
+    pose, near, far, key, grid), with ``change`` put in their place."""
+    x = {"nets": r._nets, "focal": r.focal / factor if factor else r.focal,
+         "c2w": torch.from_numpy(np.asarray(c2w, np.float32)[:3, :4]),
+         "near": r.near, "far": r.far, "key": r._key if key is None else key,
+         "occupancy": r.occupancy}
+    return {**x, **change}
+
+
+def program_frame(r, c2w, key=None, factor: int = 0, **change):
+    """One frame of renderer ``r`` through its frame programs (as
+    ``render_pose_extras`` renders it), copied out, and its program."""
+    h, w = r.height, r.width
+    if factor:
+        h, w = h // factor, w // factor
+    x = frame_inputs(r, c2w, key, factor, **change)
+    out = r.programs(x["nets"], h, w, x["focal"], x["c2w"], x["near"],
+                     x["far"], r.cfg, device=r.device, take=copies,
+                     ndc=r.ndc, ndc_variant=r.ndc_variant, chunk=r.chunk,
+                     key=x["key"], occupancy=x["occupancy"], mesh=r.mesh)
+    return out, r.programs.programs[-1]
+
+
+def load_frame(prog, r, c2w, key=None, factor: int = 0, **change) -> None:
+    """Copy a frame's inputs into ``prog``'s static buffers."""
+    x = frame_inputs(r, c2w, key, factor, **change)
+    prog.load(x["nets"], x["focal"], x["c2w"], x["near"], x["far"],
+              x["key"], x["occupancy"])
+
+
+def eager_frame(prog, r, c2w, key=None, factor: int = 0, **change) -> dict:
+    """The frame through the program's body run eagerly, from the same
+    static buffers: the reference a replay is held against."""
+    load_frame(prog, r, c2w, key, factor, **change)
+    prog._body()
+    return copies(prog.out)
+
+
+def traced_changes(r) -> dict:
+    """Phase 13a's changes of the scalars and the grid that JAX traces:
+    a new focal, near and far, and the grid's values scaled (its shape
+    kept). A value frozen at capture would replay unchanged."""
+    out = {"focal": {"focal": r.focal * 1.05}, "near": {"near": r.near + 0.3},
+           "far": {"far": r.far - 0.5}}
+    if r.occupancy is not None:
+        g = r.occupancy
+        out["grid"] = {"occupancy": _map_grid(g, lambda v: v * 0.5)}
+    return out
+
+
+def _map_grid(g, fn):
+    """A grid (or each copy of a replicated one) with ``fn`` applied to
+    its values."""
+    from cvnerf_torch.parallel.mesh import Replicated
+    if isinstance(g, Replicated):
+        y = object.__new__(Replicated)
+        y.copies = {d: _map_grid(v, fn) for d, v in g.copies.items()}
+        return y
+    return dataclasses.replace(g, values=fn(g.values))
+
+
+def frame_variants(run: str, run32: str) -> dict:
+    """Phase 13's frame variants: name -> (the run directory and the
+    server's flags, or a mesh, that start the renderer; the launches of
+    one frame)."""
+    from cvnerf_torch.parallel.mesh import make_mesh
+    per = 2 * -(-SERVE_HW * SERVE_HW // CHUNK)                    # 40
+    occ = ["--occupancy_res", str(OCC_RES)]
+    return {
+        "bf16": ((run, []), {"fwd": per}),
+        "fp32": ((run32, []), {"fwd": per}),
+        "int8": ((run, ["--int8"]), {"int8": per}),
+        "merge_trilinear": ((run, ["--occupancy", "merge", *occ]),
+                            {"fwd": per // 2}),
+        "merge_nearest": ((run, ["--occupancy", "merge", "--occ_interp",
+                                 "nearest", *occ]), {"fwd": per // 2}),
+        "full_trilinear": ((run, ["--occupancy", "full", *occ]),
+                           {"fwd": per // 2}),
+        "full_nearest": ((run, ["--occupancy", "full", "--occ_interp",
+                                "nearest", *occ]), {"fwd": per // 2}),
+        "full_term": ((run, ["--occupancy", "full", "--occ_term", "1e-3",
+                             "--serve_coarse", "32", "--serve_fine", "64",
+                             *occ]), {"fwd": per // 2}),
+        "int8_merge": ((run, ["--int8", "--occupancy", "merge", *occ]),
+                       {"int8": per // 2}),
+        "stochastic": ((run, ["--stochastic"]), {"fwd": per}),
+        "two_shards": ((run, make_mesh(devices=["cuda:0", "cuda:0"])),
+                       {"fwd": 2 * per}),
+    }
+
+
+def fp32_copy(run: str, dst: str) -> str:
+    """``run`` copied to ``dst`` with its snapshot saying ``"bf16":
+    false``: the same weights served in fp32."""
+    import shutil
+    shutil.copytree(run, dst)
+    path = os.path.join(dst, "scene.json")
+    with open(path) as fp:
+        geo = json.load(fp)
+    with open(path, "w") as fp:
+        json.dump({**geo, "bf16": False}, fp)
+    return dst
+
+
+def start_renderer(run: str, flags):
+    """The server's renderer with its startup steps, or a renderer over a
+    mesh when ``flags`` is one."""
+    from cvnerf_torch.parallel.mesh import Mesh
+    from cvnerf_torch.serve import NerfRenderer
+    from cvnerf_torch.server import (build_parser, int8_from_args,
+                                     occupancy_from_args, renderer_from_args)
+    if isinstance(flags, Mesh):
+        return NerfRenderer.from_run_dir(run, device="cuda", use_mesh=flags)
+    args = build_parser().parse_args(["--run", run, "--device", "cuda",
+                                      *flags])
+    r = renderer_from_args(args)
+    occupancy_from_args(r, args)
+    int8_from_args(r, args)
+    return r
+
+
+def phase_frame_programs(fm, fb, fq, card: str, variants: dict) -> dict:
+    """13a: every frame variant through its renderer's frame program on
+    the card. A pose's first frame (eager, then the capture), the same pose
+    replayed, another pose (and key) replayed and the same other frame
+    through the body run eagerly: the replays bitwise their eager frames
+    (rgb, rgb_coarse, acc, depth), each frame launching exactly what a
+    frame of the variant launches (40, or 20 through a grid, 80 on two
+    shards) and no plain version. Then a new focal, near, far and (through
+    a grid) the grid's values scaled, one at a time: each a replay,
+    bitwise the body run eagerly on the same buffers, and each frame moved
+    off the first. One capture a program, every later frame a replay;
+    capture seconds and pool bytes. Returns the rows, the renderers phase
+    13b times and the launches of the frames rendered through the
+    programs (the eager references' apart)."""
+    from cvnerf_torch.ops.rng import PRNGKey
+    a, b = pose(0.3), pose(1.9)
+    rows, keep = {}, {}
+    total = {k: 0 for k in MLP_COUNTS}
+    for name, ((run, flags), want) in variants.items():
+        r = start_renderer(run, flags)
+        want = {"fwd": 0, "bwd": 0, "int8": 0, "fwd_plain": 0,
+                "bwd_plain": 0, "int8_plain": 0, **want}
+        key_b = PRNGKey(SEED + 13)
+        counts, outs = [], {}
+        for step, call in (
+                ("first", lambda: program_frame(r, a)),
+                ("replay", lambda: program_frame(r, a)),
+                ("replay_b", lambda: program_frame(r, b, key=key_b)),
+                ("eager_b", lambda: (eager_frame(prog, r, b, key=key_b),
+                                     prog))):
+            torch.cuda.synchronize()
+            reset_counts(fm, fb, fq)
+            outs[step], prog = call()
+            torch.cuda.synchronize()
+            counts.append(read_counts(fm, fb, fq))
+        changes = traced_changes(r)
+        for what, change in changes.items():
+            torch.cuda.synchronize()
+            reset_counts(fm, fb, fq)
+            outs[what], _ = program_frame(r, a, **change)
+            torch.cuda.synchronize()
+            counts.append(read_counts(fm, fb, fq))
+            outs[what + "_eager"] = eager_frame(prog, r, a, **change)
+        pairs = [("first", "replay"), ("replay_b", "eager_b"),
+                 *((w, w + "_eager") for w in changes)]
+        same = {k: all(bool(torch.equal(outs[x][k], outs[y][k]))
+                       for x, y in pairs) for k in FRAME_KEYS}
+        moved = {w: not torch.equal(outs["first"]["rgb"], outs[w]["rgb"])
+                 for w in ("replay_b", *changes)}
+        stats = dict(prog.stats)
+        ok_counts = all(c == want for c in counts)
+        for i, c in enumerate(counts):
+            if i != 3:             # the eager reference's launches apart
+                for k in total:
+                    total[k] += c[k]
+        rows[name] = {"bitwise": same, "moved": moved, "launches": counts[1],
+                      "capture_s": stats["capture_s"],
+                      "pool_bytes": stats["pool_bytes"], "stats": stats}
+        print(f"frame program {name}: replay bitwise its eager frame "
+              f"{same}; another pose, {', '.join(changes)} moved the "
+              f"frame: {moved}; launches a frame (first, replay, replay of "
+              f"another pose, eager, then a replay per change) "
+              f"{[c[k] for c in counts for k in ('fwd', 'int8')]} (expected "
+              f"{want['fwd']} fwd, {want['int8']} int8, plain 0: "
+              f"{ok_counts}); stats {stats}; card: {card}", flush=True)
+        if not (all(same.values()) and all(moved.values()) and ok_counts
+                and stats["captures"] == 1
+                and stats["replays"] == 2 + len(changes)):
+            fail(f"frame program {name}: a replay differs from its eager "
+                 f"frame, an input did not move it, or its launches or "
+                 f"captures are off")
+        if name in ("bf16", "int8", "full_nearest", "merge_trilinear"):
+            keep[name] = r
+        del r, prog, outs
+    return rows, keep, total
+
+
+def frame_split(fn, n: int, frame_ms: float) -> dict | None:
+    """A frame's device time by ``torch.profiler`` over ``n`` frames of
+    ``fn``: the forward kernels, other device work, and the idle share of
+    the median frame ``frame_ms``; None when the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    mlp = other = 0.0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        if "fused_nerf" in e.key:
+            mlp += e.self_device_time_total
+        else:
+            other += e.self_device_time_total
+    busy = (mlp + other) / n / 1e3
+    if busy <= 0:
+        return None
+    return {"kernel_ms": mlp / n / 1e3, "other_device_ms": other / n / 1e3,
+            "idle_ms": frame_ms - busy, "idle_share": 1.0 - busy / frame_ms}
+
+
+def time_program(prog, r, c2w, factor: int = 0) -> dict:
+    """Eager frames (the body without a graph) against replays of
+    ``prog``, FRAME_ROUNDS interleaved rounds of FRAMES_A_ROUND frames
+    each (the order alternating), every frame's inputs copied in: median
+    ms by CUDA events and by wall clock (synced), each frame's split and
+    idle share by the profiler."""
+    def eager():
+        load_frame(prog, r, c2w, factor=factor)
+        prog._body()
+
+    def graph():
+        load_frame(prog, r, c2w, factor=factor)
+        prog.run()
+    fns = {"eager": eager, "graph": graph}
+    ms = {k: [] for k in fns}
+    wall = {k: [] for k in fns}
+    order = list(fns)
+    for rnd in range(FRAME_ROUNDS):
+        for kind in order[rnd % 2:] + order[:rnd % 2]:
+            for _ in range(FRAMES_A_ROUND):
+                torch.cuda.synchronize()
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                ev0.record()
+                fns[kind]()
+                ev1.record()
+                torch.cuda.synchronize()
+                wall[kind].append((time.perf_counter() - t0) * 1e3)
+                ms[kind].append(ev0.elapsed_time(ev1))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    return {"median_ms": med,
+            "median_wall_ms": {k: float(np.median(v))
+                               for k, v in wall.items()},
+            "rounds_ms": ms,
+            "split": {k: frame_split(fns[k], 3, med[k]) for k in fns},
+            "capture_s": prog.stats["capture_s"],
+            "pool_bytes": prog.stats["pool_bytes"]}
+
+
+def phase_frame_timing(card: str, run: str, kept: dict) -> dict:
+    """13b: eager frames against graph replays, timed and profiled, at
+    400x400 and chunk 8192 (the server's shape) for bf16, int8, occupancy
+    ``full`` nearest and ``merge`` trilinear; bf16 at ``factor`` 2 and 4;
+    a 200x200 frame at the CLI's chunk 4096 (the band fixture's validation
+    shape). Then the trilinear and the nearest probe of one chunk's coarse
+    points (8,192 rays x 64) alone, inside a CUDA graph."""
+    from cvnerf_torch.ops.rays import ray_grid
+    from cvnerf_torch.ops.sampling import stratified_samples
+    from cvnerf_torch.render.occupancy import probe_sigma
+    from cvnerf_torch.serve import NerfRenderer
+    c2w = pose(0.7)
+    shapes = {f"{k}_400": (kept[k], 0) for k in ("bf16", "int8",
+                                                  "full_nearest",
+                                                  "merge_trilinear")}
+    shapes["bf16_factor2"] = (kept["bf16"], 2)
+    shapes["bf16_factor4"] = (kept["bf16"], 4)
+    shapes["val_200_chunk4096"] = (NerfRenderer.from_run_dir(
+        run, chunk=4096, device="cuda"), 2)
+    out = {}
+    for name, (r, factor) in shapes.items():
+        program_frame(r, pose(1.3), factor=factor)       # captured, warm
+        _, prog = program_frame(r, pose(1.1), factor=factor)
+        row = out[name] = time_program(prog, r, c2w, factor)
+        sp = {k: [round(v, 3) for v in d.values()] if d else None
+              for k, d in row["split"].items()}
+        print(f"frame timing {name} ({prog.height}x{prog.width}, chunk "
+              f"{prog.chunk}): median ms by CUDA events eager "
+              f"{row['median_ms']['eager']:.3f}, graph "
+              f"{row['median_ms']['graph']:.3f} (wall "
+              f"{row['median_wall_ms']['eager']:.3f} / "
+              f"{row['median_wall_ms']['graph']:.3f}); split ms (forward "
+              f"kernels, other device, idle, idle share) eager "
+              f"{sp['eager']}, graph {sp['graph']}; capture "
+              f"{row['capture_s']:.3f} s, pool {row['pool_bytes']} B; card: "
+              f"{card}", flush=True)
+    r = kept["merge_trilinear"]
+    rays_o, rays_d = (x.reshape(-1, 3)[:CHUNK] for x in ray_grid(
+        SERVE_HW, SERVE_HW, r.focal, pose_on_card(c2w)))
+    t = stratified_samples(r.near, r.far, r.cfg.n_coarse, CHUNK, False,
+                           device="cuda")
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]
+    probe = {interp: device_ms(lambda i=interp: probe_sigma(r.occupancy,
+                                                            pts, i), n=20)
+             for interp in ("trilinear", "nearest")}
+    out["probe_ms_a_chunk"] = probe
+    print(f"frame timing: the occupancy probe of one chunk's coarse points "
+          f"({CHUNK} x {r.cfg.n_coarse}) inside a CUDA graph: trilinear "
+          f"{probe['trilinear']:.4f} ms, nearest {probe['nearest']:.4f} ms; "
+          f"card: {card}", flush=True)
+    return out
+
+
+def phase_frame_sequence(fm, fb, fq, card: str, r) -> dict:
+    """13c: three poses through ``render_video`` (one frame in flight,
+    each copied out before the next replay) against three
+    ``render_pose`` calls, bitwise; every frame 40 launches."""
+    poses = [pose(0.3), pose(1.1), pose(2.5)]
+    torch.cuda.synchronize()
+    reset_counts(fm, fb, fq)
+    video = r.render_video(np.stack(poses))
+    torch.cuda.synchronize()
+    counts = read_counts(fm, fb, fq)
+    singles = [r.render_pose(p) for p in poses]
+    same = all(np.array_equal(v, s) for v, s in zip(video, singles))
+    distinct = not np.array_equal(video[0], video[1])
+    want = 3 * 2 * -(-SERVE_HW * SERVE_HW // CHUNK)
+    print(f"frame sequence: render_video of 3 poses bitwise 3 render_pose "
+          f"calls: {same} (frames distinct: {distinct}); launches {counts} "
+          f"(expected fwd {want}); card: {card}", flush=True)
+    if not (same and distinct and counts["fwd"] == want
+            and counts["fwd_plain"] == 0):
+        fail("render_video lost or changed a frame")
+    return {"bitwise": same, "counts": counts}
+
+
+def phase_cli_validation(card: str, tmp: str, programs: dict) -> dict:
+    """13d: phase 7's uninterrupted CLI run (60 steps, validation at 30 and
+    60, the test eval): its frames went through one captured program (one
+    capture, every other frame a replay), and each validation PSNR it
+    logged equals the same views scored from the step's checkpoint through
+    frames rendered eagerly (the program's body without a graph)."""
+    from cvnerf_torch.data.datasets import load_scene
+    from cvnerf_torch.serve import NerfRenderer
+    from cvnerf_torch.utils.image import psnr_images
+    run_a = os.path.join(tmp, "cli_logs", "lego_a")
+    with open(os.path.join(run_a, "metrics.jsonl")) as fp:
+        logged = {r["step"]: r["val_psnr"] for r in map(json.loads, fp)
+                  if "val_psnr" in r}
+    scene = load_scene(os.path.join(tmp, "lego_fixture"), "blender",
+                       half_res=True, testskip=1, white_bkg=True)
+    views = np.asarray(scene.val_idx)[:4]
+    eager = {}
+    for step in (30, 60):
+        r = NerfRenderer.from_run_dir(run_a, step=step, which="last",
+                                      chunk=4096, device="cuda")
+        _, prog = program_frame(r, scene.poses[int(views[0])])
+        eager[step] = float(np.mean([
+            psnr_images(eager_frame(prog, r, scene.poses[int(i)])["rgb"]
+                        .cpu().numpy(), scene.images[int(i)])
+            for i in views]))
+    equal = logged == eager
+    # 2 validation frames at 30, 2 at 60, 2 test frames: the first eager
+    # and captured, 5 replays.
+    one = programs == {"captures": 1, "replays": 5, "eager_frames": 1}
+    print(f"cli validation: the uninterrupted run's frames through frame "
+          f"programs {programs} (one capture, the rest replays: {one}); "
+          f"val psnr logged {logged}, scored eagerly from the checkpoints "
+          f"{eager}: equal {equal}; card: {card}", flush=True)
+    if not (equal and one):
+        fail("cli validation: the frames did not replay one program, or "
+             "their psnr differs from eager scoring")
+    return {"programs": programs, "val_psnr": logged, "equal": equal}
+
+
 def check_png_or_ppm(body: bytes, ctype: str, h: int, w: int) -> None:
     if ctype == "image/png":
         if body[:8] != b"\x89PNG\r\n\x1a\n":
@@ -3091,6 +3549,12 @@ def pose(theta: float, radius: float = 4.0) -> np.ndarray:
     return np.stack([right, up, -fwd, cam], axis=1).astype(np.float32)
 
 
+def pose_on_card(c2w) -> torch.Tensor:
+    """A ``[3+, 4]`` pose as a ``[3, 4]`` float32 tensor on the card."""
+    return torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4],
+                           device="cuda")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3107,10 +3571,10 @@ def main() -> int:
     from cvnerf_torch.render.renderer import RenderConfig
     from cvnerf_torch.server import build_parser, make_server, renderer_from_args
 
-    global BLOCKS
+    global GRAPHS
     from cvnerf_torch.ops import threefry as tf
-    BLOCKS = Blocks(all_counters(fm, fb, fq))
-    BLOCKS.install()
+    GRAPHS = Graphs(all_counters(fm, fb, fq))
+    GRAPHS.install()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
@@ -3280,15 +3744,26 @@ def main() -> int:
         dist_cli = phase_dist_cli(fm, fb, fq, card, tmp)
         # -- 12d. phase 7's run at --steps_per_call 1 against 10 ----------
         cli_spc = phase_cli_spc(fm, fb, fq, card, tmp)
+        # -- 13a. every frame variant replayed against its eager frame ----
+        run32 = fp32_copy(run_a, os.path.join(tmp, "lego_a_fp32"))
+        frame_rows, kept, frame_counts = phase_frame_programs(
+            fm, fb, fq, card, frame_variants(run_a, run32))
+        # -- 13b. eager frames against replays, timed and profiled --------
+        frame_timing = phase_frame_timing(card, run_a, kept)
+        # -- 13c. a pose sequence against single frames -------------------
+        frame_seq = phase_frame_sequence(fm, fb, fq, card, kept["bf16"])
+        del kept
+        # -- 13d. the CLI's validations through one program ---------------
+        cli_val = phase_cli_validation(card, tmp, cli["frame_programs"])
     # -- 12b. blocks of captured steps against single steps (main path) --
     blocks = phase_blocks(fm, fb, fq, card)
     # -- 12c. blocks against single steps, timed -------------------------
     block_timing = phase_block_timing(fm, fb, fq, card)
     late = [levers["counts"], lever_cli["counts"], band["counts"],
             occ_cli["counts"], shards["counts"], dist_cli["counts"],
-            cli_spc["counts"], *({k: v[k] for k in MLP_COUNTS}
-                                 for v in (b["counts"]
-                                           for b in blocks.values()))]
+            cli_spc["counts"], frame_counts, frame_seq["counts"],
+            *({k: v[k] for k in MLP_COUNTS}
+              for v in (b["counts"] for b in blocks.values()))]
     sharded = {"shards": {k: v for k, v in shards.items() if k != "counts"},
                "dist_cli": {k: v for k, v in dist_cli.items()
                             if k != "counts"}}
@@ -3327,6 +3802,10 @@ def main() -> int:
             "mesh": {k: v for k, v in mesh.items() if k != "counts"},
             "lpips": lpips},
         "parallel": sharded,
+        "frames": {"programs": frame_rows, "timing": frame_timing,
+                   "sequence": {k: v for k, v in frame_seq.items()
+                                if k != "counts"},
+                   "cli_validation": cli_val},
         "note": "ms/plain_ms/bound_ms at the fine-pass chunk "
                 f"(n={CHUNK * 192}, bf16: fused_nerf_wgmma); fp32 (the "
                 "--no-bf16 path, fused_nerf_ffma) at the same chunk, its "
@@ -3339,7 +3818,12 @@ def main() -> int:
                 "through the CLI, the mesh grid), whose numbers stand under "
                 "occupancy, and phase 11's (a two-shard mesh's steps and "
                 "frames, a one-rank NCCL world through the CLI), whose "
-                "numbers stand under parallel; no single PyTorch call "
+                "numbers stand under parallel, and phase 13's program "
+                "frames (13a's, not its eager references; 13c's); frames: "
+                "phase 13 (each frame variant's program replayed against "
+                "its eager frame, eager frames against replays timed and "
+                "profiled, a pose sequence, the CLI's validations); no "
+                "single PyTorch call "
                 "computes this function, so library_ms is null",
     }, {
         "name": "fused_nerf_bwd", "route": "cuda",
@@ -3384,7 +3868,7 @@ def main() -> int:
         "replaces": "cvnerf_tpu/ops/pallas/fused_mlp_int8.py:268",
         "launches": (int8_counts["int8"] + cli["counts"]["int8"]
                      + occ_serve["counts"]["int8"]
-                     + shards["counts"]["int8"]),
+                     + shards["counts"]["int8"] + frame_counts["int8"]),
         "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
         "ms": int8_rows[-1]["ms"], "plain_ms": int8_rows[-1]["plain_ms"],
         "bound_ms": int8_rows[-1]["bound_ms"],
@@ -3393,8 +3877,9 @@ def main() -> int:
         "shapes": int8_rows,
         "note": f"ms/plain_ms/bound_ms at the fine-pass chunk (n={CHUNK * 192}"
                 "), real head scales; launches include phase 10c's "
-                "(--int8 --occupancy merge frames) and phase 11a's (a "
-                "sharded int8 frame); the bound counts "
+                "(--int8 --occupancy merge frames), phase 11a's (a "
+                "sharded int8 frame) and phase 13a's program frames; the "
+                "bound counts "
                 "1,186,816 int8 "
                 "operations a point at 1,979 TOPS; no single PyTorch call "
                 "computes this function, so library_ms is null; yardstick "

@@ -11,6 +11,7 @@ the CPU, and raise when CUDA is missing — there is no silent CPU fallback.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,3 +24,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "CUDA is not available: cvnerf_torch entry points default to "
             "device='cuda'; pass device='cpu' explicitly to run on the CPU")
     return dev
+
+
+def staged(values: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, copied through pinned memory
+    without making the host wait for the device's queue."""
+    t = torch.from_numpy(np.ascontiguousarray(values))
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -249,7 +249,7 @@ def _run(args, dev, run_dir: str) -> dict:
     from cvnerf_torch.ops.fused_mlp import FusedNerfWeights
     from cvnerf_torch.ops.rng import PRNGKey
     from cvnerf_torch.parallel.mesh import make_mesh
-    from cvnerf_torch.render.frames import (render_image,
+    from cvnerf_torch.render.frames import (FramePrograms,
                                             render_poses_to_frames)
     from cvnerf_torch.render.occupancy import (bake_scene_occupancy,
                                                occupied_fraction)
@@ -436,6 +436,9 @@ def _run(args, dev, run_dir: str) -> dict:
     frame_mesh = mesh if mesh.size > 1 else None
 
     render_chunk = args.chunk
+    # The run's frame programs: validation, test and spiral frames of one
+    # shape replay one captured program, whatever weights they render.
+    programs = FramePrograms()
 
     def spiral_video(step: int, nets: dict, occupancy=None) -> np.ndarray:
         frame_dir = os.path.join(save_dir, f"spiral_{step:06d}")
@@ -451,7 +454,7 @@ def _run(args, dev, run_dir: str) -> dict:
             factor=args.render_factor,
             on_frame=on_frame if writer else None, frame_keys=keys,
             device=dev, key=PRNGKey(args.seed + 1), occupancy=occupancy,
-            mesh=frame_mesh)
+            mesh=frame_mesh, programs=programs)
         frames = out_frames if not args.render_depth else out_frames["rgb"]
         if not writer:
             return frames
@@ -518,13 +521,14 @@ def _run(args, dev, run_dir: str) -> dict:
         ssim, first rgb, lpips)."""
         psnrs, ssims, lps, rgb0 = [], [], [], None
         for i in views:
-            out = render_image(
+            rgb = programs(
                 nets, scene.height, scene.width, scene.focal,
-                torch.as_tensor(scene.poses[int(i)], device=dev), scene.near,
-                scene.far, rcfg_test, ndc=scene.ndc,
+                torch.as_tensor(scene.poses[int(i)]), scene.near, scene.far,
+                rcfg_test, device=dev,
+                take=lambda out: out["rgb"].to("cpu", copy=True).numpy(),
+                ndc=scene.ndc,
                 ndc_variant=args.ndc_variant, chunk=render_chunk,
                 key=PRNGKey(key_seed), occupancy=occupancy, mesh=frame_mesh)
-            rgb = out["rgb"].cpu().numpy()
             rgb0 = rgb if rgb0 is None else rgb0
             psnrs.append(psnr_images(rgb, scene.images[int(i)]))
             ssims.append(ssim_images(rgb, scene.images[int(i)]))

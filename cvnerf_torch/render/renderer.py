@@ -8,7 +8,12 @@ Random draws are keyed by ``(key, tag, global ray id)`` through
 jitter, 2 the resample (sorted uniforms, or iid then sorted), 3 and 4 the
 coarse and fine density noise. A render is therefore independent of the
 chunk size. ``render_rays`` is differentiable in the params (training);
-``render_rays_chunked`` renders frames without a graph. A net given as
+``render_rays_chunked`` is a frame's chunk loop, the JAX ``lax.map``
+(``render/frames.py`` runs it inside a frame program, captured in one CUDA
+graph on a card). Near and far may be Python floats, ``[n_rays]`` tensors
+or 0-d tensors on the rays' device: a frame program passes 0-d tensors,
+so that a captured frame reads them from device memory and nothing
+renders from a value frozen at capture. A net given as
 int8 params (``QuantizedNerfParams``, or its packed
 ``QuantizedNerfWeights``) is queried through the int8 path and ignores
 ``compute_dtype``, as in the JAX package. With a baked occupancy grid
@@ -288,14 +293,15 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
 @torch.no_grad()
 def render_rays_chunked(params: dict, rays_o: torch.Tensor,
                         rays_d: torch.Tensor, viewdirs: torch.Tensor,
-                        near: float, far: float, cfg: RenderConfig,
+                        near, far, cfg: RenderConfig,
                         chunk: int = 4096,
                         key: torch.Tensor | None = None,
                         occupancy=None, mesh: Mesh | None = None) -> dict:
     """Memory-bounded render of a flat ray batch: a Python loop over
     ``chunk``-ray slices. The rays are padded with zero rays to a chunk
     multiple, as the JAX ``lax.map`` does, and the padding is dropped on
-    return, so every chunk has the same shape. Each chunk keys its draws
+    return, so every chunk has the same shape. ``near`` and ``far`` are
+    floats or 0-d tensors on the rays' device. Each chunk keys its draws
     by its rays' global ids, so the result does not depend on ``chunk``.
     ``occupancy`` is a baked grid every chunk renders through. With
     ``mesh``, each chunk's rays split into ``mesh.size`` contiguous shards

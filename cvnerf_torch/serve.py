@@ -20,10 +20,13 @@ Serving renders in eval mode with the evenly spaced inverse-CDF resample by
 default, so a pose always renders the same image; ``deterministic=False``
 resamples stochastically with ``PRNGKey(seed)``, as the JAX package's
 ``--stochastic`` serving does. The weights are packed for the fused kernel
-once, here, and reused by every render. ``enable_int8`` quantizes both nets
-and serves through the int8 kernel from then on; ``enable_occupancy`` bakes
-an occupancy grid (``render/occupancy.py``, through the forward kernel) and
-serves through its probe instead of the coarse net. Both read the float
+once, here, and reused by every render; each frame replays a captured
+frame program (``render/frames.py``) of the renderer's own cache on the
+card, and runs the same body eagerly on the CPU. ``enable_int8``
+quantizes both nets and serves through the int8 kernel from then on (a
+program of its own); ``enable_occupancy`` bakes an occupancy grid
+(``render/occupancy.py``, through the forward kernel) and serves through
+its probe instead of the coarse net. Both read the float
 master copy, so they compose in either order. With ``use_mesh`` (the
 default) a host with several cards, or a process group with several
 ranks, splits each chunk's rays over a ``'rays'`` mesh
@@ -47,7 +50,7 @@ from cvnerf_torch.ops.fused_mlp import FusedNerfWeights
 from cvnerf_torch.ops.fused_mlp_int8 import QuantizedNerfWeights
 from cvnerf_torch.ops.quantize import (calibration_samples, quantize_nerf,
                                        ray_calibration_samples)
-from cvnerf_torch.render.frames import render_image, render_poses_to_frames
+from cvnerf_torch.render.frames import FramePrograms, render_poses_to_frames
 from cvnerf_torch.render.occupancy import (bake_scene_occupancy,
                                           occupied_fraction, scene_bbox)
 from cvnerf_torch.ops.rng import PRNGKey
@@ -204,6 +207,8 @@ class NerfRenderer:
         self.ndc, self.ndc_variant = ndc, ndc_variant
         self.chunk = chunk
         self._key = PRNGKey(seed)
+        # The renderer's frame programs: one a frame shape and net kind.
+        self.programs = FramePrograms()
 
         params, found, step = load_torch_checkpoint(ckpt_path)
         if found != self.cfg.mlp:
@@ -432,10 +437,6 @@ class NerfRenderer:
                             compute_dtype=self.cfg.compute_dtype, keep=keep,
                             kernels=self.cfg.kernels, timings=timings)
 
-    def _pose(self, c2w) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4],
-                               device=self.device)
-
     def render_pose(self, c2w, factor: int = 0) -> np.ndarray:
         """Render one ``[H, W, 3]`` view from a ``[3+, 4]`` c2w pose."""
         return self.render_pose_extras(c2w, factor, keys=("rgb",))["rgb"]
@@ -448,12 +449,14 @@ class NerfRenderer:
         h, w, f = self.height, self.width, self.focal
         if factor:
             h, w, f = h // factor, w // factor, f / factor
-        out = render_image(self._nets, h, w, f, self._pose(c2w), self.near,
-                           self.far, self.cfg, ndc=self.ndc,
-                           ndc_variant=self.ndc_variant, chunk=self.chunk,
-                           key=self._key, occupancy=self.occupancy,
-                           mesh=self.mesh)
-        return {k: out[k].cpu().numpy() for k in keys}
+        c2w = torch.from_numpy(np.asarray(c2w, np.float32)[:3, :4])
+        return self.programs(
+            self._nets, h, w, f, c2w, self.near, self.far, self.cfg,
+            device=self.device,
+            take=lambda out: {k: out[k].to("cpu", copy=True).numpy()
+                              for k in keys},
+            ndc=self.ndc, ndc_variant=self.ndc_variant, chunk=self.chunk,
+            key=self._key, occupancy=self.occupancy, mesh=self.mesh)
 
     def render_video(self, poses, factor: int = 0, on_frame=None,
                      collect: bool = True) -> np.ndarray | None:
@@ -464,7 +467,8 @@ class NerfRenderer:
             self.near, self.far, self.cfg, ndc=self.ndc,
             ndc_variant=self.ndc_variant, chunk=self.chunk, factor=factor,
             on_frame=on_frame, collect=collect, device=self.device,
-            key=self._key, occupancy=self.occupancy, mesh=self.mesh)
+            key=self._key, occupancy=self.occupancy, mesh=self.mesh,
+            programs=self.programs)
 
     def render_poses_extras(self, poses, factor: int = 0,
                             keys: tuple[str, ...] = ("rgb",)) -> dict:
@@ -475,5 +479,5 @@ class NerfRenderer:
             self.near, self.far, self.cfg, ndc=self.ndc,
             ndc_variant=self.ndc_variant, chunk=self.chunk, factor=factor,
             frame_keys=tuple(keys), device=self.device, key=self._key,
-            occupancy=self.occupancy, mesh=self.mesh)
+            occupancy=self.occupancy, mesh=self.mesh, programs=self.programs)
         return {"rgb": out} if tuple(keys) == ("rgb",) else out

@@ -79,6 +79,9 @@ class DeviceQueue:
 
     One worker thread owns the device; HTTP handler threads only queue
     and wait. ``/health`` never touches the queue (lock-free liveness).
+    Every frame the worker renders replays one of the renderer's frame
+    programs (``render/frames.py``): the worker is the only thread that
+    renders, so one set of static buffers a program is safe.
     """
 
     def __init__(self, renderer: NerfRenderer, maxsize: int = 64,

@@ -69,6 +69,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from cvnerf_torch import staged
 from cvnerf_torch.models.nerf_mlp import anneal_model_params
 from cvnerf_torch.ops.compositing import distortion_loss, occlusion_loss
 from cvnerf_torch.ops.rays import (ndc_rays, rays_for_pixels,
@@ -84,6 +85,7 @@ from cvnerf_torch.render.renderer import RenderConfig, render_rays
 from cvnerf_torch.train.state import (Adam, AdamState, TrainState,
                                       clone_tree, ema_update, make_optimizer,
                                       tree_leaves)
+from cvnerf_torch.utils.graphs import GraphProgram
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,15 +167,6 @@ def _sample_pixels(key: torch.Tensor, cfg: TrainConfig, precrop: bool,
     else:
         flat = randint(key, (cfg.n_rays,), 0, gh * gw).to(torch.int64)
     return y0 + flat // gw, x0 + flat % gw
-
-
-def staged(values: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array as a tensor on ``device``, copied through pinned memory
-    without making the host wait for the device's queue."""
-    t = torch.from_numpy(np.ascontiguousarray(values))
-    if device.type == "cpu":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def global_norm(tree: dict) -> torch.Tensor:
@@ -450,7 +443,7 @@ def _graph_sig(home: torch.device, occupancy, images, poses,
         *(_grid_tensors(occupancy) if occupancy is not None else [])))
 
 
-class _Block:
+class _Block(GraphProgram):
     """The program of ``make_train_scan``: static buffers for the state,
     the block's per-step tables and, on a card, one CUDA graph per
     ``precrop`` variant (see ``make_train_scan``)."""
@@ -459,12 +452,12 @@ class _Block:
                  with_occupancy: bool):
         if block < 1:
             raise ValueError(f"block={block} must be positive")
+        super().__init__("make_train_scan",
+                         f"each block runs as {block} eager steps",
+                         replayed_steps=0, eager_steps=0)
         self.cfg, self.block, self.mesh = cfg, block, mesh
         self.core = _build_step_core(cfg, mesh, with_occupancy)
         self.opt = make_optimizer(cfg.lr, cfg.lr_decay)
-        self.stats = {"captures": 0, "replayed_steps": 0, "eager_steps": 0,
-                      "capture_s": 0.0, "pool_bytes": 0}
-        self.eager_reason: str | None = None
         self._bufs: dict | None = None
         self._graphs: dict = {}
 
@@ -520,14 +513,6 @@ class _Block:
             idx.add_(1)
         return metrics
 
-    def _eager(self, reason: str) -> None:
-        """Run this scan's blocks as eager steps from now on, and say so
-        once."""
-        if self.eager_reason is None:
-            self.eager_reason = reason
-            print(f"make_train_scan: {reason}: each block runs as "
-                  f"{self.block} eager steps", flush=True)
-
     def _graph(self, occupancy, images, poses, train_idx, precrop: bool):
         """The graph of this variant, captured on first use (and again when
         the data or the grid is another tensor or another shape)."""
@@ -540,28 +525,15 @@ class _Block:
         got = self._graphs.get(precrop)
         if got is not None and got[0] == sig:
             return got[1], got[2]
-        t0 = time.perf_counter()
-        # Eager warm-up on a side stream (builds the kernels, cuBLAS's
-        # handles, the NCCL communicator), as torch.cuda.graphs asks.
-        side = torch.cuda.Stream(device=home)
-        side.wait_stream(torch.cuda.current_stream(home))
-        with torch.cuda.stream(side):
-            self._body(occupancy, images, poses, train_idx, precrop,
-                       write=False)
-        torch.cuda.current_stream(home).wait_stream(side)
-        torch.cuda.synchronize(home)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(home)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(home), torch.cuda.graph(graph):
-            metrics = self._body(occupancy, images, poses, train_idx,
-                                 precrop)
-        self.stats["captures"] += 1
-        self.stats["capture_s"] += time.perf_counter() - t0
-        self.stats["pool_bytes"] += (torch.cuda.memory_reserved(home)
-                                     - reserved)
-        self._graphs[precrop] = (sig, graph, metrics)
-        return graph, metrics
+        captured = self._capture(
+            home, self.mesh, "all-reduce",
+            lambda: self._body(occupancy, images, poses, train_idx, precrop),
+            lambda: self._body(occupancy, images, poses, train_idx, precrop,
+                               write=False))
+        if captured is None:
+            return None
+        self._graphs[precrop] = (sig, *captured)
+        return captured
 
     def __call__(self, state: TrainState, occupancy, base_key, images,
                  poses, train_idx, start: int, precrop: bool):
@@ -575,25 +547,16 @@ class _Block:
                                           dtype=np.int64), home))
         b["key"].copy_(key_on(base_key, home))
         b["counter"].zero_()
-        if (home.type == "cuda" and self.mesh is not None
-                and len(set(self.mesh.devices)) > 1):
-            self._eager("several cards in one process")
-        graphed = home.type == "cuda" and self.eager_reason is None
-        if graphed:
-            try:
-                graph, out = self._graph(occupancy, images, poses,
-                                         train_idx, precrop)
-            except RuntimeError as err:
-                if self.mesh is None or not self.mesh.distributed:
-                    raise
-                # NCCL's graph support refused the all-reduce.
-                self._eager("the all-reduce was not captured ("
-                            f"{str(err).splitlines()[0]})")
+        self._check_cards(home, self.mesh)
+        captured = None
+        if home.type == "cuda" and self.eager_reason is None:
+            captured = self._graph(occupancy, images, poses, train_idx,
+                                   precrop)
+            if captured is None:
                 b["counter"].zero_()
-                graphed = False
-        if graphed:
-            for _ in range(self.block):
-                graph.replay()
+        if captured is not None:
+            graph, out = captured
+            self._replay(graph, self.block)
             metrics = {k: v.clone() for k, v in out.items()}
             self.stats["replayed_steps"] += self.block
         else:
