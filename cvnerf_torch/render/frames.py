@@ -52,6 +52,7 @@ from cvnerf_torch.ops.rng import key_on, split
 from cvnerf_torch.parallel.mesh import Mesh, Replicated, to_device
 from cvnerf_torch.parallel.mesh import _norm as _device
 from cvnerf_torch.render.renderer import RenderConfig, render_rays_chunked
+from cvnerf_torch.utils import tracing
 from cvnerf_torch.utils.graphs import GraphProgram
 
 # Programs a cache holds; the least recently used beyond it is dropped
@@ -177,19 +178,23 @@ class FrameProgram(GraphProgram):
 
     def run(self) -> dict[str, torch.Tensor]:
         """Render the loaded frame into the static outputs and return them
-        (the next frame overwrites them)."""
+        (the next frame overwrites them); spans ``frame.eager``,
+        ``frame.capture`` or ``frame.replay``."""
         if self.device.type != "cuda" or self.eager_reason is not None:
-            self._body()
+            with tracing.span("frame.eager"):
+                self._body()
             self.stats["eager_frames"] += 1
         elif self.graph is None:
             # The warm-up renders this frame; its capture, the next ones.
-            captured = self._capture(self.device, self.mesh, "all_gather",
-                                     self._body)
+            with tracing.span("frame.capture"):
+                captured = self._capture(self.device, self.mesh,
+                                         "all_gather", self._body)
             self.stats["eager_frames"] += 1
             if captured is not None:
                 self.graph = captured[0]
         else:
-            self._replay(self.graph)
+            with tracing.span("frame.replay"):
+                self._replay(self.graph)
             self.stats["replays"] += 1
         return self.out
 
@@ -206,11 +211,16 @@ class FramePrograms:
     counterpart of ``jax.jit``'s cache of ``render_image``. One lock
     serializes frames: a program's static buffers hold one frame at a
     time. ``NerfRenderer`` and the CLI each hold one; ``render_image``
-    renders through one of this module's."""
+    renders through one of this module's. ``stats`` counts ``evictions``
+    (a program dropped; its shape captures again when it comes back).
+    With ``utils.tracing`` on, each frame is a ``frame`` span holding
+    ``frame.lock`` (the wait for the lock), ``frame.load``, the program's
+    run and ``frame.take``."""
 
     def __init__(self):
         self._programs: collections.OrderedDict = collections.OrderedDict()
         self._lock = threading.Lock()
+        self.stats = {"evictions": 0}
 
     @property
     def programs(self) -> list[FrameProgram]:
@@ -237,17 +247,26 @@ class FramePrograms:
             nets, occupancy = to_device(nets, dev), to_device(occupancy, dev)
         sig = (dev, height, width, cfg, ndc, ndc_variant, chunk, mesh,
                _kind(nets), _kind(occupancy), key is not None)
-        with self._lock:
-            prog = self._programs.pop(sig, None)
-            if prog is None:
-                while len(self._programs) >= MAX_PROGRAMS:
-                    self._programs.popitem(last=False)[1].close()
-                prog = FrameProgram(dev, height, width, cfg, ndc,
-                                    ndc_variant, chunk, mesh, nets,
-                                    occupancy, key is not None)
-            self._programs[sig] = prog
-            prog.load(nets, focal, c2w, near, far, key, occupancy)
-            return take(prog.run())
+        with tracing.span("frame"):
+            with tracing.span("frame.lock"):
+                self._lock.acquire()
+            try:
+                prog = self._programs.pop(sig, None)
+                if prog is None:
+                    while len(self._programs) >= MAX_PROGRAMS:
+                        self._programs.popitem(last=False)[1].close()
+                        self.stats["evictions"] += 1
+                    prog = FrameProgram(dev, height, width, cfg, ndc,
+                                        ndc_variant, chunk, mesh, nets,
+                                        occupancy, key is not None)
+                self._programs[sig] = prog
+                with tracing.span("frame.load"):
+                    prog.load(nets, focal, c2w, near, far, key, occupancy)
+                out = prog.run()
+                with tracing.span("frame.take"):
+                    return take(out)
+            finally:
+                self._lock.release()
 
 
 _PROGRAMS = FramePrograms()
@@ -383,10 +402,12 @@ def render_poses_to_frames(params: dict, poses, height: int, width: int,
         return host, done
 
     def drain(entry):
+        """Frame ``i`` handed over once on the host (``frame.land``)."""
         i, (host, done) = entry
-        if done is not None:
-            done.synchronize()
-        vals = {k: v.numpy() for k, v in host.items()}
+        with tracing.span("frame.land", index=i):
+            if done is not None:
+                done.synchronize()
+            vals = {k: v.numpy() for k, v in host.items()}
         if collect:
             frames[i] = vals
         if on_frame is not None:

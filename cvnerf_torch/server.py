@@ -44,6 +44,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from cvnerf_torch.serve import NerfRenderer
+from cvnerf_torch.utils import tracing
 from cvnerf_torch.utils.image import to_byte
 
 
@@ -82,6 +83,16 @@ class DeviceQueue:
     Every frame the worker renders replays one of the renderer's frame
     programs (``render/frames.py``): the worker is the only thread that
     renders, so one set of static buffers a program is safe.
+
+    ``stats`` counts jobs admitted, refused by a full queue
+    (``rejected_full``), given up by their waiters (``timed_out``) and
+    failed by the renderer, and the worker's render calls (``batches``),
+    frames and abandoned jobs it skipped; :meth:`read_stats` copies it
+    under the queue's lock. With ``utils.tracing`` on, the worker records
+    each job's ``queue.wait`` (appended to popped) and ``queue.hold``
+    (its frame on the host to its waiter woken), each render call as
+    ``queue.batch`` (its jobs' ``request`` ids in order) and its waits on
+    an empty queue as ``queue.idle``.
     """
 
     def __init__(self, renderer: NerfRenderer, maxsize: int = 64,
@@ -92,6 +103,9 @@ class DeviceQueue:
         self._dq: collections.deque = collections.deque()
         self._cv = threading.Condition()
         self._closed = False
+        self.stats = {"admitted": 0, "rejected_full": 0, "timed_out": 0,
+                      "failed": 0, "batches": 0, "frames": 0,
+                      "abandoned_skipped": 0}
         self._worker_thread = threading.Thread(
             target=self._worker, daemon=True, name="cvnerf-torch-device-queue")
         self._worker_thread.start()
@@ -115,12 +129,13 @@ class DeviceQueue:
 
     # -- client side ------------------------------------------------------
     def submit_async(self, c2w, factor: int, keys: tuple[str, ...],
-                     block: bool = False,
-                     timeout: float | None = None) -> dict:
+                     block: bool = False, timeout: float | None = None,
+                     request: int | None = None) -> dict:
+        """Queue one frame; ``request`` is the id the job's spans carry."""
         job = {"c2w": np.asarray(c2w, np.float32)[:3, :4],
                "factor": int(factor), "keys": tuple(keys),
                "ev": threading.Event(), "out": None, "err": None,
-               "abandoned": False}
+               "abandoned": False, "request": request}
         # Absolute deadline: cv.wait wakes on EVERY notify_all (each freed
         # slot wakes all blocked senders), so re-waiting with the full
         # timeout would let a loser of the re-check race block unboundedly.
@@ -131,21 +146,27 @@ class DeviceQueue:
                 if self._closed:
                     raise RenderTimeoutError("device queue closed")
                 if not block:
+                    self.stats["rejected_full"] += 1
                     raise QueueFullError(
                         f"device queue full ({self.maxsize} jobs)")
                 remaining = (None if deadline is None
                              else deadline - time.monotonic())
                 if remaining is not None and remaining <= 0:
+                    self.stats["timed_out"] += 1
                     raise RenderTimeoutError(
                         "timed out waiting for queue space")
                 self._cv.wait(timeout=remaining)
+            job["queued_ns"] = tracing.now()
             self._dq.append(job)
+            self.stats["admitted"] += 1
             self._cv.notify_all()
         return job
 
     def wait(self, job: dict, timeout: float | None = None) -> dict:
         if not job["ev"].wait(timeout):
             job["abandoned"] = True
+            with self._cv:
+                self.stats["timed_out"] += 1
             raise RenderTimeoutError("render not served within deadline")
         if job["err"] is not None:
             raise job["err"]
@@ -153,13 +174,21 @@ class DeviceQueue:
 
     def render(self, c2w, factor: int = 0,
                keys: tuple[str, ...] = ("rgb",),
-               timeout: float | None = None) -> dict:
-        return self.wait(self.submit_async(c2w, factor, keys), timeout)
+               timeout: float | None = None,
+               request: int | None = None) -> dict:
+        return self.wait(self.submit_async(c2w, factor, keys,
+                                           request=request), timeout)
 
     @property
     def depth(self) -> int:
         with self._cv:
             return len(self._dq)
+
+    def read_stats(self) -> dict:
+        """A copy of ``stats`` taken under the queue's lock; it never
+        waits on device work."""
+        with self._cv:
+            return dict(self.stats)
 
     # -- device side ------------------------------------------------------
     @staticmethod
@@ -169,35 +198,64 @@ class DeviceQueue:
     def _worker(self) -> None:
         while True:
             with self._cv:
+                idle = tracing.now() if not self._dq else 0
                 while not self._dq and not self._closed:
                     self._cv.wait()
                 if self._closed:
                     return
+                popped = tracing.now()
+                tracing.record("queue.idle", idle, popped)
                 batch = [self._dq.popleft()]
                 while (self._dq and len(batch) < self.batch_max
                        and self._compatible(self._dq[0], batch[0])):
                     batch.append(self._dq.popleft())
+                n = len(batch)
+                batch = [j for j in batch if not j["abandoned"]]
+                self.stats["abandoned_skipped"] += n - len(batch)
+                if batch:
+                    self.stats["batches"] += 1
+                    self.stats["frames"] += len(batch)
                 self._cv.notify_all()   # space freed: wake blocked senders
-            batch = [j for j in batch if not j["abandoned"]]
+            for j in batch:
+                tracing.record("queue.wait", j["queued_ns"], popped,
+                               parent=j["request"], request=j["request"])
             if not batch:
                 continue
-            try:
-                if len(batch) == 1:
-                    j = batch[0]
-                    j["out"] = self.renderer.render_pose_extras(
-                        j["c2w"], factor=j["factor"], keys=j["keys"])
-                else:
-                    outs = self.renderer.render_poses_extras(
-                        np.stack([j["c2w"] for j in batch]),
-                        factor=batch[0]["factor"], keys=batch[0]["keys"])
-                    for k, j in enumerate(batch):
-                        j["out"] = {key: outs[key][k] for key in j["keys"]}
-            except Exception as e:  # noqa: BLE001 — deliver to the waiters;
-                # the worker must survive any render failure.
-                for j in batch:
-                    j["err"] = e
-            for j in batch:
+            with tracing.span("queue.batch", frames=len(batch),
+                              requests=[j["request"] for j in batch]) as sp:
+                self._render(batch)
+            # A frame is on the host when its frame.land ends (a sequence)
+            # or its frame ends (one frame, whose take copies it out).
+            landed = ([end for name, end, _ in sp.children
+                       if name == "frame.land"]
+                      or [end for name, end, _ in sp.children
+                          if name == "frame"])
+            for k, j in enumerate(batch):
                 j["ev"].set()
+                if k < len(landed):
+                    tracing.record("queue.hold", landed[k], tracing.now(),
+                                   parent=j["request"], request=j["request"])
+
+    def _render(self, batch: list[dict]) -> None:
+        """Render ``batch`` into its jobs' ``out``, or its failure into
+        their ``err``."""
+        try:
+            if len(batch) == 1:
+                j = batch[0]
+                j["out"] = self.renderer.render_pose_extras(
+                    j["c2w"], factor=j["factor"], keys=j["keys"])
+            else:
+                outs = self.renderer.render_poses_extras(
+                    np.stack([j["c2w"] for j in batch]),
+                    factor=batch[0]["factor"], keys=batch[0]["keys"])
+                for k, j in enumerate(batch):
+                    j["out"] = {key: outs[key][k] for key in j["keys"]}
+        except Exception as e:  # noqa: BLE001 — deliver to the waiters;
+            # the worker must survive any render failure.
+            with self._cv:
+                self.stats["failed"] += len(batch)
+            for j in batch:
+                j["err"] = e
 
 
 def _encode_image(rgb8: np.ndarray) -> tuple[bytes, str]:
@@ -272,6 +330,13 @@ class NerfRequestHandler(BaseHTTPRequestHandler):
             # read, never a wait on device work.
             "queue_depth": self.server.device_queue.depth,
             "queue_size": self.server.device_queue.maxsize,
+            # Admitted, refused (503), timed out (504), failed (500) and
+            # batching counts; a lock-protected copy, as depth is.
+            "queue_stats": self.server.device_queue.read_stats(),
+            # Frame programs dropped from the renderer's cache (each comes
+            # back as a new capture); a copy taken without the frame lock,
+            # which a frame holds through its device work.
+            "frame_stats": dict(r.programs.stats),
         })
 
     def _read_json_body(self) -> dict | None:
@@ -309,10 +374,12 @@ class NerfRequestHandler(BaseHTTPRequestHandler):
         else:
             self._json(404, {"error": f"unknown path {self.path!r}"})
 
-    def _post_render(self):
+    def _read_render_request(self) -> tuple | None:
+        """The ``/render`` body, validated: ``(c2w, factor, format,
+        include_depth)``, or None once a 400 has been sent."""
         req = self._read_json_body()
         if req is None:
-            return
+            return None
         try:
             c2w = np.asarray(req["c2w"], np.float32)
             if c2w.shape not in ((3, 4), (4, 4)):
@@ -335,39 +402,59 @@ class NerfRequestHandler(BaseHTTPRequestHandler):
                 raise ValueError("include_depth requires format=json")
         except (KeyError, ValueError, TypeError, json.JSONDecodeError) as e:
             self._json(400, {"error": repr(e)})
-            return
+            return None
+        return c2w, factor, fmt, include_depth
+
+    def _post_render(self):
+        """``POST /render``. With ``utils.tracing`` on, ``server.request``
+        spans the handler (its id is the request's, which its queued job
+        carries), with ``server.read`` (body and validation),
+        ``server.encode`` and ``server.write`` inside."""
+        with tracing.span("server.request") as sp:
+            sp.set(status=self._render_request(sp.id))
+
+    def _render_request(self, request: int | None) -> int:
+        """Answer one ``/render``; returns the response's status."""
+        with tracing.span("server.read"):
+            parsed = self._read_render_request()
+        if parsed is None:
+            return 400
+        c2w, factor, fmt, include_depth = parsed
 
         keys = ("rgb", "depth", "acc") if include_depth else ("rgb",)
         try:
             out = self.server.device_queue.render(
                 c2w, factor=factor, keys=keys,
-                timeout=self.server.request_timeout)
+                timeout=self.server.request_timeout, request=request)
         except QueueFullError as e:
             self._json(503, {"error": str(e)}, headers={"Retry-After": "1"})
-            return
+            return 503
         except RenderTimeoutError as e:
             self._json(504, {"error": str(e)})
-            return
+            return 504
         except Exception as e:  # noqa: BLE001 — the client must get a JSON
             # 500, not a dropped connection from an escaping handler-thread
             # exception.
             self._json(500, {"error": f"render failed: {e!r}"})
-            return
+            return 500
         rgb = out["rgb"]
 
-        if fmt == "json":
-            payload = {"rgb": rgb.tolist(), "shape": list(rgb.shape)}
-            if include_depth:
-                payload["depth"] = out["depth"].tolist()
-                payload["acc"] = out["acc"].tolist()
-            self._json(200, payload)
-            return
-        body, ctype = _encode_image(np.asarray(to_byte(rgb)))
-        self.send_response(200)
-        self.send_header("Content-Type", ctype)
-        self.send_header("Content-Length", str(len(body)))
-        self.end_headers()
-        self.wfile.write(body)
+        with tracing.span("server.encode"):
+            if fmt == "json":
+                payload = {"rgb": rgb.tolist(), "shape": list(rgb.shape)}
+                if include_depth:
+                    payload["depth"] = out["depth"].tolist()
+                    payload["acc"] = out["acc"].tolist()
+                body, ctype = json.dumps(payload).encode(), "application/json"
+            else:
+                body, ctype = _encode_image(np.asarray(to_byte(rgb)))
+        with tracing.span("server.write"):
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        return 200
 
     def _post_render_video(self):
         """Render a pose sequence to an mp4 (the reference's spiral-video

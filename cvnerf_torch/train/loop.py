@@ -85,6 +85,7 @@ from cvnerf_torch.render.renderer import RenderConfig, render_rays
 from cvnerf_torch.train.state import (Adam, AdamState, TrainState,
                                       clone_tree, ema_update, make_optimizer,
                                       tree_leaves)
+from cvnerf_torch.utils import tracing
 from cvnerf_torch.utils.graphs import GraphProgram
 
 
@@ -446,7 +447,11 @@ def _graph_sig(home: torch.device, occupancy, images, poses,
 class _Block(GraphProgram):
     """The program of ``make_train_scan``: static buffers for the state,
     the block's per-step tables and, on a card, one CUDA graph per
-    ``precrop`` variant (see ``make_train_scan``)."""
+    ``precrop`` variant (see ``make_train_scan``). With ``utils.tracing``
+    on, a block is a ``train.block`` span (``captured``: whether it
+    captured a graph) holding ``train.prep`` (the host's tables, copies
+    and the graph's lookup or capture) and ``train.replay`` (the replays
+    queued) or ``train.eager`` (its steps run eagerly)."""
 
     def __init__(self, cfg: TrainConfig, block: int, mesh: Mesh | None,
                  with_occupancy: bool):
@@ -537,33 +542,40 @@ class _Block(GraphProgram):
 
     def __call__(self, state: TrainState, occupancy, base_key, images,
                  poses, train_idx, start: int, precrop: bool):
-        b = self._static(state)
-        home = b["counter"].device
-        rows = np.stack([step_row(self.cfg, self.opt, state.step + k,
-                                  state.opt_state.count + k)
-                         for k in range(self.block)])
-        b["rows"].copy_(staged(rows, home))
-        b["steps"].copy_(staged(np.arange(start, start + self.block,
-                                          dtype=np.int64), home))
-        b["key"].copy_(key_on(base_key, home))
-        b["counter"].zero_()
-        self._check_cards(home, self.mesh)
-        captured = None
-        if home.type == "cuda" and self.eager_reason is None:
-            captured = self._graph(occupancy, images, poses, train_idx,
-                                   precrop)
-            if captured is None:
+        with tracing.span("train.block", steps=self.block) as sp:
+            with tracing.span("train.prep"):
+                b = self._static(state)
+                home = b["counter"].device
+                rows = np.stack([step_row(self.cfg, self.opt,
+                                          state.step + k,
+                                          state.opt_state.count + k)
+                                 for k in range(self.block)])
+                b["rows"].copy_(staged(rows, home))
+                b["steps"].copy_(staged(np.arange(start, start + self.block,
+                                                  dtype=np.int64), home))
+                b["key"].copy_(key_on(base_key, home))
                 b["counter"].zero_()
-        if captured is not None:
-            graph, out = captured
-            self._replay(graph, self.block)
-            metrics = {k: v.clone() for k, v in out.items()}
-            self.stats["replayed_steps"] += self.block
-        else:
-            for _ in range(self.block):
-                metrics = self._body(occupancy, images, poses, train_idx,
-                                     precrop)
-            self.stats["eager_steps"] += self.block
+                self._check_cards(home, self.mesh)
+                captures = self.stats["captures"]
+                captured = None
+                if home.type == "cuda" and self.eager_reason is None:
+                    captured = self._graph(occupancy, images, poses,
+                                           train_idx, precrop)
+                    if captured is None:
+                        b["counter"].zero_()
+            sp.set(captured=self.stats["captures"] > captures)
+            if captured is not None:
+                graph, out = captured
+                with tracing.span("train.replay"):
+                    self._replay(graph, self.block)
+                metrics = {k: v.clone() for k, v in out.items()}
+                self.stats["replayed_steps"] += self.block
+            else:
+                with tracing.span("train.eager"):
+                    for _ in range(self.block):
+                        metrics = self._body(occupancy, images, poses,
+                                             train_idx, precrop)
+                self.stats["eager_steps"] += self.block
         return (self._state(state.step + self.block,
                             state.opt_state.count + self.block), metrics)
 
@@ -628,7 +640,11 @@ class Trainer:
     ``steps_per_call > 1`` runs full blocks of that many steps through
     ``make_train_scan`` (on a card, one dispatch of graph replays); a
     block ends where the precrop flag changes and where a callback fires,
-    and a shorter stretch runs as single steps (``_block_len``)."""
+    and a shorter stretch runs as single steps (``_block_len``). With
+    ``utils.tracing`` on, ``run`` is a ``train.run`` span holding its
+    blocks (``train.block``), single steps (``train.step``), host reads of
+    the metrics (``train.read``) and fired callbacks
+    (``train.callbacks``)."""
 
     def __init__(self, cfg: TrainConfig, state: TrainState, images, poses,
                  train_idx, seed: int = 0, mesh: Mesh | None = None,
@@ -731,7 +747,8 @@ class Trainer:
 
     def _finalize_metrics(self, metrics: dict, rays_done: int,
                           t0: float) -> dict:
-        m = {k: float(v) for k, v in metrics.items()}   # waits for the step
+        with tracing.span("train.read"):
+            m = {k: float(v) for k, v in metrics.items()}  # waits for it
         if rays_done > 0:
             m["rays_per_sec"] = rays_done / max(time.time() - t0, 1e-9)
         else:
@@ -761,6 +778,10 @@ class Trainer:
         ``rays_per_sec`` over the window since the last callback."""
         if start >= iters:
             return dict(self._last_metrics)
+        with tracing.span("train.run", steps=iters - start):
+            return self._run(start, iters)
+
+    def _run(self, start: int, iters: int) -> dict:
         t0 = time.time()
         rays_done = 0
         i = start
@@ -779,23 +800,23 @@ class Trainer:
             else:
                 n = 1
                 key = fold_in(self.base_key, i)
-                if occ is not None:
-                    self.state, metrics = self._step_fn_occ(
-                        self.state, occ, key, *data, precrop)
-                else:
-                    self.state, metrics = self.step_fn(
-                        self.state, key, *data, precrop)
+                with tracing.span("train.step"):
+                    if occ is not None:
+                        self.state, metrics = self._step_fn_occ(
+                            self.state, occ, key, *data, precrop)
+                    else:
+                        self.state, metrics = self.step_fn(
+                            self.state, key, *data, precrop)
             last = i + n - 1
             i += n
             rays_done += n * self.cfg.n_rays
-            final_m = None
-            for every, fn in self.callbacks:
-                if last % every == 0 and last > 0:
-                    if final_m is None:
-                        final_m = self._finalize_metrics(metrics, rays_done,
-                                                         t0)
-                    fn(last, self, final_m)
-            if final_m is not None:
+            fired = [fn for every, fn in self.callbacks
+                     if last % every == 0 and last > 0]
+            if fired:
+                final_m = self._finalize_metrics(metrics, rays_done, t0)
+                with tracing.span("train.callbacks", step=last):
+                    for fn in fired:
+                        fn(last, self, final_m)
                 # Slow callbacks do not count against rays_per_sec.
                 t0 = time.time()
                 rays_done = 0

@@ -65,11 +65,27 @@ def _post(url, payload):
 
 
 def test_health(server_url):
-    with urllib.request.urlopen(server_url + "/health", timeout=30) as resp:
-        body = json.loads(resp.read())
+    def health():
+        with urllib.request.urlopen(server_url + "/health",
+                                    timeout=30) as resp:
+            return json.loads(resp.read())
+    body = health()
     assert body["status"] == "ok" and body["step"] == 7
     assert (body["height"], body["width"]) == (12, 16)
     assert body["deterministic"] is True
+    # The queue's counters: one more render is one more job, batch and
+    # frame, and nothing refused.
+    before = body["queue_stats"]
+    assert set(before) == {"admitted", "rejected_full", "timed_out",
+                           "failed", "batches", "frames",
+                           "abandoned_skipped"}
+    # The renderer's frame programs: none dropped from its cache.
+    assert body["frame_stats"] == {"evictions": 0}
+    _post(server_url + "/render", {"c2w": POSE}).read()
+    after = health()["queue_stats"]
+    assert {k: after[k] - before[k] for k in before} == {
+        "admitted": 1, "rejected_full": 0, "timed_out": 0, "failed": 0,
+        "batches": 1, "frames": 1, "abandoned_skipped": 0}
 
 
 def test_render_png(server_url):
