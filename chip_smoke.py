@@ -154,7 +154,14 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      a step, the profiler's idle share, the capture seconds and graph pool
      bytes; d. phase 7's run at
      ``--steps_per_call 1``: its checkpoints at 30 and 60 bitwise phase
-     7's at 10;
+     7's at 10; e. Adam's update of every leaf in one launch (``fused_adam``,
+     ``csrc/adam.cu``) against its plain version on the card at the lego
+     nets' 48 leaves: p, m and v bitwise at update counts 0, 1, 2, 499 and
+     500 with random, zero and large gradients, and one launch captured in
+     a CUDA graph replayed over three scalar rows; ptxas registers and
+     spills (a spill fails); the kernel, the plain version (672 launches)
+     and a ``torch._foreach_*`` Adam (the yardstick) timed through CUDA
+     graphs of launches;
   13. a frame as one CUDA-graph dispatch (``render/frames.py``: every
      frame path, phases 2-11's included, replays a captured frame
      program): a. on phase 7's run (and an fp32 run directory), each frame
@@ -192,7 +199,8 @@ added again at each replay, and so is a frame replayed from a frame
 program's graph (``Graphs``: the first frame of a program runs eagerly,
 then the body is captured); the draw kernels count every
 launch after phase 12a's comparisons (9 threefry and 1 Feistel a lego
-step).
+step), and Adam's every launch after phase 12e's (1 a step, its plain
+version never).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers (phase 12's under ``threefry_bits``'s ``"scan"`` key, phase 13's
@@ -702,11 +710,12 @@ def calibrate(fb, cfg, params, w, pts, dirs, g, whole, want) -> None:
 
 
 # The counters read_counts reports (the MLP kernels and their plain
-# versions); Graphs also keeps the draws' (threefry, feistel).
+# versions); Graphs also keeps the draws' (threefry, feistel) and Adam's.
 MLP_COUNTS = ("fwd", "bwd", "int8", "fwd_plain", "bwd_plain", "int8_plain")
 
 
 def all_counters(fm, fb, fq) -> dict:
+    from cvnerf_torch.ops import adam as fa
     from cvnerf_torch.ops import threefry as tf
     return {"fwd": (fm.fused_nerf_apply, "launches"),
             "bwd": (fb.fused_nerf_bwd, "launches"),
@@ -717,7 +726,9 @@ def all_counters(fm, fb, fq) -> dict:
             "threefry": (tf.threefry_bits, "launches"),
             "feistel": (tf.feistel_draw, "launches"),
             "threefry_plain": (tf.threefry_bits_plain, "calls"),
-            "feistel_plain": (tf.feistel_draw_plain, "calls")}
+            "feistel_plain": (tf.feistel_draw_plain, "calls"),
+            "adam": (fa.fused_adam, "launches"),
+            "adam_plain": (fa.adam_plain, "calls")}
 
 
 def reset_counts(fm, fb, fq) -> None:
@@ -784,13 +795,16 @@ def phase_train(fm, fb, fq, card: str):
              if k not in MLP_COUNTS}
     # A step's draws on the card: its key (fold_in), the image, pixel and
     # render keys (split), the image (randint: a split and two bits), both
-    # ray streams (a fold_in and the bits each), the pixels (Feistel).
-    print(f"train: the draws' launches {draws} (expected threefry "
-          f"{9 * TRAIN_STEPS}, feistel {TRAIN_STEPS}, plain 0)", flush=True)
+    # ray streams (a fold_in and the bits each), the pixels (Feistel); and
+    # Adam, one launch.
+    print(f"train: the draws' and Adam's launches {draws} (expected "
+          f"threefry {9 * TRAIN_STEPS}, feistel {TRAIN_STEPS}, adam "
+          f"{TRAIN_STEPS}, plain 0)", flush=True)
     if draws != {"threefry": 9 * TRAIN_STEPS, "feistel": TRAIN_STEPS,
-                 "threefry_plain": 0, "feistel_plain": 0}:
-        fail("train: the step's draws did not run exactly through the "
-             "draw kernels")
+                 "threefry_plain": 0, "feistel_plain": 0,
+                 "adam": TRAIN_STEPS, "adam_plain": 0}:
+        fail("train: the step's draws or Adam did not run exactly through "
+             "their kernels")
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     wall_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
     med = float(np.median(step_ms))
@@ -3011,13 +3025,14 @@ def phase_blocks(fm, fb, fq, card: str) -> dict:
             and all(torch.equal(a, b) for a, b in zip(
                 state_leaves(t1.state), state_leaves(tk.state)))
         # Each captured step launches 2 + 2 (1 + 1 through the grid, 2 + 2
-        # a shard), and the blocks' run launches what the single steps'
-        # run does, plus one eager warm-up step a capture.
+        # a shard) and one Adam, and the blocks' run launches what the
+        # single steps' run does, plus one eager warm-up step a capture.
         mlp = {"occupancy": {"fwd": 1, "bwd": 1},
                "two_shards": {"fwd": 4, "bwd": 4}}.get(name,
                                                       {"fwd": 2, "bwd": 2})
+        mlp = {**mlp, "adam": 1}
         graphed = [b for b in blocks if b["replayed"]]
-        keys = ("fwd", "bwd", "threefry", "feistel")
+        keys = ("fwd", "bwd", "threefry", "feistel", "adam")
         warm = {k: sum(b["captures"] * b["per_step"][k] for b in graphed)
                 for k in keys}
         ok_launch = bool(graphed) and all(
@@ -3117,6 +3132,118 @@ def phase_cli_spc(fm, fb, fq, card: str, tmp: str) -> dict:
         fail(f"cli: --steps_per_call 1 and 10 differ: "
              f"{dict(list(diffs.items())[:8])}")
     return {"counts": counts, "bitwise": not diffs}
+
+
+# -- phase 12e: Adam's update of every leaf in one launch --------------------
+
+ADAM_COUNTS = (0, 1, 2, 499, 500)
+# Bytes of one Adam value: p, g, m, v read and p, m, v written, float32.
+ADAM_BYTES = 7 * 4
+
+
+def foreach_adam(params, grads, mu, nu, step: float, bc1: float, bc2: float,
+                 b1: float, b2: float, eps: float):
+    """The same update through ``torch._foreach_*`` (the yardstick; its
+    scalars are host floats, frozen where it is captured)."""
+    m = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
+                           torch._foreach_mul(mu, b1))
+    v = torch._foreach_add(
+        torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
+        torch._foreach_mul(nu, b2))
+    d = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(v, bc2)),
+                           eps)
+    u = torch._foreach_mul(torch._foreach_div(
+        torch._foreach_div(m, bc1), d), step)
+    return torch._foreach_add(params, u), m, v
+
+
+def phase_adam(fm, card: str) -> dict:
+    """12e: ``fused_adam`` against ``adam_plain`` on the card at the lego
+    nets' 48 leaves, p, m and v bitwise, at ADAM_COUNTS with random, zero
+    and large gradients, and one launch captured in a CUDA graph replayed
+    over three scalar rows; ptxas spills 0; the kernel, the plain version
+    and ``foreach_adam`` timed through CUDA graphs (``device_ms``; the
+    inputs stay in L2 between launches, a warm read). The launches and
+    calls made here are taken back off the counters."""
+    from cvnerf_torch.ops import adam as fa
+    from cvnerf_torch.ops.rng import PRNGKey
+    from cvnerf_torch.train.state import Adam, create_train_state, tree_leaves
+    lib = fm.build_library("adam", verbose=True)
+    check_ptxas(fm, lib, "fused_adam_kernel")
+    ptxas = ptxas_report(fm, lib, "fused_adam_kernel")
+    saved = (fa.fused_adam.launches, fa.adam_plain.calls)
+    dev = torch.device("cuda")
+    opt = Adam(lr=5e-4, lr_decay=500)
+    hyper = (opt.b1, opt.b2, opt.eps)
+    params = tree_leaves(create_train_state(PRNGKey(SEED), device=dev).params)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def like(scale: float) -> list:
+        return [scale * torch.randn(p.shape, generator=gen, device=dev)
+                for p in params]
+
+    def row(count: int) -> torch.Tensor:
+        return torch.tensor(opt.scalars(count), device=dev)
+
+    def same(got, want) -> bool:
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for x, y in zip(got, want) for a, b in zip(x, y))
+
+    mu, nu = like(1e-4), [t.abs() for t in like(1e-7)]
+    values = sum(p.numel() for p in params)
+    bad = []
+    for kind, scale in (("random", 1e-3), ("zero", 0.0), ("large", 1e15)):
+        grads = like(scale)
+        for count in ADAM_COUNTS:
+            s = row(count)
+            got = fa.fused_adam(params, grads, mu, nu, s, *hyper)
+            want = fa.adam_plain(params, grads, mu, nu, s, *hyper)
+            torch.cuda.synchronize()
+            if not same(got, want):
+                bad.append((kind, count))
+    grads = like(1e-3)
+    s = row(0)
+    fa.fused_adam(params, grads, mu, nu, s, *hyper)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.fused_adam(params, grads, mu, nu, s, *hyper)
+    for count in (3, 499, 500):
+        s.copy_(row(count))
+        graph.replay()
+        want = fa.adam_plain(params, grads, mu, nu, s, *hyper)
+        torch.cuda.synchronize()
+        if not same(out, want):
+            bad.append(("captured", count))
+    del graph
+    print(f"adam: {len(params)} leaves, {values} values, counts "
+          f"{list(ADAM_COUNTS)} x random/zero/large gradients and a capture "
+          f"replayed at 3 rows, p, m and v bitwise the plain version: "
+          f"{not bad}", flush=True)
+    if bad:
+        fail(f"fused_adam differs from adam_plain: {bad}")
+    s = row(ADAM_COUNTS[-1])
+    step, bc1, bc2 = (float(x) for x in s)
+    t_ms = device_ms(lambda: fa.fused_adam(params, grads, mu, nu, s, *hyper))
+    t_plain = device_ms(
+        lambda: fa.adam_plain(params, grads, mu, nu, s, *hyper), n=10)
+    t_plain_eager = time_ms(
+        lambda: fa.adam_plain(params, grads, mu, nu, s, *hyper))
+    t_foreach = device_ms(lambda: foreach_adam(
+        params, grads, mu, nu, step, bc1, bc2, *hyper), n=50)
+    nbytes = ADAM_BYTES * values
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    result = {"name": "fused_adam", "shape": f"{len(params)} leaves, "
+              f"{values} values (the lego nets)", "ms": t_ms,
+              "plain_ms": t_plain, "plain_eager_ms": t_plain_eager,
+              "library_ms": t_foreach, "bound_ms": bound, "bound_by": "bytes",
+              "bytes": nbytes, "ptxas": ptxas}
+    print(f"adam: fused_adam {t_ms:.4f} ms a launch (graph of 200), plain "
+          f"{t_plain:.4f} ms (672 launches, graph of 10; eager by events "
+          f"{t_plain_eager:.4f}), torch._foreach_* {t_foreach:.4f} ms, bound "
+          f"{bound:.5f} ms by bytes ({nbytes} B); card: {card}", flush=True)
+    fa.fused_adam.launches, fa.adam_plain.calls = saved
+    return result
 
 
 # -- phase 13: a frame as one CUDA-graph dispatch ----------------------------
@@ -3572,6 +3699,7 @@ def main() -> int:
     from cvnerf_torch.server import build_parser, make_server, renderer_from_args
 
     global GRAPHS
+    from cvnerf_torch.ops import adam as fa
     from cvnerf_torch.ops import threefry as tf
     GRAPHS = Graphs(all_counters(fm, fb, fq))
     GRAPHS.install()
@@ -3589,9 +3717,12 @@ def main() -> int:
     int8_rows = phase_int8(fm, fq, tq, rng, cfg, params)
     # -- 12a. the draw kernels against their plain versions ---------------
     draw_rows = phase_draws(fm, card)
-    # From here on every draw launch counts (the comparisons above are
-    # taken back off the counters).
+    # -- 12e. Adam's kernel against its plain version ----------------------
+    adam_row = phase_adam(fm, card)
+    # From here on every draw and Adam launch counts (the comparisons above
+    # are taken back off the counters).
     tf.threefry_bits.launches = tf.feistel_draw.launches = 0
+    fa.fused_adam.launches = fa.adam_plain.calls = 0
 
     with tempfile.TemporaryDirectory() as tmp:
         run = os.path.join(tmp, "lego_serve")
@@ -3933,14 +4064,32 @@ def main() -> int:
                 "encryptions as this draw's cycle walks took (encryptions), "
                 "against the int64 indices written; no single PyTorch call "
                 "computes the draw, so library_ms is null",
+    }, {
+        "name": "fused_adam", "route": "cuda",
+        "source": "cvnerf_torch/csrc/adam.cu", "replaces": None,
+        "launches": fa.fused_adam.launches, "max_abs_err": 0.0,
+        "ms": adam_row["ms"], "plain_ms": adam_row["plain_ms"],
+        "bound_ms": adam_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": adam_row["library_ms"], "shapes": [adam_row],
+        "note": "no TPU kernel: the JAX package's optimizer is optax's adam "
+                "in plain jnp; ms at the lego nets' 48 leaves (1,191,688 "
+                "values), a launch of a CUDA graph of 200 (warm L2); "
+                "bitwise its plain version at every case of phase 12e; "
+                "launches: one a train step after phase 12e, its plain "
+                "version never on the card; the bound counts 28 bytes a "
+                "value at 3.35 TB/s; library_ms: the same update through "
+                "torch._foreach_*; plain_ms: the plain version's 672 "
+                "launches in a CUDA graph",
     }]
     if not (tf.threefry_bits.launches and tf.feistel_draw.launches):
         fail("the draw kernels did not launch on the main path")
+    if not fa.fused_adam.launches or fa.adam_plain.calls:
+        fail("Adam did not run through its kernel on the main path")
     print(json.dumps(report), flush=True)
     print(f"card: {card}", flush=True)
     print('kernels: ["fused_nerf_apply", "fused_nerf_bwd", '
-          '"fused_nerf_apply_int8", "threefry_bits", "feistel_draw"]',
-          flush=True)
+          '"fused_nerf_apply_int8", "threefry_bits", "feistel_draw", '
+          '"fused_adam"]', flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

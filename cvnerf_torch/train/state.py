@@ -11,7 +11,8 @@ the CPU in float32 (``Adam.scalars``) and enter the update as a float32
 tensor on the params' device, so a step captured in a CUDA graph reads
 each update's own values from a table instead of freezing them. The
 optimizer returns new tensors and leaves its inputs as they were, like the
-JAX one.
+JAX one; on a card an update of every leaf is one kernel launch
+(``ops/adam.py``).
 An EMA run (``--ema_decay``) also carries the Polyak average of the params
 (``ema_update``).
 """
@@ -25,6 +26,7 @@ import torch
 
 from cvnerf_torch import resolve_device
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
+from cvnerf_torch.ops.adam import fused_adam
 from cvnerf_torch.ops.rng import split
 
 
@@ -58,6 +60,13 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     return [tree]
+
+
+def _like(tree: dict, leaves: list) -> dict:
+    """``leaves`` (in ``tree_leaves`` order) in the nested layout of
+    ``tree``."""
+    it = iter(leaves)
+    return _tree_map(lambda _: next(it), tree)
 
 
 def _f32(x: float) -> torch.Tensor:
@@ -102,18 +111,14 @@ class Adam:
                scalars: torch.Tensor) -> tuple[dict, AdamState]:
         """One Adam step: ``(new params, new state)``. ``scalars`` is
         :meth:`scalars` of ``state.count`` as a float32 ``[3]`` tensor on
-        the params' device (the train step's row)."""
-        step, bc1, bc2 = scalars.unbind(0)
-        c1 = state.count + 1
-        mu = _tree_map(lambda g, m: (1 - self.b1) * g + self.b1 * m,
-                       grads, state.mu)
-        nu = _tree_map(lambda g, v: (1 - self.b2) * (g * g) + self.b2 * v,
-                       grads, state.nu)
-        new = _tree_map(
-            lambda p, m, v: p.detach() + step * ((m / bc1) / (
-                torch.sqrt(v / bc2) + self.eps)),
-            params, mu, nu)
-        return new, AdamState(count=c1, mu=mu, nu=nu)
+        the params' device (the train step's row). Every leaf in one
+        launch on a card, the plain version on the CPU
+        (``ops/adam.py::fused_adam``)."""
+        leaves = fused_adam(*(tree_leaves(t) for t in (
+            params, grads, state.mu, state.nu)), scalars, self.b1, self.b2,
+            self.eps)
+        new, mu, nu = (_like(params, ls) for ls in leaves)
+        return new, AdamState(count=state.count + 1, mu=mu, nu=nu)
 
 
 def make_lr_schedule(lr: float, lr_decay: int):
@@ -138,9 +143,8 @@ def ema_update(ema: dict, params: dict, decay: float) -> dict:
     operations), in three multi-tensor launches."""
     d = np.float32(decay)
     e, p = tree_leaves(ema), [t.detach() for t in tree_leaves(params)]
-    new = iter(torch._foreach_add(torch._foreach_mul(e, float(d)),
-                                  torch._foreach_mul(p, float(1 - d))))
-    return _tree_map(lambda _: next(new), ema)
+    return _like(ema, torch._foreach_add(torch._foreach_mul(e, float(d)),
+                                         torch._foreach_mul(p, float(1 - d))))
 
 
 def create_train_state(key: torch.Tensor, lr: float = 5e-4,
