@@ -32,8 +32,8 @@ def read(bench: dict, cell: dict, side: str, seed: int, seconds: float,
     import numpy as np
     import torch
 
-    from nerfbench import check, harness, scene, serve_cell, train_cell
-    from nerfbench.reference import nerf as ref
+    from nerfbench import check, families, harness, scene, serve_cell
+    from nerfbench.reference.common import fp8, fp32, no_tf32
     if side == "program":
         res = harness.run_cell(bench, cell, seed, seconds, False, device,
                                time.perf_counter(), overrides)
@@ -41,17 +41,18 @@ def read(bench: dict, cell: dict, side: str, seed: int, seconds: float,
                 **res["not_compared"]}
     cfg = {**harness.load("configs", cell["config"]), **(overrides or {})}
     traffic = harness.load("traffic", cell["traffic"])
-    q = ref.fp8 if side == "control" else ref.fp32
+    family = families.get(cfg)
+    q = fp8 if side == "control" else fp32
     sc, params0, gen, _ = scene.inputs(cfg, seed, device)
     if traffic["kind"] == "train":
 
-        def run(**kw):
-            return train_cell.reference_run(
+        def run(product, rows):
+            return family.reference_run(
                 cfg, sc, params0, seed % 2 ** 31, traffic["start_step"],
                 traffic["checked_single_steps"], traffic["steps_per_call"],
-                **kw)
+                product, rows)
         rows = cfg["N_rand"] // 2 if side == "half" else None
-        return check.train_numbers(run(q=q, rows=rows), run())
+        return check.train_numbers(run(q, rows), run(fp32, None))
     if side != "control":
         raise SystemExit("--side half reads a training cell")
     own = harness.load("cells", cell["name"])
@@ -62,11 +63,10 @@ def read(bench: dict, cell: dict, side: str, seed: int, seconds: float,
     pick = np.random.default_rng(seed).choice(
         n, size=min(traffic["checked_frames"], n), replace=False)
     mae = []
-    with ref.no_tf32():
+    with no_tf32():
         for k in pick:
-            want, got = (check.to_byte(ref.render_frame(params0, cfg,
-                                                        poses[k], q=qq))
-                         for qq in (ref.fp32, q))
+            want, got = (check.to_byte(family.reference_frame(
+                params0, cfg, poses[k], qq)) for qq in (fp32, q))
             mae.append(check.frame_mae(got, want))
     return {"frame_mae": max(mae)}
 

@@ -1,5 +1,8 @@
-"""The work a NeRF MLP does, from its published layer widths, and the
-published peaks of the card it is divided by.
+"""The work a model does, from its published layer widths, and the
+published peaks of the card it is divided by. A step's and a frame's
+operations are the configuration's family's (``families/<family>.py``);
+the counts below are the NeRF MLP's, which that family and the NeRF
+kernels' roofline readers use.
 
 The counts are the algorithm's, whatever kernel computes them: a forward
 pass is one multiply-add per weight a point (the bias and ReLU are not
@@ -13,6 +16,8 @@ multiply-add.
 from __future__ import annotations
 
 import subprocess
+
+from nerfbench import families
 
 # NVIDIA H100 SXM data sheet, dense: FLOP/s or OP/s, and HBM bytes/s.
 PEAKS = {"bf16": 989e12, "fp32": 67e12, "tf32": 495e12, "int8": 1979e12,
@@ -53,15 +58,14 @@ def points_per_ray(cfg: dict) -> int:
 
 
 def step_ops(cfg: dict) -> int:
-    """Model operations of one train step: every point forward and back
-    (9.146e11 at 1024 rays)."""
-    return (cfg["N_rand"] * points_per_ray(cfg)
-            * (forward_ops(cfg) + backward_ops(cfg)))
+    """Model operations of one train step, by the configuration's family
+    (NeRF: every point forward and back, 9.146e11 at 1024 rays)."""
+    return families.get(cfg).step_ops(cfg)
 
 
 def frame_ops(cfg: dict) -> int:
-    """Model operations of one frame: every real ray's points forward."""
-    return cfg["H"] * cfg["W"] * points_per_ray(cfg) * forward_ops(cfg)
+    """Model operations of one frame, by the configuration's family."""
+    return families.get(cfg).frame_ops(cfg)
 
 
 def power_limit() -> str:

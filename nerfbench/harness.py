@@ -1,5 +1,6 @@
 """One run of one cell, driven by data: ``BENCHMARK.json`` names the cell,
-its configuration (``configs/<config>.json``), its traffic mix
+its configuration (``configs/<config>.json``, whose ``family`` picks the
+model's module ``families/<family>.py``), its traffic mix
 (``traffic/<traffic>.json``, whose ``kind`` picks ``train_cell`` or
 ``serve_cell``), the cell's own numbers (``cells/<workload>.json``: the
 offered rate, the limits of ``correct``) and the per-layer metrics, each

@@ -5,12 +5,9 @@ inverse-CDF hierarchical sampling, alpha compositing, the photometric loss
 and Adam with the exponential learning-rate decay of ``bmild/nerf``.
 
 It is the benchmark's yardstick: it imports nothing of the program under
-test and computes in float32 with TF32 off (``fp32``). Every matrix
+test and computes in float32 with TF32 off (``common.fp32``). Every matrix
 product of the nets goes through a product function ``q``, so the same code
-computes the control in a lower precision (``fp8``: the operands of every
-product rounded to float8 e4m3 with one scale a tensor, in the forward and
-in the backward, as the program rounds its operands and its deltas to
-bfloat16).
+computes the control in a lower precision (``common.fp8``).
 
 Parameters are ``{"coarse": net, "fine": net}``, a net ``{"l1": {"w": [in,
 out], "b": [out]}, ..., "alpha", "l10", "l11"}`` (``LAYERS``).
@@ -18,15 +15,13 @@ out], "b": [out]}, ..., "alpha", "l10", "l11"}`` (``LAYERS``).
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from nerfbench.reference import rng
+from nerfbench.reference.common import fp32, pixel_rays
 
 INF_DIST = 1e10
-FP8_MAX = 448.0
 
 
 def layers(cfg: dict) -> list[tuple[str, int, int]]:
@@ -41,57 +36,6 @@ def layers(cfg: dict) -> list[tuple[str, int, int]]:
 
 def enc_dim(n_freqs: int) -> int:
     return 3 + 6 * n_freqs
-
-
-def fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in float32."""
-    return x @ w
-
-
-def round8(x: torch.Tensor) -> torch.Tensor:
-    """``x`` rounded to float8 e4m3 with one scale for the tensor (its
-    largest magnitude at the format's largest value), back in float32."""
-    scale = FP8_MAX / torch.clamp(x.abs().amax(), min=1e-30)
-    return (x * scale).to(torch.float8_e4m3fn).float() / scale
-
-
-class _Fp8Product(torch.autograd.Function):
-    """``x @ w`` with both operands rounded by ``round8``; its backward
-    rounds the incoming gradient too and multiplies it with the rounded
-    operands, so every product of a step is a float8 product."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        xq, wq = round8(x), round8(w)
-        ctx.save_for_backward(xq, wq)
-        return xq @ wq
-
-    @staticmethod
-    def backward(ctx, g):
-        xq, wq = ctx.saved_tensors
-        gq = round8(g)
-        gx = gq @ wq.T
-        gw = xq.reshape(-1, xq.shape[-1]).T @ gq.reshape(-1, gq.shape[-1])
-        return gx, gw
-
-
-def fp8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` as float8 e4m3 products, forward and backward."""
-    return _Fp8Product.apply(x, w)
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """Float32 products in float32 (TF32 off) inside the block."""
-    mm, cd = (torch.backends.cuda.matmul.allow_tf32,
-              torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
-        torch.backends.cudnn.allow_tf32 = cd
 
 
 def encode(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
@@ -127,16 +71,6 @@ def query(net, pts, viewdirs, cfg, q) -> torch.Tensor:
     de = encode(viewdirs, cfg["multires_views"])
     de = de[:, None, :].expand(*pts.shape[:2], de.shape[-1])
     return mlp(net, xe, de, q)
-
-
-def pixel_rays(px, py, width, height, focal, c2w):
-    """World ray origins and (unnormalized) directions of pixels ``(px,
-    py)`` of a pinhole camera looking down its -z axis."""
-    d = torch.stack([(px.float() - width * 0.5) / focal,
-                     -(py.float() - height * 0.5) / focal,
-                     -torch.ones_like(px, dtype=torch.float32)], -1)
-    rays_d = d @ c2w[:3, :3].T
-    return c2w[:3, 3].expand(rays_d.shape), rays_d
 
 
 def ndc(height, width, focal, near, rays_o, rays_d):

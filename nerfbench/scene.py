@@ -1,8 +1,9 @@
 """The benchmark's inputs, made from ``--seed`` on the run's device: a
-scene's images and camera poses, the two nets' starting weights, and for
-serving the nets fitted to the scene by the plain reference and written as
-a checkpoint. The program under test receives these and nothing else of
-the benchmark; the reference receives the same.
+scene's images and camera poses, and the starting weights of the
+configuration's model family (``families/``) fitted to the scene by its
+plain reference (for serving, written as a checkpoint). The program under
+test receives these and nothing else of the benchmark; the reference
+receives the same.
 
 Images are rendered analytically (ray-sphere hits, Lambertian shading), so
 a seed gives the same pixels on any run; the published sizes and view
@@ -12,17 +13,18 @@ counts come from the configuration file.
 from __future__ import annotations
 
 import math
-import os
 import time
 
 import numpy as np
 import torch
 
-from nerfbench.reference import nerf as ref
+from nerfbench import families
+from nerfbench.reference.common import pixel_rays
 
 _LIGHT = (0.4, 0.5, 0.77)
-# The fit of the nets every cell starts from (``fit_nets``): Adam steps,
-# rays a step, steps drawn from the centre crop, and the density noise.
+# The fit of the weights every cell starts from (a family's ``fit``): Adam
+# steps, rays a step, steps drawn from the centre crop, and the density
+# noise.
 FIT = {"steps": 300, "rays": 2048, "precrop_steps": 150, "noise_std": 1.0}
 
 
@@ -150,128 +152,27 @@ def make_scene(cfg: dict, gen, device) -> dict:
     f = float(np.float32(cfg["focal"]))
     images = torch.empty(n, h, w, 3, dtype=torch.float32, device=device)
     for i in range(n):
-        o, d = ref.pixel_rays(px.reshape(-1), py.reshape(-1), w, h, f,
-                              poses[i])
+        o, d = pixel_rays(px.reshape(-1), py.reshape(-1), w, h, f,
+                          poses[i])
         images[i] = _shade(o, d, cfg, spheres, plane).reshape(h, w, 3)
     test = set(cfg["test_views"])
     train_idx = np.array([i for i in range(n) if i not in test], np.int64)
     return {"images": images, "poses": poses, "train_idx": train_idx}
 
 
-def make_params(cfg: dict, gen, device) -> dict:
-    """Both nets' weights and biases, ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``
-    as ``nn.Linear`` draws them, from one draw on ``device``."""
-    shapes = [(name, fi, fo) for name, fi, fo in ref.layers(cfg)]
-    per_net = sum(fi * fo + fo for _, fi, fo in shapes)
-    u = torch.rand(2 * per_net, generator=gen, device=device) * 2.0 - 1.0
-    out, at = {}, 0
-    for net in ("coarse", "fine"):
-        layer = {}
-        for name, fi, fo in shapes:
-            bound = 1.0 / math.sqrt(fi)
-            w = u[at:at + fi * fo].view(fi, fo) * bound
-            at += fi * fo
-            b = u[at:at + fo] * bound
-            at += fo
-            layer[name] = {"w": w.clone(), "b": b.clone()}
-        out[net] = layer
-    return out
-
-
-def fit_nets(params: dict, scene: dict, cfg: dict, steps: int, n_rays: int,
-             precrop_steps: int, noise_std: float, gen) -> dict:
-    """The nets trained ``steps`` Adam steps on the scene by the plain
-    reference (TF32 allowed: these are inputs, not a comparison), pixels
-    drawn with replacement (from the centre crop for the first
-    ``precrop_steps``), with density noise ``noise_std`` (without it a
-    white background's nets fall to an empty scene), so that a frame is not
-    uniform and the density is not poised at zero everywhere as at
-    initialisation."""
-    images, poses = scene["images"], scene["poses"]
-    dev = images.device
-    train_idx = torch.from_numpy(scene["train_idx"]).to(dev)
-    h, w, f = cfg["H"], cfg["W"], float(np.float32(cfg["focal"]))
-    nc, nf = cfg["N_samples"], cfg["N_importance"]
-    state = ref.fresh_state({k: {n: {p: t.clone() for p, t in lay.items()}
-                                 for n, lay in v.items()}
-                             for k, v in params.items()})
-    mm = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        for step in range(steps):
-            im = train_idx[torch.randint(len(train_idx), (), generator=gen,
-                                         device=dev)]
-            if step < precrop_steps:
-                dh = int(h // 2 * cfg["precrop_frac"])
-                dw = int(w // 2 * cfg["precrop_frac"])
-                py = torch.randint(h // 2 - dh, h // 2 + dh, (n_rays,),
-                                   generator=gen, device=dev)
-                px = torch.randint(w // 2 - dw, w // 2 + dw, (n_rays,),
-                                   generator=gen, device=dev)
-            else:
-                py = torch.randint(0, h, (n_rays,), generator=gen, device=dev)
-                px = torch.randint(0, w, (n_rays,), generator=gen, device=dev)
-            target = images[im, py, px]
-            o, d = ref.pixel_rays(px, py, w, h, f, poses[im])
-            vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-            if cfg["ndc"]:
-                o, d = ref.ndc(h, w, f, 1.0, o, d)
-            draws = {"u_strat": torch.rand((n_rays, nc), generator=gen,
-                                           device=dev),
-                     "u_pdf": torch.sort(torch.rand((n_rays, nf),
-                                                    generator=gen,
-                                                    device=dev)).values}
-            if noise_std > 0:
-                draws["noise_c"] = noise_std * torch.randn(
-                    (n_rays, nc), generator=gen, device=dev)
-                draws["noise_f"] = noise_std * torch.randn(
-                    (n_rays, nc + nf), generator=gen, device=dev)
-            state = _fit_step(state, o, d, vd, target, cfg, draws)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
-    return state["params"]
-
-
-def _fit_step(state, o, d, vd, target, cfg, draws):
-    p = ref.rebuild(state["params"], [x.detach().requires_grad_()
-                                      for x in ref.leaves(state["params"])])
-    rgb_f, rgb_c = ref.render_rays(p, o, d, vd, cfg["near"], cfg["far"],
-                                   cfg, ref.fp32, draws)
-    loss = ((rgb_f - target) ** 2).mean() + ((rgb_c - target) ** 2).mean()
-    grads = torch.autograd.grad(loss, ref.leaves(p))
-    return ref.adam_update(state, grads, cfg)
-
-
-def write_checkpoint(params: dict, path: str) -> str:
-    """Both nets as a two-net ``.pt`` of reference-``Model`` state dicts
-    (``l1`` .. ``l9``, ``l_alpha``, ``l10``, ``l11``; weights ``[out,
-    in]``), the format a NeRF server loads."""
-    def sd(net):
-        out = {}
-        for name, layer in net.items():
-            key = "l_alpha" if name == "alpha" else name
-            out[f"{key}.weight"] = layer["w"].detach().float().cpu().t() \
-                .contiguous()
-            out[f"{key}.bias"] = layer["b"].detach().float().cpu().clone()
-        return out
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save({"coarse": sd(params["coarse"]), "fine": sd(params["fine"]),
-                "step": 0}, path)
-    return path
-
-
 def inputs(cfg: dict, seed: int, device) -> tuple:
     """What a run of ``seed`` hands the program and the reference: the
-    scene, the nets fitted to it (``FIT``), the seed's generator as the fit
-    leaves it (poses are drawn next) and the seconds the fit took, which
-    are the reference's and not the program's set-up."""
+    scene, the family's weights fitted to it (``FIT``), the seed's
+    generator as the fit leaves it (poses are drawn next) and the seconds
+    the fit took, which are the reference's and not the program's
+    set-up."""
+    family = families.get(cfg)
     gen = torch.Generator(device).manual_seed(seed)
     sc = make_scene(cfg, gen, device)
-    params = make_params(cfg, gen, device)
+    params = family.init_params(cfg, gen, device)
     sync(device)
     t = time.perf_counter()
-    params = fit_nets(params, sc, cfg, FIT["steps"], FIT["rays"],
-                      FIT["precrop_steps"], FIT["noise_std"], gen)
+    params = family.fit(params, sc, cfg, gen)
     sync(device)
     return sc, params, gen, time.perf_counter() - t
 

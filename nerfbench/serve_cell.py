@@ -1,12 +1,13 @@
 """Traffic of the ``serve`` kind: the port's HTTP server in this process,
 offered an open loop of ``POST /render`` requests.
 
-Set-up makes the scene and the starting weights from the seed, fits the
-nets to the scene with the plain reference (so frames are not uniform),
-writes them as a checkpoint, loads it into the port's ``NerfRenderer``
-behind a proxy that times each render call, starts ``make_server`` on a
-free local port and warms the frame program through the server: one frame
-that captures it, one replay, and a burst that the queue micro-batches.
+Set-up makes the scene and the starting weights from the seed, fits them
+to the scene with the plain reference (so frames are not uniform), writes
+them as a checkpoint and loads it into the port's renderer, each as the
+configuration's family (``families/``) does, behind a proxy that times
+each render call, starts ``make_server`` on a free local port and warms
+the frame program through the server: one frame that captures it, one
+replay, and a burst that the queue micro-batches.
 
 The window sends one request a distinct seeded pose at its due time,
 whether or not earlier ones have finished. The due times are the
@@ -38,9 +39,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from nerfbench import check, scene, trace
-from nerfbench.reference import nerf as ref
-from nerfbench.train_cell import DTYPES
+from nerfbench import check, families, scene, trace
+from nerfbench.reference.common import fp32, no_tf32
 
 
 class RendererProxy:
@@ -167,27 +167,11 @@ def stop_server(srv, thread) -> None:
     thread.join(timeout=30)
 
 
-def load_renderer(cfg: dict, ckpt: str, device: torch.device):
-    from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
-    from cvnerf_torch.render.renderer import RenderConfig
-    from cvnerf_torch.serve import NerfRenderer
-    mlp = NerfMLPConfig(xyz_freqs=cfg["multires"],
-                        dir_freqs=cfg["multires_views"],
-                        trunk_width=cfg["netwidth"],
-                        head_width=cfg["netwidth"] // 2)
-    rcfg = RenderConfig(n_coarse=cfg["N_samples"], n_fine=cfg["N_importance"],
-                        white_bkg=cfg["white_bkgd"], mlp=mlp,
-                        compute_dtype=DTYPES[cfg["dtype"]])
-    return NerfRenderer(ckpt, height=cfg["H"], width=cfg["W"],
-                        focal=cfg["focal"], near=cfg["near"], far=cfg["far"],
-                        ndc=cfg["ndc"], cfg=rcfg, chunk=cfg["chunk"],
-                        deterministic=True, device=device)
-
-
 def setup(cfg: dict, traffic: dict, seed: int, device: torch.device) -> dict:
-    """The inputs of a serving run: the fitted nets, the renderer behind
+    """The inputs of a serving run: the fitted weights, the renderer behind
     its proxy, and a server that has rendered a frame, a replay and a
     micro-batch of each shape the window sends."""
+    family = families.get(cfg)
     t = time.perf_counter()
     _, params, gen, fit_s = scene.inputs(cfg, seed, device)
     phases = {"fit_s": fit_s, "inputs_s": time.perf_counter() - t}
@@ -197,8 +181,8 @@ def setup(cfg: dict, traffic: dict, seed: int, device: torch.device) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     tmp = tempfile.mkdtemp(prefix="nerfbench-")
     try:
-        ckpt = scene.write_checkpoint(params, os.path.join(tmp, "nets.pt"))
-        proxy = RendererProxy(load_renderer(cfg, ckpt, device))
+        ckpt = family.write_checkpoint(params, os.path.join(tmp, "nets.pt"))
+        proxy = RendererProxy(family.load_renderer(cfg, ckpt, device))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phases["load_s"] = time.perf_counter() - t - phases["inputs_s"]
@@ -266,10 +250,11 @@ def run(cfg: dict, traffic: dict, cell: dict, seed: int, seconds: float,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     mae = [math.inf] if not frames else []
-    with ref.no_tf32():
+    with no_tf32():
         for k, got8 in frames.items():
             c2w = torch.from_numpy(poses[k]).to(device)
-            want = check.to_byte(ref.render_frame(params, cfg, c2w))
+            want = check.to_byte(families.get(cfg).reference_frame(
+                params, cfg, c2w, fp32))
             mae.append(check.frame_mae(got8, want))
     return {
         "setup_s": setup_s, "attempted": len(recs), "failed": failed,

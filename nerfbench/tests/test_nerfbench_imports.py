@@ -25,6 +25,7 @@ def test_harness_loads_no_jax():
     names = loaded_after(
         "import sys; sys.path.insert(0, '.')\n"
         "from nerfbench import harness, control, sweep, run\n"
+        "from nerfbench.families import nerf\n"
         "import cvnerf_torch.server, cvnerf_torch.train.loop\n"
         "b = harness.load_benchmark()\n"
         "from nerfbench.trace import Trace\n"

@@ -10,10 +10,10 @@ import torch
 from conftest import tiny
 
 from nerfbench import harness, scene
+from nerfbench.families import nerf
+from nerfbench.reference import common
 from nerfbench.reference import nerf as ref
 from nerfbench.reference import rng as rrng
-from nerfbench.serve_cell import load_renderer
-from nerfbench.train_cell import port_config
 
 CONFIGS = ["nerf-blender-lego", "nerf-llff-fern"]
 
@@ -47,9 +47,9 @@ def test_draws_are_the_ports():
 def test_frame_matches_the_port(name, tmp_path):
     cfg = cfg_of(name)
     gen = torch.Generator().manual_seed(3)
-    params = scene.make_params(cfg, gen, "cpu")
-    ckpt = scene.write_checkpoint(params, str(tmp_path / "nets.pt"))
-    renderer = load_renderer(cfg, ckpt, torch.device("cpu"))
+    params = nerf.init_params(cfg, gen, "cpu")
+    ckpt = nerf.write_checkpoint(params, str(tmp_path / "nets.pt"))
+    renderer = nerf.load_renderer(cfg, ckpt, torch.device("cpu"))
     pose = scene.request_poses(cfg, gen, 1, "cpu")[0]
     got = renderer.render_pose(pose.numpy())
     want = ref.render_frame(params, cfg, pose, chunk=100)
@@ -64,8 +64,8 @@ def test_three_block_steps_match_the_port(name):
     cfg = cfg_of(name)
     gen = torch.Generator().manual_seed(5)
     sc = scene.make_scene(cfg, gen, "cpu")
-    params0 = scene.make_params(cfg, gen, "cpu")
-    tcfg = port_config(cfg)
+    params0 = nerf.init_params(cfg, gen, "cpu")
+    tcfg = nerf.port_train_config(cfg)
     state = TrainState(params=copy.deepcopy(params0),
                        opt_state=make_optimizer(tcfg.lr, tcfg.lr_decay)
                        .init(params0), step=500)
@@ -92,9 +92,9 @@ def test_the_control_rounds_every_product_to_float8():
     x = torch.randn(4, 5, 6, generator=gen, requires_grad=True)
     w = torch.randn(6, 3, generator=gen, requires_grad=True)
     g = torch.randn(4, 5, 3, generator=gen)
-    y = ref.fp8(x, w)
+    y = common.fp8(x, w)
     y.backward(g)
-    xq, wq, gq = (ref.round8(t.detach()) for t in (x, w, g))
+    xq, wq, gq = (common.round8(t.detach()) for t in (x, w, g))
     assert torch.equal(y, xq @ wq)
     assert torch.equal(x.grad, gq @ wq.T)
     torch.testing.assert_close(w.grad, torch.einsum("rsi,rso->io", xq, gq))
