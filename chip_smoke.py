@@ -162,6 +162,18 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      spills (a spill fails); the kernel, the plain version (672 launches)
      and a ``torch._foreach_*`` Adam (the yardstick) timed through CUDA
      graphs of launches;
+  14. the Instant-NGP field (``models/ngp_field.py``): a. its kernels at
+     the published widths (16 levels, 2^19 entries a level) and a train
+     step's two encodings (65,536 and 196,608 samples): ``hash_encode_fwd``
+     bitwise its plain version in float32 and bfloat16,
+     ``hash_encode_bwd`` per level within 1e-4 of the level's largest
+     plain gradient, ``fused_adam``'s skip-zero and L2 rules over the
+     field's 21 leaves bitwise ``adam_plain`` (eagerly and replayed), each
+     timed through CUDA graphs beside its plain version and a bound from
+     that run's inputs (bytes at 3.35 TB/s), ptxas spills 0; b. the field
+     through ``Trainer`` at the ``ngp-fern-train`` cell's shape, 3 single
+     steps and blocks of 10 graphed steps, every step 2 + 2 hash launches
+     and one Adam, no plain call, median ms a step;
   13. a frame as one CUDA-graph dispatch (``render/frames.py``: every
      frame path, phases 2-11's included, replays a captured frame
      program): a. on phase 7's run (and an fp32 run directory), each frame
@@ -199,8 +211,9 @@ added again at each replay, and so is a frame replayed from a frame
 program's graph (``Graphs``: the first frame of a program runs eagerly,
 then the body is captured); the draw kernels count every
 launch after phase 12a's comparisons (9 threefry and 1 Feistel a lego
-step), and Adam's every launch after phase 12e's (1 a step, its plain
-version never).
+step), Adam's every launch after phase 12e's (1 a step, its plain
+version never), and the hash kernels' every launch of phase 14b (2 + 2 an
+NGP step; the counters set to 0 just before it).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers (phase 12's under ``threefry_bits``'s ``"scan"`` key, phase 13's
@@ -716,6 +729,7 @@ MLP_COUNTS = ("fwd", "bwd", "int8", "fwd_plain", "bwd_plain", "int8_plain")
 
 def all_counters(fm, fb, fq) -> dict:
     from cvnerf_torch.ops import adam as fa
+    from cvnerf_torch.ops import hash_encode as he
     from cvnerf_torch.ops import threefry as tf
     return {"fwd": (fm.fused_nerf_apply, "launches"),
             "bwd": (fb.fused_nerf_bwd, "launches"),
@@ -728,7 +742,10 @@ def all_counters(fm, fb, fq) -> dict:
             "threefry_plain": (tf.threefry_bits_plain, "calls"),
             "feistel_plain": (tf.feistel_draw_plain, "calls"),
             "adam": (fa.fused_adam, "launches"),
-            "adam_plain": (fa.adam_plain, "calls")}
+            "adam_plain": (fa.adam_plain, "calls"),
+            "hash_fwd": (StatsKey(he.stats), "fwd_launches"),
+            "hash_bwd": (StatsKey(he.stats), "bwd_launches"),
+            "hash_plain": (StatsKey(he.stats), "plain_calls")}
 
 
 def reset_counts(fm, fb, fq) -> None:
@@ -3246,6 +3263,265 @@ def phase_adam(fm, card: str) -> dict:
     return result
 
 
+# -- phase 14: the Instant-NGP field's kernels and its train step -----------
+
+NGP_LAUNCHES = (65_536, 196_608)   # a train step's encodings: coarse, fine
+NGP_BWD_TOL = 1e-4                 # of the level's largest plain gradient
+
+
+class StatsKey:
+    """An attribute view of a ``stats`` dict, so that ``Graphs`` counts
+    its keys as it counts the other kernels' ``launches``."""
+
+    def __init__(self, stats: dict):
+        object.__setattr__(self, "stats", stats)
+
+    def __getattr__(self, key: str):
+        return self.stats[key]
+
+    def __setattr__(self, key: str, value) -> None:
+        self.stats[key] = value
+
+
+def ngp_touched(he, levels, unit: torch.Tensor) -> int:
+    """Distinct table entries the positions ``unit`` touch, summed over
+    the levels (the plain version's corners, on the card)."""
+    return sum(int(torch.unique(he.corner_weights(unit, lv)[0]).numel())
+               for lv in levels)
+
+
+def phase_ngp_kernels(fm, card: str) -> dict:
+    """14a: the hash kernels (``csrc/hash_encode.cu``) and the skip-zero
+    and L2 rules of ``fused_adam`` at the published widths (16 levels, 2^19
+    entries a level) and a train step's two encodings, NGP_LAUNCHES
+    samples, positions uniform in [-0.1, 1.1]^3 (a sixth of them clamped in
+    some dimension): the forward bitwise its plain version in float32 and
+    bfloat16; the backward per level within NGP_BWD_TOL of the level's
+    largest plain gradient, with the same zero entries; ``fused_adam`` over
+    the field's 21 leaves (30% of the table's gradients nonzero) p, m and v
+    bitwise ``adam_plain``, eagerly and replayed from a CUDA graph, every
+    zero-gradient entry left as it was. Each timed through CUDA graphs of
+    launches (``device_ms``; the backward with its gradient buffer's
+    zeroing, as a step runs it; inputs warm in L2), its plain version by
+    CUDA events, and a bound from this run's inputs at 3.35 TB/s: the
+    forward's and backward's positions (12 B), features or their
+    gradients (128 B in float32, 64 in bfloat16) a sample and the distinct
+    entries touched (8 B; the backward also writes the zeroed 48.8 MB
+    buffer); Adam's 4 B of gradient a value and 24 B more a value it
+    updates. ptxas registers and spills (a spill fails). The launches and
+    calls made here are taken back off the counters."""
+    from cvnerf_torch.models.ngp_field import NgpFieldConfig, init_ngp_params
+    from cvnerf_torch.ops import adam as fa
+    from cvnerf_torch.ops import hash_encode as he
+    from cvnerf_torch.ops.rng import PRNGKey
+    from cvnerf_torch.train.state import make_optimizer, tree_leaves
+    lib = fm.build_library("hash_encode", verbose=True)
+    ptxas = {}
+    for kernel in ("hash_encode_fwd", "hash_encode_bwd"):
+        check_ptxas(fm, lib, kernel)
+        ptxas[kernel] = ptxas_report(fm, lib, kernel)
+    saved = (dict(he.stats), fa.fused_adam.launches, fa.adam_plain.calls)
+    dev = torch.device("cuda")
+    cfg = NgpFieldConfig()
+    levels = cfg.levels
+    params = init_ngp_params(PRNGKey(SEED), cfg, dev)
+    tables = [params["field"]["table"][str(k)] for k in range(cfg.n_levels)]
+    entries = he.total_entries(levels)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for n in NGP_LAUNCHES:
+        unit = torch.rand(n, 3, generator=gen, device=dev) * 1.2 - 0.1
+        grad = torch.randn(n, 2 * cfg.n_levels, generator=gen, device=dev)
+        touched = ngp_touched(he, levels, unit)
+        for dt in (torch.float32, torch.bfloat16):
+            got = he.hash_encode_fwd(unit, tables, levels, dt)
+            want = he.hash_encode_fwd(unit, tables, levels, dt, plain=True)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"hash_encode_fwd {dt} n={n}: not bitwise the plain "
+                     f"version ({int((got != want).sum())} features differ)")
+            nbytes = n * (12 + 2 * cfg.n_levels * got.element_size()) \
+                + 8 * touched
+            rows.append({
+                "name": "hash_encode_fwd", "n": n, "dtype": str(dt)[6:],
+                "max_abs_err": 0.0,
+                "ms": device_ms(lambda: he.hash_encode_fwd(
+                    unit, tables, levels, dt)),
+                "plain_ms": time_ms(lambda: he.hash_encode_fwd(
+                    unit, tables, levels, dt, plain=True), reps=3),
+                "bound_ms": 1e3 * nbytes / H100_BYTES_PER_S,
+                "bound_by": "bytes", "bytes": nbytes, "touched": touched})
+        got = he.hash_encode_bwd(unit, grad, levels)
+        want = he.hash_encode_bwd(unit, grad, levels, plain=True)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for lv in levels:
+            a, b = (x[lv.offset:lv.offset + lv.entries] for x in (got, want))
+            if not torch.equal(a == 0, b == 0):
+                fail(f"hash_encode_bwd n={n}: other zero entries than the "
+                     f"plain version's on a level of {lv.entries}")
+            worst = max(worst, float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30))
+        if not worst <= NGP_BWD_TOL:
+            fail(f"hash_encode_bwd n={n}: {worst:.2e} of a level's largest "
+                 f"gradient (tol {NGP_BWD_TOL:g})")
+        nbytes = n * (12 + 4 * 2 * cfg.n_levels) + 8 * touched + 8 * entries
+        rows.append({
+            "name": "hash_encode_bwd", "n": n, "dtype": "float32",
+            "max_abs_err": worst,
+            "ms": device_ms(lambda: he.hash_encode_bwd(unit, grad, levels),
+                            n=20),
+            "plain_ms": time_ms(lambda: he.hash_encode_bwd(
+                unit, grad, levels, plain=True), reps=3),
+            "bound_ms": 1e3 * nbytes / H100_BYTES_PER_S, "bound_by": "bytes",
+            "bytes": nbytes, "touched": touched})
+        del got, want
+    for r in rows:
+        print(f"ngp: {r['name']} n={r['n']} {r['dtype']}: {r['ms']:.4f} ms "
+              f"(graph of launches), plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by bytes ({r['bytes']} B, "
+              f"{r['touched']} entries touched), err {r['max_abs_err']:.2e}",
+              flush=True)
+
+    leaves = tree_leaves(params)
+    grads = [torch.randn(t.shape, generator=gen, device=dev) * 1e-3
+             * (torch.rand(t.shape, generator=gen, device=dev) < 0.3)
+             for t in leaves]
+    mu = [torch.randn(t.shape, generator=gen, device=dev) * 1e-4
+          for t in leaves]
+    nu = [torch.rand(t.shape, generator=gen, device=dev) * 1e-7
+          for t in leaves]
+    opt = make_optimizer(1e-2, 0, cfg)
+    skip, l2 = opt.rules(params)
+    hyper = (opt.b1, opt.b2, opt.eps)
+    s = torch.tensor(opt.scalars(7), device=dev)
+
+    def same(got, want) -> bool:
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for x, y in zip(got, want) for a, b in zip(x, y))
+    got = fa.fused_adam(leaves, grads, mu, nu, s, *hyper, skip, l2)
+    want = fa.adam_plain(leaves, grads, mu, nu, s, *hyper, skip, l2)
+    torch.cuda.synchronize()
+    kept = all(torch.equal(got[j][k][grads[k] == 0],
+                           (leaves, mu, nu)[j][k][grads[k] == 0])
+               for k in range(cfg.n_levels) for j in range(3))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.fused_adam(leaves, grads, mu, nu, s, *hyper, skip, l2)
+    graph.replay()
+    torch.cuda.synchronize()
+    ok = same(got, want) and same(out, want) and kept
+    del graph, out
+    print(f"ngp adam: 21 leaves ({sum(skip)} skip-zero, "
+          f"{sum(f > 0 for f in l2)} with L2), p, m and v bitwise the plain "
+          f"version eagerly and replayed, zero-gradient entries kept: {ok}",
+          flush=True)
+    if not ok:
+        fail("fused_adam's skip-zero / L2 update differs from adam_plain")
+    values = sum(t.numel() for t in leaves)
+    updated = sum(int((g != 0).sum()) if k else g.numel()
+                  for g, k in zip(grads, skip))
+    nbytes = 4 * values + (ADAM_BYTES - 4) * updated
+    adam = {"name": "fused_adam", "shape": f"the NGP field's 21 leaves, "
+            f"{values} values, {updated} updated", "max_abs_err": 0.0,
+            "ms": device_ms(lambda: fa.fused_adam(
+                leaves, grads, mu, nu, s, *hyper, skip, l2), n=20),
+            "plain_ms": time_ms(lambda: fa.adam_plain(
+                leaves, grads, mu, nu, s, *hyper, skip, l2), reps=3),
+            "bound_ms": 1e3 * nbytes / H100_BYTES_PER_S, "bound_by": "bytes",
+            "bytes": nbytes}
+    print(f"ngp adam: fused_adam {adam['ms']:.4f} ms (graph of 20), plain "
+          f"{adam['plain_ms']:.3f} ms, bound {adam['bound_ms']:.4f} ms by "
+          f"bytes ({nbytes} B); card: {card}", flush=True)
+    he.stats.update(saved[0])
+    fa.fused_adam.launches, fa.adam_plain.calls = saved[1:]
+    return {"rows": rows, "adam": adam, "ptxas": ptxas}
+
+
+def phase_ngp_train(fm, card: str) -> dict:
+    """14b: the Instant-NGP field through ``Trainer`` (main path) at the
+    ``ngp-fern-train`` cell's shape: the published field, 1024 NDC rays of
+    a 378x504 image, 64 + 128 samples queried from one field (2^18 a
+    step), bf16, lr 1e-2: 3 single steps, then blocks of 10 graphed steps
+    (one captured after an eager warm-up, then replayed), 103 steps in
+    all. The hash kernels' and Adam's counters are set to 0 just before
+    and read just after (captured steps counted as they run, ``Graphs``):
+    every step launched 2 + 2 hash kernels and one Adam, no plain version
+    ran, the loss is finite and the table learned. The replayed blocks'
+    median ms a step by CUDA events."""
+    from cvnerf_torch.models.ngp_field import NgpFieldConfig
+    from cvnerf_torch.ops import adam as fa
+    from cvnerf_torch.ops import hash_encode as he
+    from cvnerf_torch.ops.rng import PRNGKey
+    from cvnerf_torch.render.renderer import RenderConfig
+    from cvnerf_torch.train.loop import TrainConfig, Trainer
+    from cvnerf_torch.train.state import create_train_state
+    field = NgpFieldConfig()
+    tcfg = TrainConfig(height=378, width=504, focal=407.6, near=0.0,
+                       far=1.0, n_rays=1024, lr=1e-2, lr_decay=0, ndc=True,
+                       render=RenderConfig(n_coarse=64, n_fine=128,
+                                           perturb=True, mlp=field,
+                                           compute_dtype=torch.bfloat16))
+    state = create_train_state(PRNGKey(SEED + 14), lr=tcfg.lr,
+                               lr_decay=tcfg.lr_decay, mlp=field,
+                               device="cuda")
+    table0 = state.params["field"]["table"]["0"].clone()
+    rng = np.random.default_rng(SEED)
+    images = rng.random((4, 378, 504, 3)).astype(np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32)[:3], (4, 1, 1))
+    poses[:, :, 3] = rng.normal(0.0, 0.05, (4, 3))
+    tr = Trainer(tcfg, state, images, poses, [0, 1, 2, 3], seed=SEED,
+                 steps_per_call=BLOCK)
+    saved = (fa.fused_adam.launches, fa.adam_plain.calls)
+    torch.cuda.synchronize()
+    for k in ("fwd_launches", "bwd_launches", "plain_calls", "samples",
+              "lookups"):
+        he.stats[k] = 0
+    fa.fused_adam.launches = fa.adam_plain.calls = 0
+    n_blocks = len(GRAPHS.blocks)
+    for j in range(3):
+        tr.run(j, j + 1)
+    tr.run(3, 3 + BLOCK)
+    times = []
+    for i in range(3 + BLOCK, 3 + 10 * BLOCK, BLOCK):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        m = tr.run(i, i + BLOCK)
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append(ev0.elapsed_time(ev1) / BLOCK)
+    counts = {"hash_fwd": he.stats["fwd_launches"],
+              "hash_bwd": he.stats["bwd_launches"],
+              "hash_plain": he.stats["plain_calls"],
+              "adam": fa.fused_adam.launches,
+              "adam_plain": fa.adam_plain.calls}
+    blocks = [b for b in GRAPHS.blocks[n_blocks:] if b["replayed"]]
+    warm = sum(b["captures"] for b in blocks)
+    steps = 3 + 10 * BLOCK
+    per_step = blocks[0]["per_step"] if blocks else {}
+    want = {"hash_fwd": 2 * (steps + warm), "hash_bwd": 2 * (steps + warm),
+            "hash_plain": 0, "adam": steps + warm, "adam_plain": 0}
+    learned = not torch.equal(tr.state.params["field"]["table"]["0"], table0)
+    med = float(np.median(times))
+    print(f"ngp train: {steps} steps (3 single, {len(blocks)} graphed "
+          f"blocks of {BLOCK}, {warm} eager warm-up steps), loss "
+          f"{m['loss']:.5f}, table learned {learned}; launches {counts} "
+          f"(expected {want}), a captured step "
+          f"{ {k: per_step.get(k) for k in ('hash_fwd', 'hash_bwd', 'adam')} }"
+          f"; {med:.3f} ms a step ({[round(t, 3) for t in times]}); "
+          f"trainer counters {tr.counters()}; card: {card}", flush=True)
+    if not (counts == want and np.isfinite(m["loss"]) and learned
+            and {k: per_step.get(k) for k in ("hash_fwd", "hash_bwd",
+                                                "adam")}
+            == {"hash_fwd": 2, "hash_bwd": 2, "adam": 1}):
+        fail("the NGP train step did not run exactly through its kernels")
+    fa.fused_adam.launches += saved[0]
+    fa.adam_plain.calls += saved[1]
+    return {"counts": counts, "step_ms": med, "steps": steps,
+            "warm_up_steps": warm, "loss": m["loss"]}
+
+
 # -- phase 13: a frame as one CUDA-graph dispatch ----------------------------
 
 FRAME_ROUNDS = 4              # interleaved rounds of eager and graphed frames
@@ -3700,6 +3976,7 @@ def main() -> int:
 
     global GRAPHS
     from cvnerf_torch.ops import adam as fa
+    from cvnerf_torch.ops import hash_encode as he
     from cvnerf_torch.ops import threefry as tf
     GRAPHS = Graphs(all_counters(fm, fb, fq))
     GRAPHS.install()
@@ -3719,6 +3996,8 @@ def main() -> int:
     draw_rows = phase_draws(fm, card)
     # -- 12e. Adam's kernel against its plain version ----------------------
     adam_row = phase_adam(fm, card)
+    # -- 14a. the NGP field's kernels against their plain versions --------
+    ngp = phase_ngp_kernels(fm, card)
     # From here on every draw and Adam launch counts (the comparisons above
     # are taken back off the counters).
     tf.threefry_bits.launches = tf.feistel_draw.launches = 0
@@ -3890,6 +4169,8 @@ def main() -> int:
     blocks = phase_blocks(fm, fb, fq, card)
     # -- 12c. blocks against single steps, timed -------------------------
     block_timing = phase_block_timing(fm, fb, fq, card)
+    # -- 14b. the NGP field through Trainer (main path) ------------------
+    ngp_train = phase_ngp_train(fm, card)
     late = [levers["counts"], lever_cli["counts"], band["counts"],
             occ_cli["counts"], shards["counts"], dist_cli["counts"],
             cli_spc["counts"], frame_counts, frame_seq["counts"],
@@ -4019,6 +4300,7 @@ def main() -> int:
     }]}
     fold = draw_rows[0]
     walk = draw_rows[1]
+    hash_stats = dict(he.stats)
     scan_note = {"blocks": blocks, "timing": block_timing,
                  "cli_spc": {k: v for k, v in cli_spc.items()
                              if k != "counts"},
@@ -4070,7 +4352,8 @@ def main() -> int:
         "launches": fa.fused_adam.launches, "max_abs_err": 0.0,
         "ms": adam_row["ms"], "plain_ms": adam_row["plain_ms"],
         "bound_ms": adam_row["bound_ms"], "bound_by": "bytes",
-        "library_ms": adam_row["library_ms"], "shapes": [adam_row],
+        "library_ms": adam_row["library_ms"],
+        "shapes": [adam_row, ngp["adam"]],
         "note": "no TPU kernel: the JAX package's optimizer is optax's adam "
                 "in plain jnp; ms at the lego nets' 48 leaves (1,191,688 "
                 "values), a launch of a CUDA graph of 200 (warm L2); "
@@ -4079,17 +4362,47 @@ def main() -> int:
                 "version never on the card; the bound counts 28 bytes a "
                 "value at 3.35 TB/s; library_ms: the same update through "
                 "torch._foreach_*; plain_ms: the plain version's 672 "
-                "launches in a CUDA graph",
+                "launches in a CUDA graph; shapes[1]: the NGP field's "
+                "skip-zero and L2 rules (phase 14a), bitwise adam_plain, "
+                "its bound the bytes of that run's gradients",
     }]
+    fwd_rows = [r for r in ngp["rows"] if r["name"] == "hash_encode_fwd"]
+    bwd_rows_ngp = [r for r in ngp["rows"] if r["name"] == "hash_encode_bwd"]
+
+    def step_sum(rs, key):
+        return sum(r[key] for r in rs if r["dtype"] == "bfloat16"
+                   or r["name"] == "hash_encode_bwd")
+    for name, rs, launches in (
+            ("hash_encode_fwd", fwd_rows, hash_stats["fwd_launches"]),
+            ("hash_encode_bwd", bwd_rows_ngp, hash_stats["bwd_launches"])):
+        report["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "cvnerf_torch/csrc/hash_encode.cu", "replaces": None,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": step_sum(rs, "ms"), "plain_ms": step_sum(rs, "plain_ms"),
+            "bound_ms": step_sum(rs, "bound_ms"), "bound_by": "bytes",
+            "library_ms": None, "shapes": rs, "ptxas": ngp["ptxas"][name],
+            "train": ngp_train if name == "hash_encode_fwd" else None,
+            "note": "no TPU kernel: the JAX package has no hash grid; "
+                    "ms/plain_ms/bound_ms a train step (the coarse and "
+                    "fine encodings, NGP_LAUNCHES samples; the forward's "
+                    "bfloat16 features, as the bf16 step reads them; the "
+                    "backward with its buffer's zeroing), phase 14a; "
+                    "launches: phase 14b's NGP steps (2 a step, as they "
+                    "ran), the plain version never; no single PyTorch "
+                    "call computes it, so library_ms is null"})
     if not (tf.threefry_bits.launches and tf.feistel_draw.launches):
         fail("the draw kernels did not launch on the main path")
     if not fa.fused_adam.launches or fa.adam_plain.calls:
         fail("Adam did not run through its kernel on the main path")
+    if not hash_stats["fwd_launches"] or hash_stats["plain_calls"]:
+        fail("the hash kernels did not run on the main path")
     print(json.dumps(report), flush=True)
     print(f"card: {card}", flush=True)
     print('kernels: ["fused_nerf_apply", "fused_nerf_bwd", '
           '"fused_nerf_apply_int8", "threefry_bits", "feistel_draw", '
-          '"fused_adam"]', flush=True)
+          '"fused_adam", "hash_encode_fwd", "hash_encode_bwd"]', flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

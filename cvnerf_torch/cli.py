@@ -246,6 +246,7 @@ def _run(args, dev, run_dir: str) -> dict:
     from cvnerf_torch.data.datasets import load_scene
     from cvnerf_torch.models.nerf_mlp import (NerfMLPConfig,
                                               anneal_model_params)
+    from cvnerf_torch.models.ngp_field import NgpFieldConfig
     from cvnerf_torch.ops.fused_mlp import FusedNerfWeights
     from cvnerf_torch.ops.rng import PRNGKey
     from cvnerf_torch.parallel.mesh import make_mesh
@@ -300,9 +301,23 @@ def _run(args, dev, run_dir: str) -> dict:
               "port has no separate network chunking")
 
     # --- model / state ---
-    mlp = NerfMLPConfig(xyz_freqs=args.xyz_freqs, dir_freqs=args.dir_freqs,
-                        trunk_width=args.trunk_width,
-                        head_width=args.head_width)
+    if args.model == "ngp":
+        # The published widths; the grid spans the NDC cube, or the
+        # --occupancy_bound cube around the scene's origin.
+        mlp = NgpFieldConfig(bound=1.0 if scene.ndc
+                             else args.occupancy_bound)
+        nerf_only = [flag for flag, on in (
+            ("--occ_train", args.occ_train), ("--occupancy", args.occupancy),
+            ("--int8", args.int8), ("--freq_anneal", args.freq_anneal > 0))
+            if on]
+        if nerf_only:
+            sys.exit(f"--model ngp trains and renders without "
+                     f"{', '.join(nerf_only)} (NeRF's levers)")
+    else:
+        mlp = NerfMLPConfig(xyz_freqs=args.xyz_freqs,
+                            dir_freqs=args.dir_freqs,
+                            trunk_width=args.trunk_width,
+                            head_width=args.head_width)
     if args.occ_train and args.n_fine_samples <= 0:
         sys.exit("--occ_train requires n_fine_samples > 0 (occupancy "
                  "sampling resamples n_fine points from the grid probe "
@@ -364,8 +379,8 @@ def _run(args, dev, run_dir: str) -> dict:
 
     def frame_nets(params: dict) -> dict:
         """The nets a render takes: packed once for the forward kernel, or
-        as they are for kernels="off"."""
-        if rcfg_test.kernels == "off":
+        as they are for kernels="off" and for an Instant-NGP field."""
+        if rcfg_test.kernels == "off" or args.model == "ngp":
             return params
         return {k: FusedNerfWeights(v, mlp, rcfg_test.compute_dtype)
                 for k, v in params.items()}

@@ -265,6 +265,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="positional-encoding L for xyz")
     p.add_argument("--dir_freqs", type=int, default=4,
                    help="positional-encoding L for view directions")
+    p.add_argument("--model", type=str, default="nerf",
+                   choices=["nerf", "ngp"],
+                   help="the field: nerf (two MLPs, coarse and fine) or ngp "
+                        "(Instant-NGP's hash grid and small MLPs at the "
+                        "published widths, one field for both passes; "
+                        "train it with --lr 1e-2)")
     p.add_argument("--coordinator", type=str, default=None,
                    help="multi-process coordinator address host:port — one "
                         "process per card (NCCL; gloo under --device cpu); "
@@ -374,9 +380,13 @@ def resolve_freq_anneal(value: float | None, iters: int) -> int | None:
 
 
 def snapshot_config(args: argparse.Namespace, run_dir: str) -> str:
-    """Write the fully-resolved config to the run directory."""
+    """Write the fully-resolved config to the run directory (a NeRF run's
+    without ``--model``, so that it is the JAX CLI's)."""
     os.makedirs(run_dir, exist_ok=True)
     path = os.path.join(run_dir, "config_resolved.json")
+    out = dict(vars(args))
+    if out.get("model", "nerf") == "nerf":
+        out.pop("model", None)
     with open(path, "w") as fp:
-        json.dump(vars(args), fp, indent=2, sort_keys=True)
+        json.dump(out, fp, indent=2, sort_keys=True)
     return path

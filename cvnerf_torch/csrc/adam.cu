@@ -18,6 +18,11 @@
 // one value) over a grid sized from the SM count, and finds its leaf by a
 // binary search of the table's unit offsets.
 //
+// Two per-leaf rules, for the Instant-NGP field (models/ngp_field.py): an L2
+// factor (g += l2 p, the paper's L2 on the MLP weights) and skip_zero (a
+// value whose gradient is exactly 0 keeps p, m and v: table entries no
+// sample touched). A leaf with neither computes what it did before.
+//
 // Bitwise the plain version: each op of adam_plain rounds once in float32 and
 // PyTorch contracts nothing, so the kernel writes each op as its correctly
 // rounded intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), which nvcc
@@ -32,10 +37,12 @@ constexpr int kLeaves = 56;
 
 struct Table {
   const float* scalars;  // [3] on the card: -lr, 1 - b1^t, 1 - b2^t
+  unsigned long long skip_zero;  // bit i: leaf i skips exactly-zero grads
   float c1, b1, c2, b2, eps;  // 1 - b1, b1, 1 - b2, b2, eps as float32
   int leaves;
   long long start[kLeaves + 1];  // first unit of each leaf; start[leaves]: all
-  long long nvec[kLeaves];       // units of four values (the rest: of one)
+  int nvec[kLeaves];             // units of four values (the rest: of one)
+  float l2[kLeaves];             // each leaf's L2 factor (0: none)
   const float* p[kLeaves];
   const float* g[kLeaves];
   const float* m[kLeaves];
@@ -50,10 +57,20 @@ struct Scalars {
   float step, bc1, bc2, c1, b1, c2, b2, eps;
 };
 
-// One value: adam_plain's ops in its order, each rounded once.
+// One value: adam_plain's ops in its order, each rounded once; with an L2
+// factor the gradient takes l2 p first, and under skip_zero a zero gradient
+// leaves the value as it was.
 __device__ __forceinline__ void adam_value(const Scalars& s, float p, float g,
                                            float m, float v, float& p_out,
-                                           float& m_out, float& v_out) {
+                                           float& m_out, float& v_out,
+                                           float l2, bool skip) {
+  if (l2 != 0.f) g = __fadd_rn(g, __fmul_rn(l2, p));
+  if (skip && g == 0.f) {
+    p_out = p;
+    m_out = m;
+    v_out = v;
+    return;
+  }
   m_out = __fadd_rn(__fmul_rn(s.c1, g), __fmul_rn(s.b1, m));
   v_out = __fadd_rn(__fmul_rn(s.c2, __fmul_rn(g, g)), __fmul_rn(s.b2, v));
   const float denom = __fadd_rn(__fsqrt_rn(__fdiv_rn(v_out, s.bc2)), s.eps);
@@ -75,16 +92,22 @@ __global__ void __launch_bounds__(256)
       if (t.start[mid] <= u) lo = mid; else hi = mid - 1;
     }
     const long long k = u - t.start[lo], nvec = t.nvec[lo];
+    const float l2 = t.l2[lo];
+    const bool skip = (t.skip_zero >> lo) & 1ull;
     if (k < nvec) {
       const float4 p = __ldg(reinterpret_cast<const float4*>(t.p[lo]) + k);
       const float4 g = __ldg(reinterpret_cast<const float4*>(t.g[lo]) + k);
       const float4 m = __ldg(reinterpret_cast<const float4*>(t.m[lo]) + k);
       const float4 v = __ldg(reinterpret_cast<const float4*>(t.v[lo]) + k);
       float4 po, mo, vo;
-      adam_value(s, p.x, g.x, m.x, v.x, po.x, mo.x, vo.x);
-      adam_value(s, p.y, g.y, m.y, v.y, po.y, mo.y, vo.y);
-      adam_value(s, p.z, g.z, m.z, v.z, po.z, mo.z, vo.z);
-      adam_value(s, p.w, g.w, m.w, v.w, po.w, mo.w, vo.w);
+      adam_value(s, p.x, g.x, m.x, v.x, po.x, mo.x, vo.x, l2,
+                 skip);
+      adam_value(s, p.y, g.y, m.y, v.y, po.y, mo.y, vo.y, l2,
+                 skip);
+      adam_value(s, p.z, g.z, m.z, v.z, po.z, mo.z, vo.z, l2,
+                 skip);
+      adam_value(s, p.w, g.w, m.w, v.w, po.w, mo.w, vo.w, l2,
+                 skip);
       reinterpret_cast<float4*>(t.p_out[lo])[k] = po;
       reinterpret_cast<float4*>(t.m_out[lo])[k] = mo;
       reinterpret_cast<float4*>(t.v_out[lo])[k] = vo;
@@ -92,7 +115,7 @@ __global__ void __launch_bounds__(256)
       const long long i = 4 * nvec + (k - nvec);
       adam_value(s, __ldg(t.p[lo] + i), __ldg(t.g[lo] + i),
                  __ldg(t.m[lo] + i), __ldg(t.v[lo] + i), t.p_out[lo][i],
-                 t.m_out[lo][i], t.v_out[lo][i]);
+                 t.m_out[lo][i], t.v_out[lo][i], l2, skip);
     }
   }
 }
@@ -106,17 +129,19 @@ int cvnerf_fused_adam_table_leaves() { return kLeaves; }
 
 // One launch over `leaves` leaves: ptrs holds 7 device pointers a leaf (p, g,
 // m, v, p_out, m_out, v_out), nvec its units of four values and nsingle its
-// units of one; scalars points to the step's [-lr, bc1, bc2] on the card.
+// units of one, skip_zero its flag and l2 its L2 factor; scalars points to the step's [-lr, bc1, bc2] on the card.
 // Launches `grid` blocks of 256 threads on `stream`; returns
 // cudaGetLastError() of the launch, or cudaErrorInvalidValue for a table
 // that does not fit.
 int cvnerf_fused_adam(const long long* ptrs, const long long* nvec,
-                      const long long* nsingle, int leaves,
-                      const void* scalars, float c1, float b1, float c2,
-                      float b2, float eps, int grid, void* stream) {
+                      const long long* nsingle, const int* skip_zero,
+                      const float* l2, int leaves, const void* scalars,
+                      float c1, float b1, float c2, float b2, float eps,
+                      int grid, void* stream) {
   if (leaves < 1 || leaves > kLeaves || grid < 1) return cudaErrorInvalidValue;
   Table t;
   t.scalars = (const float*)scalars;
+  t.skip_zero = 0;
   t.c1 = c1; t.b1 = b1; t.c2 = c2; t.b2 = b2; t.eps = eps;
   t.leaves = leaves;
   t.start[0] = 0;
@@ -129,7 +154,10 @@ int cvnerf_fused_adam(const long long* ptrs, const long long* nvec,
     t.p_out[i] = (float*)q[4];
     t.m_out[i] = (float*)q[5];
     t.v_out[i] = (float*)q[6];
-    t.nvec[i] = nvec[i];
+    if (nvec[i] > 0x7fffffffLL) return cudaErrorInvalidValue;
+    t.nvec[i] = (int)nvec[i];
+    t.l2[i] = l2[i];
+    if (skip_zero[i]) t.skip_zero |= 1ull << i;
     t.start[i + 1] = t.start[i] + nvec[i] + nsingle[i];
   }
   fused_adam_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(t);

@@ -7,8 +7,9 @@ both inputs followed by the full 12-layer MLP and returns ``[n, 4]`` raw
 kernel in ``cvnerf_torch/csrc/fused_mlp.cu`` (or raises); for CPU tensors it
 runs :func:`fused_nerf_plain`. Each kernel source in ``SOURCES`` (this
 forward, the backward of ``ops/fused_mlp_bwd.py``, the int8 forward of
-``ops/fused_mlp_int8.py``, the draws of ``ops/threefry.py`` and Adam's
-update of ``ops/adam.py``) is compiled with
+``ops/fused_mlp_int8.py``, the draws of ``ops/threefry.py``, Adam's
+update of ``ops/adam.py`` and the hash encoding of ``ops/hash_encode.py``)
+is compiled with
 ``nvcc`` at first use into its own library under
 ``build/cvnerf_torch_kernels/`` (keyed by the hash of the source and the
 shared headers) and bound with ``ctypes``; nothing is built at import time.
@@ -42,7 +43,8 @@ SOURCES = {"fused_mlp": _CSRC / "fused_mlp.cu",
            "fused_mlp_bwd": _CSRC / "fused_mlp_bwd.cu",
            "fused_mlp_int8": _CSRC / "fused_mlp_int8.cu",
            "threefry": _CSRC / "threefry.cu",
-           "adam": _CSRC / "adam.cu"}
+           "adam": _CSRC / "adam.cu",
+           "hash_encode": _CSRC / "hash_encode.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cvnerf_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

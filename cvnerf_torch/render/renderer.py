@@ -27,6 +27,10 @@ into contiguous shards with their global ids, renders each shard on its
 device and puts the shards back in order (across processes through an
 ``all_gather``, so every rank holds the whole result); the draws' keying
 makes that bitwise the unsharded render, up to the kernels' own rounding.
+An ``NgpFieldConfig`` in ``RenderConfig.mlp`` renders the Instant-NGP
+field (``models/ngp_field.py``): ``params["field"]`` is queried by both
+passes, through the hash-encode kernels (their plain version for CPU
+tensors or ``kernels="off"``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import dataclasses
 import torch
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, apply_nerf
+from cvnerf_torch.models.ngp_field import apply_ngp, is_ngp
 from cvnerf_torch.ops.compositing import volume_render
 from cvnerf_torch.ops.encoding import freq_encode
 from cvnerf_torch.ops.fused_mlp import FusedNerfWeights, fused_nerf_apply
@@ -130,6 +135,9 @@ def _query_mlp(net, points: torch.Tensor, viewdirs: torch.Tensor,
     through the kernel's plain version, ``fused_nerf_int8_plain``.
     """
     shape = (*points.shape[:2], 4)
+    if is_ngp(cfg.mlp):
+        return apply_ngp(net, points, viewdirs, cfg.mlp, cfg.compute_dtype,
+                         cfg.kernels)
     if isinstance(net, (QuantizedNerfWeights, QuantizedNerfParams)):
         if cfg.kernels == "off":
             qp = net.qp if isinstance(net, QuantizedNerfWeights) else net
@@ -169,6 +177,12 @@ def _encoded(points: torch.Tensor, viewdirs: torch.Tensor, mlp):
                                                  dir_enc.shape[-1])
 
 
+def _net(params: dict, name: str, cfg: RenderConfig):
+    """The net a pass queries: ``params[name]``, or the Instant-NGP
+    field, which serves both passes."""
+    return params["field"] if is_ngp(cfg.mlp) else params[name]
+
+
 def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
                 viewdirs: torch.Tensor, near, far, cfg: RenderConfig,
                 key: torch.Tensor | None = None,
@@ -181,7 +195,8 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
     Args:
         params: ``{"coarse": net, "fine": net}``, each a params dict, a
             :class:`FusedNerfWeights`, or int8 params
-            (``QuantizedNerfParams`` / ``QuantizedNerfWeights``).
+            (``QuantizedNerfParams`` / ``QuantizedNerfWeights``); or
+            ``{"field": ...}``, an Instant-NGP field.
         rays_o, rays_d: ``[n_rays, 3]`` (possibly NDC-warped) rays.
         viewdirs: ``[n_rays, 3]`` unit directions of the pre-NDC rays.
         near, far: scalars or ``[n_rays]`` bounds.
@@ -226,7 +241,7 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
         coarse = volume_render(raw, t_coarse, rays_d, noise_std=0.0,
                                white_bkg=cfg.white_bkg, noise=None)
     else:
-        raw = _query_mlp(params["coarse"], points, viewdirs, cfg)
+        raw = _query_mlp(_net(params, "coarse", cfg), points, viewdirs, cfg)
         noise_c = (ray_normal(key, 3, ray_ids, cfg.n_coarse) * noise_scale
                    if cfg.noise_std > 0 else None)
         coarse = volume_render(raw, t_coarse, rays_d,
@@ -275,7 +290,7 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
         t_fine = t_coarse
 
     points = rays_o[..., None, :] + rays_d[..., None, :] * t_fine[..., :, None]
-    raw = _query_mlp(params["fine"], points, viewdirs, cfg)
+    raw = _query_mlp(_net(params, "fine", cfg), points, viewdirs, cfg)
     noise_f = (ray_normal(key, 4, ray_ids, t_fine.shape[-1]) * noise_scale
                if cfg.noise_std > 0 else None)
     fine = volume_render(raw, t_fine, rays_d, noise_std=cfg.noise_std,

@@ -32,6 +32,11 @@ default) a host with several cards, or a process group with several
 ranks, splits each chunk's rays over a ``'rays'`` mesh
 (``parallel/mesh.py``) with the nets and the grid replicated over it; on
 one card there is no mesh.
+
+An Instant-NGP run (``models/ngp_field.py``; its ``scene.json`` says
+``"model": "ngp"``, its checkpoints hold the field's tree) serves through
+the same frame programs, the field as it is (nothing to pack); int8,
+occupancy and meshing are NeRF's alone.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import torch
 
 from cvnerf_torch import resolve_device
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, anneal_model_params
+from cvnerf_torch.models.ngp_field import NgpFieldConfig, is_ngp
 from cvnerf_torch.ops.fused_mlp import FusedNerfWeights
 from cvnerf_torch.ops.fused_mlp_int8 import QuantizedNerfWeights
 from cvnerf_torch.ops.quantize import (calibration_samples, quantize_nerf,
@@ -56,6 +62,7 @@ from cvnerf_torch.render.occupancy import (bake_scene_occupancy,
 from cvnerf_torch.ops.rng import PRNGKey
 from cvnerf_torch.parallel.mesh import Mesh, make_mesh, replicate_to_mesh
 from cvnerf_torch.render.renderer import RenderConfig
+from cvnerf_torch.train.checkpoint import load_ngp_checkpoint
 from cvnerf_torch.utils.convert import load_torch_checkpoint
 
 SCENE_SNAPSHOT = "scene.json"
@@ -140,6 +147,8 @@ def write_scene_snapshot(run_dir: str, *, height: int, width: int,
         "sorted_resample": bool(sorted_resample), "pallas": pallas,
         "mlp": dataclasses.asdict(mlp),
     }
+    if is_ngp(mlp):
+        payload["model"] = "ngp"
     if ema_decay > 0:
         payload["ema_decay"] = float(ema_decay)
     if freq_anneal > 0:
@@ -210,6 +219,9 @@ class NerfRenderer:
         # The renderer's frame programs: one a frame shape and net kind.
         self.programs = FramePrograms()
 
+        if is_ngp(self.cfg.mlp):
+            self._load_ngp(ckpt_path)
+            return
         params, found, step = load_torch_checkpoint(ckpt_path)
         if found != self.cfg.mlp:
             raise ValueError(f"{ckpt_path} holds architecture {found}, the "
@@ -236,6 +248,25 @@ class NerfRenderer:
                  for k, net in self.params.items()})
         else:
             self._nets = self._placed(self.params)
+
+    def _load_ngp(self, ckpt_path: str) -> None:
+        """An Instant-NGP checkpoint, checked against the configured
+        field's shapes, on the renderer's device; served as it is."""
+        from cvnerf_torch.models.ngp_field import empty_ngp_params
+        from cvnerf_torch.train.checkpoint import match_tree
+        params, step = load_ngp_checkpoint(ckpt_path)
+        want = empty_ngp_params(self.cfg.mlp)
+        self.step = 0 if step is None else step
+        self.params = match_tree(params, want, ckpt_path, "params",
+                                 self.device)
+        self._float_params = self.params
+        self.calib_poses = None
+        self._nets = self._placed(self.params)
+
+    def _nerf_only(self, what: str) -> None:
+        if is_ngp(self.cfg.mlp):
+            raise ValueError(f"{what} is NeRF's: an Instant-NGP field "
+                             "serves without it")
 
     def _placed(self, x):
         """``x`` replicated over the mesh, or as it is without one."""
@@ -274,9 +305,11 @@ class NerfRenderer:
                 f"{path} not found — {run_dir!r} is not a run directory")
         if which not in ("auto", "best", "last"):
             raise ValueError(f"which must be auto|best|last, got {which!r}")
+        mlp = (NgpFieldConfig(**geo["mlp"]) if geo.get("model") == "ngp"
+               else NerfMLPConfig(**geo["mlp"]))
         cfg = RenderConfig(
             n_coarse=geo["n_coarse"], n_fine=geo["n_fine"],
-            white_bkg=geo["white_bkg"], mlp=NerfMLPConfig(**geo["mlp"]),
+            white_bkg=geo["white_bkg"], mlp=mlp,
             compute_dtype=torch.bfloat16 if geo.get("bf16") else torch.float32,
             sorted_resample=geo.get("sorted_resample", True),
             kernels="off" if geo.get("pallas", "auto") == "off" else "on")
@@ -352,6 +385,7 @@ class NerfRenderer:
         The bake reflects the current weights: re-enable after loading
         others. With ``require_occupied``, an empty bake keeps grid-less
         serving, with a warning. Returns self."""
+        self._nerf_only("occupancy")
         if mode not in ("merge", "full"):
             raise ValueError(f"mode must be 'merge' or 'full', got {mode!r}")
         if interp not in ("trilinear", "nearest"):
@@ -394,6 +428,7 @@ class NerfRenderer:
         (``bound=None`` → ``far``), a heuristic: rays reach ``|origin| +
         far``, and an under-sized box clips the position encoding.
         """
+        self._nerf_only("int8 serving")
         key = PRNGKey(seed)
         if poses is None:
             poses = self.calib_poses
@@ -428,6 +463,7 @@ class NerfRenderer:
         the float master copy: in the NDC box for an NDC-trained run (the
         only region it was queried in), else the ``±bound`` cube."""
         from cvnerf_torch.render.mesh import extract_mesh
+        self._nerf_only("meshing")
         bbox_min, bbox_max = scene_bbox(self.ndc, bound)
         if net == "fine" and self.cfg.n_fine == 0:
             net = "coarse"

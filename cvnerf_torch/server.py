@@ -43,6 +43,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from cvnerf_torch.ops import hash_encode
 from cvnerf_torch.serve import NerfRenderer
 from cvnerf_torch.utils import tracing
 from cvnerf_torch.utils.image import to_byte
@@ -337,6 +338,10 @@ class NerfRequestHandler(BaseHTTPRequestHandler):
             # back as a new capture); a copy taken without the frame lock,
             # which a frame holds through its device work.
             "frame_stats": dict(r.programs.stats),
+            # The hash encoding's launches, samples and lookups (an
+            # Instant-NGP field's; zeros for NeRF), counted at eager calls
+            # and captures.
+            "hash_stats": dict(hash_encode.stats),
         })
 
     def _read_json_body(self) -> dict | None:

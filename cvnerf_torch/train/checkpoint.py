@@ -17,6 +17,12 @@ the same layout, so ``torch.load(weights_only=True)`` reads the file and
 ``load_torch_checkpoint`` and ``NerfRenderer`` serve it as they serve an
 exported one. ``raw_params`` marks weights saved as training holds them
 (not windowed for serving, as ``cvnerf-import --export`` writes them).
+
+A state of the Instant-NGP field (``{"field": ...}`` params) is saved as
+its trees, ``{"model": "ngp", "params": tree, "step": N, "opt_state":
+{"count", "mu": tree, "nu": tree}, "raw_params": True}`` (and
+``"ema_params": tree``); a params-only file (``{"model": "ngp", "params":
+tree}``) serves too (``load_ngp_checkpoint``).
 """
 
 from __future__ import annotations
@@ -54,12 +60,27 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
+def _host(tree: dict) -> dict:
+    return {k: _host(v) if isinstance(v, dict) else v.detach().cpu().clone()
+            for k, v in tree.items()}
+
+
 def _payload(state: TrainState) -> dict:
     """The checkpoint of ``state``, copied to the host."""
+    opt = state.opt_state
+    if "field" in state.params:
+        out = {"model": "ngp", "params": _host(state.params),
+               "step": int(state.step),
+               "opt_state": {"count": int(opt.count), "mu": _host(opt.mu),
+                             "nu": _host(opt.nu)},
+               "raw_params": True}
+        if state.ema_params is not None:
+            out["ema_params"] = _host(state.ema_params)
+        return out
+
     def sds(tree):
         return {net: torch_state_dict_from_params(p)
                 for net, p in tree.items()}
-    opt = state.opt_state
     out = {**sds(state.params), "step": int(state.step),
            "opt_state": {"count": int(opt.count), "mu": sds(opt.mu),
                          "nu": sds(opt.nu)},
@@ -171,8 +192,47 @@ def restore_params(ckpt_dir: str, step: int | None = None,
     path = _find(ckpt_dir, step)
     if path is None:
         raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}")
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(blob, dict) and blob.get("model") == "ngp":
+        params, found = _ngp_params(blob, prefer_ema)
+        return params, int(found or 0)
     params, _, found = load_torch_checkpoint(path, prefer_ema=prefer_ema)
     return params, int(found or 0)
+
+
+def load_ngp_checkpoint(path: str, prefer_ema: bool = True
+                        ) -> tuple[dict, int | None]:
+    """An Instant-NGP checkpoint's params (on the CPU) and step (None where
+    the file has none): the Polyak average of an EMA run unless
+    ``prefer_ema=False``."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(blob, dict) or blob.get("model") != "ngp":
+        raise ValueError(f"{path} holds no Instant-NGP field")
+    return _ngp_params(blob, prefer_ema)
+
+
+def _ngp_params(blob: dict, prefer_ema: bool) -> tuple[dict, int | None]:
+    params = blob["params"]
+    if prefer_ema and isinstance(blob.get("ema_params"), dict):
+        params = blob["ema_params"]
+    step = blob.get("step")
+    return params, None if step is None else int(step)
+
+
+def match_tree(got: dict, want: dict, path: str, what: str, device) -> dict:
+    """``got`` in ``want``'s layout and leaf order on ``device``; raises
+    where a leaf is missing or of another shape."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise ValueError(f"{path}: {what} holds keys "
+                             f"{sorted(got) if isinstance(got, dict) else got}"
+                             f", the run expects {sorted(want)}")
+        return {k: match_tree(got[k], v, path, f"{what}.{k}", device)
+                for k, v in want.items()}
+    if got.shape != want.shape:
+        raise ValueError(f"{path}: {what} has shape {tuple(got.shape)}, "
+                         f"the run expects {tuple(want.shape)}")
+    return got.to(device)
 
 
 def restore_checkpoint(ckpt_dir: str, template: TrainState,
@@ -197,6 +257,25 @@ def restore_checkpoint(ckpt_dir: str, template: TrainState,
             "(python -m cvnerf_torch.utils.convert <file.pt> <run>) and "
             "pass --ft_path <run>/torch_checkpoints")
     device = tree_leaves(template.params)[0].device
+    if blob.get("model") == "ngp" or "field" in template.params:
+        if blob.get("model") != "ngp" or "field" not in template.params:
+            raise ValueError(f"{path}: the checkpoint's model and the run's "
+                             f"differ (one is an Instant-NGP field)")
+        opt = blob["opt_state"]
+        def tree(got, what):
+            return match_tree(got, template.params, path, what, device)
+        params = tree(blob["params"], "params")
+        stored = blob.get("ema_params")
+        ema = None
+        if template.ema_params is not None:
+            ema = (tree(stored, "ema_params") if stored is not None
+                   else clone_tree(params))
+        return TrainState(
+            params=params,
+            opt_state=AdamState(count=int(opt["count"]),
+                                mu=tree(opt["mu"], "mu"),
+                                nu=tree(opt["nu"], "nu")),
+            step=int(blob["step"]), ema_params=ema)
 
     def nets(sds: dict, what: str) -> dict:
         out = {}

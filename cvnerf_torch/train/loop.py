@@ -32,6 +32,12 @@ decay, the count advances, as optax does), and their updates are zeroed,
 so the coarse net stays as it was at the switch. ``Trainer.set_occupancy``
 and ``maybe_set_occupancy`` install the grid.
 
+The Instant-NGP field (``models/ngp_field.py``, an ``NgpFieldConfig`` in
+``RenderConfig.mlp``; ``TrainConfig.model`` reads ``"ngp"``) trains on the
+same path: its params are ``{"field": ...}``, queried by both passes, and
+its optimizer is the paper's (``optimizer_for``). Occupancy training and the
+frequency anneal are NeRF's alone.
+
 Data parallelism (``parallel/mesh.py``): ``make_train_step(cfg, mesh)``
 splits the ray batch over the mesh's ``'rays'`` axis. Every shard draws
 the same global batch from the same key (pixels, ray batching, precrop;
@@ -71,6 +77,8 @@ import torch
 
 from cvnerf_torch import staged
 from cvnerf_torch.models.nerf_mlp import anneal_model_params
+from cvnerf_torch.models.ngp_field import is_ngp
+from cvnerf_torch.ops import hash_encode
 from cvnerf_torch.ops.compositing import distortion_loss, occlusion_loss
 from cvnerf_torch.ops.rays import (ndc_rays, rays_for_pixels,
                                    rays_for_pixels_batched)
@@ -83,8 +91,9 @@ from cvnerf_torch.parallel.mesh import (Mesh, Replicated, ray_sharding,
 from cvnerf_torch.render.occupancy import occupied_fraction
 from cvnerf_torch.render.renderer import RenderConfig, render_rays
 from cvnerf_torch.train.state import (Adam, AdamState, TrainState,
-                                      clone_tree, ema_update, make_optimizer,
-                                      tree_leaves)
+                                      clone_tree, ema_update,
+                                      make_optimizer, tree_leaves, tree_like,
+                                      tree_map)
 from cvnerf_torch.utils import tracing
 from cvnerf_torch.utils.graphs import GraphProgram
 
@@ -120,9 +129,24 @@ class TrainConfig:
     fused_allreduce: bool = False
     render: RenderConfig = RenderConfig()
 
+    @property
+    def model(self) -> str:
+        """The field kind: ``"ngp"`` for an ``NgpFieldConfig`` in
+        ``render.mlp``, else ``"nerf"``."""
+        return "ngp" if is_ngp(self.render.mlp) else "nerf"
 
-def check_supported(cfg: TrainConfig) -> None:
-    """Raise for the JAX step's invalid configurations."""
+
+def optimizer_for(cfg: TrainConfig) -> Adam:
+    """The optimizer of ``cfg``'s model (``state.make_optimizer``)."""
+    return make_optimizer(cfg.lr, cfg.lr_decay, cfg.render.mlp)
+
+
+def check_supported(cfg: TrainConfig, with_occupancy: bool = False) -> None:
+    """Raise for the JAX step's invalid configurations, and for the levers
+    the Instant-NGP field does not take."""
+    if cfg.model == "ngp" and (with_occupancy or cfg.freq_anneal > 0):
+        raise ValueError("the Instant-NGP field trains without occupancy "
+                         "training and without freq_anneal")
     if cfg.pixel_sampling not in ("prp", "parity", "replace"):
         raise ValueError(f"bad pixel_sampling: {cfg.pixel_sampling!r}")
     if cfg.n_rays > cfg.height * cfg.width and not cfg.ray_batching:
@@ -214,18 +238,20 @@ def step_row(cfg: TrainConfig, opt: Adam, step: int,
 
 
 def _build_step_core(cfg: TrainConfig, mesh: Mesh | None,
-                     with_occupancy: bool) -> Callable:
+                     with_occupancy: bool, opt: Adam | None = None
+                     ) -> Callable:
     """``core(state, occupancy, key, row, images, poses, train_idx,
     precrop) -> (new_state, metrics)``: the step of ``make_train_step``
     with its scalars read from ``row`` (a float32 ``[len(ROW)]`` tensor on
     the params' device) and not from ``state.step`` or the Adam count, so
-    the same function runs eagerly and inside a captured graph."""
+    the same function runs eagerly and inside a captured graph. ``opt``:
+    the optimizer (default ``optimizer_for(cfg)``)."""
     if mesh is not None and cfg.n_rays % mesh.size != 0:
         raise ValueError(
             f"n_rays={cfg.n_rays} must be divisible by the mesh size "
             f"{mesh.size}")
-    check_supported(cfg)
-    opt = make_optimizer(cfg.lr, cfg.lr_decay)
+    check_supported(cfg, with_occupancy)
+    opt = opt or optimizer_for(cfg)
     rcfg = cfg.render
     if cfg.distortion_loss > 0.0 or cfg.occlusion_loss > 0.0:
         # The regularizers read the fine pass's weights and depths.
@@ -348,21 +374,15 @@ def _build_step_core(cfg: TrainConfig, mesh: Mesh | None,
                                        to_device(images, dev),
                                        to_device(poses, dev), train_idx,
                                        precrop)
-                params[dev] = {
-                    net: {name: {p: t.detach().requires_grad_()
-                                 for p, t in layer.items()}
-                          for name, layer in tree.items()}
-                    for net, tree in to_device(state.params, dev).items()}
+                params[dev] = tree_map(lambda t: t.detach().requires_grad_(),
+                                        to_device(state.params, dev))
                 occ[dev] = (None if occupancy is None
                             else to_device(occupancy, dev))
             per_shard.append(shard_grads(params[dev], occ[dev], k_render,
                                          batch[dev], rows, row))
         loss, mse_fine, flat = average(per_shard,
                                        tree_leaves(state.params))
-        it = iter(to_device(g, home) for g in flat)
-        grads = {net: {name: {p: next(it) for p in layer}
-                       for name, layer in tree.items()}
-                 for net, tree in state.params.items()}
+        grads = tree_like(state.params, [to_device(g, home) for g in flat])
         new_params, opt_state = opt.update(grads, state.opt_state,
                                            state.params, row[:3])
         if with_occupancy:
@@ -385,7 +405,8 @@ def _build_step_core(cfg: TrainConfig, mesh: Mesh | None,
 
 
 def make_train_step(cfg: TrainConfig, mesh: Mesh | None = None,
-                    with_occupancy: bool = False) -> Callable:
+                    with_occupancy: bool = False,
+                    opt: Adam | None = None) -> Callable:
     """``step_fn(state, key, images, poses, train_idx, precrop) ->
     (new_state, metrics)``: the JAX ``make_train_step(cfg, mesh=None)``.
     ``images [N, H, W, 3]`` and ``poses [N, 3, 4]`` lie on the params'
@@ -397,9 +418,10 @@ def make_train_step(cfg: TrainConfig, mesh: Mesh | None = None,
     step, see the module docstring). With ``mesh`` the batch is split over
     its shards (see the module docstring); ``n_rays`` must divide into
     them. The step's scalar row (``step_row`` of the state's step and Adam
-    count) goes to the device with one pinned copy."""
-    core = _build_step_core(cfg, mesh, with_occupancy)
-    opt = make_optimizer(cfg.lr, cfg.lr_decay)
+    count) goes to the device with one pinned copy. ``opt``: the
+    optimizer (default ``optimizer_for(cfg)``)."""
+    opt = opt or optimizer_for(cfg)
+    core = _build_step_core(cfg, mesh, with_occupancy, opt)
 
     def step_fn(state: TrainState, occupancy, key: torch.Tensor,
                 images, poses, train_idx: torch.Tensor, precrop: bool):
@@ -454,15 +476,15 @@ class _Block(GraphProgram):
     queued) or ``train.eager`` (its steps run eagerly)."""
 
     def __init__(self, cfg: TrainConfig, block: int, mesh: Mesh | None,
-                 with_occupancy: bool):
+                 with_occupancy: bool, opt: Adam | None = None):
         if block < 1:
             raise ValueError(f"block={block} must be positive")
         super().__init__("make_train_scan",
                          f"each block runs as {block} eager steps",
                          replayed_steps=0, eager_steps=0)
         self.cfg, self.block, self.mesh = cfg, block, mesh
-        self.core = _build_step_core(cfg, mesh, with_occupancy)
-        self.opt = make_optimizer(cfg.lr, cfg.lr_decay)
+        self.opt = opt or optimizer_for(cfg)
+        self.core = _build_step_core(cfg, mesh, with_occupancy, self.opt)
         self._bufs: dict | None = None
         self._graphs: dict = {}
 
@@ -581,7 +603,8 @@ class _Block(GraphProgram):
 
 
 def make_train_scan(cfg: TrainConfig, block: int, mesh: Mesh | None = None,
-                    with_occupancy: bool = False) -> Callable:
+                    with_occupancy: bool = False,
+                    opt: Adam | None = None) -> Callable:
     """``scan_fn(state, base_key, images, poses, train_idx, start, precrop)
     -> (new_state, last_metrics)`` runs ``block`` consecutive steps
     ``start .. start + block - 1`` (the JAX ``make_train_scan``; with
@@ -613,7 +636,7 @@ def make_train_scan(cfg: TrainConfig, block: int, mesh: Mesh | None = None,
     blocks run as eager steps and one line says so. Several cards in one
     process run eager steps (``eager_reason``), and the CPU runs the same
     body ``block`` times without a graph."""
-    runner = _Block(cfg, block, mesh, with_occupancy)
+    runner = _Block(cfg, block, mesh, with_occupancy, opt)
     if with_occupancy:
         def scan_fn(state: TrainState, occupancy, base_key: torch.Tensor,
                     images, poses, train_idx: torch.Tensor, start: int,
@@ -674,9 +697,12 @@ class Trainer:
                     f"{pool} pixels across the train split")
         self.cfg = cfg
         self.mesh = mesh
-        self.step_fn = make_train_step(cfg, mesh)
+        # One optimizer for every step function: its stats count them all.
+        self.opt = optimizer_for(cfg)
+        self.step_fn = make_train_step(cfg, mesh, opt=self.opt)
         self.steps_per_call = max(1, steps_per_call)
-        self.scan_fn = (make_train_scan(cfg, self.steps_per_call, mesh)
+        self.scan_fn = (make_train_scan(cfg, self.steps_per_call, mesh,
+                                        opt=self.opt)
                         if self.steps_per_call > 1 else None)
         self.state = state if mesh is None else to_device(state, mesh.home)
         # Occupancy training: set_occupancy installs a grid and the
@@ -716,11 +742,12 @@ class Trainer:
             self.occupancy = new
         if self._step_fn_occ is None:
             self._step_fn_occ = make_train_step(self.cfg, self.mesh,
-                                                with_occupancy=True)
+                                                with_occupancy=True,
+                                                opt=self.opt)
             if self.steps_per_call > 1:
                 self._scan_fn_occ = make_train_scan(
                     self.cfg, self.steps_per_call, self.mesh,
-                    with_occupancy=True)
+                    with_occupancy=True, opt=self.opt)
 
     def maybe_set_occupancy(self, grid, occupied_frac: float | None = None
                             ) -> str:
@@ -778,8 +805,19 @@ class Trainer:
         ``rays_per_sec`` over the window since the last callback."""
         if start >= iters:
             return dict(self._last_metrics)
-        with tracing.span("train.run", steps=iters - start):
-            return self._run(start, iters)
+        with tracing.span("train.run", steps=iters - start) as sp:
+            out = self._run(start, iters)
+            if self.cfg.model == "ngp":
+                sp.set(**self.counters())
+            return out
+
+    def counters(self) -> dict:
+        """The optimizer's counts (``Adam.stats``: updates, leaves and
+        values under ``skip_zero``) and the hash encoding's
+        (``ops/hash_encode.py::stats``, prefixed ``hash_``), as counted at
+        eager calls and captures."""
+        return {**self.opt.stats,
+                **{f"hash_{k}": v for k, v in hash_encode.stats.items()}}
 
     def _run(self, start: int, iters: int) -> dict:
         t0 = time.time()

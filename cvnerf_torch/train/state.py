@@ -15,6 +15,14 @@ JAX one; on a card an update of every leaf is one kernel launch
 (``ops/adam.py``).
 An EMA run (``--ema_decay``) also carries the Polyak average of the params
 (``ema_update``).
+
+The Instant-NGP field (``models/ngp_field.py``) trains with the paper's
+Adam (``make_optimizer(..., field=NgpFieldConfig)``): β₂ 0.99, ε 1e-15,
+an L2 of 1e-6 added to the MLP weights' gradients, and its table entries
+left untouched, moments and all, where their gradient is exactly 0 (leaves
+named by path prefix, ``skip_zero`` and ``l2_on``). ``Adam.stats`` counts
+updates and the leaves and values under ``skip_zero``, at eager calls and
+at captures.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 
 from cvnerf_torch import resolve_device
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
+from cvnerf_torch.models.ngp_field import init_ngp_params, is_ngp
 from cvnerf_torch.ops.adam import fused_adam
 from cvnerf_torch.ops.rng import split
 
@@ -43,16 +52,25 @@ class TrainState:
     """Everything that changes during training. ``ema_params`` is the
     Polyak average of the params (``--ema_decay``), the deployable weights
     of an EMA run; None when EMA is off."""
-    params: dict      # {"coarse": net, "fine": net}
+    params: dict      # {"coarse": net, "fine": net}, or {"field": ...}
     opt_state: AdamState
     step: int
     ema_params: dict | None = None
 
 
-def _tree_map(fn, *trees):
+def tree_map(fn, *trees):
     if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
+
+
+def leaf_paths(tree, prefix: str = "") -> list[str]:
+    """The ``/``-joined key path of every tensor of a nested dict, in
+    ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in leaf_paths(v, f"{prefix}{k}/")]
+    return [prefix[:-1]]
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:
@@ -62,11 +80,11 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     return [tree]
 
 
-def _like(tree: dict, leaves: list) -> dict:
+def tree_like(tree: dict, leaves: list) -> dict:
     """``leaves`` (in ``tree_leaves`` order) in the nested layout of
     ``tree``."""
     it = iter(leaves)
-    return _tree_map(lambda _: next(it), tree)
+    return tree_map(lambda _: next(it), tree)
 
 
 def _f32(x: float) -> torch.Tensor:
@@ -75,12 +93,31 @@ def _f32(x: float) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Adam:
-    """``optax.adam(exponential_decay(lr, 1000 · lr_decay, 0.1))``."""
+    """``optax.adam(exponential_decay(lr, 1000 · lr_decay, 0.1))``, with
+    two per-leaf rules: ``l2`` times the leaf added to the gradient of the
+    leaves under a path of ``l2_on``, and no update of a value whose
+    gradient is exactly 0 in the leaves under a path of ``skip_zero``."""
     lr: float
     lr_decay: int
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    skip_zero: tuple[str, ...] = ()
+    l2: float = 0.0
+    l2_on: tuple[str, ...] = ()
+    stats: dict = dataclasses.field(
+        default_factory=lambda: {"updates": 0, "skip_zero_leaves": 0,
+                                 "skip_zero_values": 0},
+        compare=False, hash=False, repr=False)
+
+    def rules(self, params: dict) -> tuple[list[bool], list[float]]:
+        """Each leaf's ``skip_zero`` flag and L2 factor, by its path."""
+        def under(path, prefixes):
+            return any(path == p or path.startswith(p + "/")
+                       for p in prefixes)
+        paths = leaf_paths(params)
+        return ([under(p, self.skip_zero) for p in paths],
+                [self.l2 if under(p, self.l2_on) else 0.0 for p in paths])
 
     def learning_rate(self, count: int) -> torch.Tensor:
         """The float32 step size at update count ``count`` (optax's
@@ -93,9 +130,9 @@ class Adam:
         return lr * torch.pow(_f32(0.1), p)
 
     def init(self, params: dict) -> AdamState:
-        zeros = _tree_map(lambda p: torch.zeros_like(p.detach()), params)
+        zeros = tree_map(lambda p: torch.zeros_like(p.detach()), params)
         return AdamState(count=0, mu=zeros,
-                         nu=_tree_map(torch.zeros_like, zeros))
+                         nu=tree_map(torch.zeros_like, zeros))
 
     def scalars(self, count: int) -> np.ndarray:
         """The float32 scalars of update ``count`` (0 at the first):
@@ -114,10 +151,15 @@ class Adam:
         the params' device (the train step's row). Every leaf in one
         launch on a card, the plain version on the CPU
         (``ops/adam.py::fused_adam``)."""
+        skip, l2 = self.rules(params)
         leaves = fused_adam(*(tree_leaves(t) for t in (
             params, grads, state.mu, state.nu)), scalars, self.b1, self.b2,
-            self.eps)
-        new, mu, nu = (_like(params, ls) for ls in leaves)
+            self.eps, skip_zero=skip, l2=l2)
+        self.stats["updates"] += 1
+        self.stats["skip_zero_leaves"] += sum(skip)
+        self.stats["skip_zero_values"] += sum(
+            t.numel() for t, f in zip(tree_leaves(params), skip) if f)
+        new, mu, nu = (tree_like(params, ls) for ls in leaves)
         return new, AdamState(count=state.count + 1, mu=mu, nu=nu)
 
 
@@ -128,13 +170,18 @@ def make_lr_schedule(lr: float, lr_decay: int):
     return Adam(lr=lr, lr_decay=lr_decay).learning_rate
 
 
-def make_optimizer(lr: float, lr_decay: int) -> Adam:
+def make_optimizer(lr: float, lr_decay: int, field=None) -> Adam:
+    """The optimizer of a model: NeRF's Adam, or with ``field`` an
+    ``NgpFieldConfig`` the Instant-NGP paper's (see the module
+    docstring)."""
+    if is_ngp(field):
+        return Adam(lr=lr, lr_decay=lr_decay, **field.adam())
     return Adam(lr=lr, lr_decay=lr_decay)
 
 
 def clone_tree(tree: dict) -> dict:
     """A copy of a nested dict of tensors, no tensor shared."""
-    return _tree_map(lambda t: t.detach().clone(), tree)
+    return tree_map(lambda t: t.detach().clone(), tree)
 
 
 def ema_update(ema: dict, params: dict, decay: float) -> dict:
@@ -143,7 +190,7 @@ def ema_update(ema: dict, params: dict, decay: float) -> dict:
     operations), in three multi-tensor launches."""
     d = np.float32(decay)
     e, p = tree_leaves(ema), [t.detach() for t in tree_leaves(params)]
-    return _like(ema, torch._foreach_add(torch._foreach_mul(e, float(d)),
+    return tree_like(ema, torch._foreach_add(torch._foreach_mul(e, float(d)),
                                          torch._foreach_mul(p, float(1 - d))))
 
 
@@ -152,15 +199,21 @@ def create_train_state(key: torch.Tensor, lr: float = 5e-4,
                        mlp: NerfMLPConfig = NerfMLPConfig(),
                        device: str | torch.device = "cuda",
                        ema: bool = False) -> TrainState:
-    """Fresh coarse+fine networks and a zeroed Adam state, on ``device``.
+    """Fresh coarse+fine networks and a zeroed Adam state, on ``device``
+    (with ``mlp`` an ``NgpFieldConfig``, one Instant-NGP field from
+    ``key``: ``{"field": init_ngp_params(key)}``).
     The nets are the JAX package's ``create_train_state(key)`` nets bit for
     bit: the ``PRNGKey`` ``key`` is split into a coarse and a fine key.
     ``ema=True`` allocates the Polyak-average slot as a copy of the fresh
     params (pair it with ``TrainConfig.ema_decay > 0``)."""
     dev = resolve_device(device)
-    kc, kf = split(key)
-    params = {"coarse": init_nerf_params(kc, mlp, dev),
-              "fine": init_nerf_params(kf, mlp, dev)}
+    if is_ngp(mlp):
+        params = init_ngp_params(key, mlp, dev)
+    else:
+        kc, kf = split(key)
+        params = {"coarse": init_nerf_params(kc, mlp, dev),
+                  "fine": init_nerf_params(kf, mlp, dev)}
     return TrainState(params=params,
-                      opt_state=make_optimizer(lr, lr_decay).init(params),
+                      opt_state=make_optimizer(lr, lr_decay, mlp)
+                      .init(params),
                       step=0, ema_params=clone_tree(params) if ema else None)
