@@ -170,10 +170,16 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      plain gradient, ``fused_adam``'s skip-zero and L2 rules over the
      field's 21 leaves bitwise ``adam_plain`` (eagerly and replayed), each
      timed through CUDA graphs beside its plain version and a bound from
-     that run's inputs (bytes at 3.35 TB/s), ptxas spills 0; b. the field
+     that run's inputs (bytes at 3.35 TB/s), ptxas spills 0; and the MLPs'
+     fused pair (``csrc/ngp_mlp.cu``) at the two passes' samples against
+     its bf16 plain version (the forward within twice, the backward's
+     features' and weight gradients within once the plain version's own
+     distance from the float32 chain; the backward bitwise over two
+     launches), timed through CUDA graphs beside the plain version and a
+     bound from operations and bytes, ptxas spills 0; b. the field
      through ``Trainer`` at the ``ngp-fern-train`` cell's shape, 3 single
-     steps and blocks of 10 graphed steps, every step 2 + 2 hash launches
-     and one Adam, no plain call, median ms a step;
+     steps and blocks of 10 graphed steps, every step 2 + 2 hash launches,
+     2 + 2 MLP launches and one Adam, no plain call, median ms a step;
   13. a frame as one CUDA-graph dispatch (``render/frames.py``: every
      frame path, phases 2-11's included, replays a captured frame
      program): a. on phase 7's run (and an fp32 run directory), each frame
@@ -212,8 +218,8 @@ program's graph (``Graphs``: the first frame of a program runs eagerly,
 then the body is captured); the draw kernels count every
 launch after phase 12a's comparisons (9 threefry and 1 Feistel a lego
 step), Adam's every launch after phase 12e's (1 a step, its plain
-version never), and the hash kernels' every launch of phase 14b (2 + 2 an
-NGP step; the counters set to 0 just before it).
+version never), and the hash and MLP kernels' every launch of phase 14b
+(2 + 2 of each an NGP step; the counters set to 0 just before it).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers (phase 12's under ``threefry_bits``'s ``"scan"`` key, phase 13's
@@ -730,6 +736,7 @@ MLP_COUNTS = ("fwd", "bwd", "int8", "fwd_plain", "bwd_plain", "int8_plain")
 def all_counters(fm, fb, fq) -> dict:
     from cvnerf_torch.ops import adam as fa
     from cvnerf_torch.ops import hash_encode as he
+    from cvnerf_torch.ops import ngp_mlp as nm
     from cvnerf_torch.ops import threefry as tf
     return {"fwd": (fm.fused_nerf_apply, "launches"),
             "bwd": (fb.fused_nerf_bwd, "launches"),
@@ -745,7 +752,10 @@ def all_counters(fm, fb, fq) -> dict:
             "adam_plain": (fa.adam_plain, "calls"),
             "hash_fwd": (StatsKey(he.stats), "fwd_launches"),
             "hash_bwd": (StatsKey(he.stats), "bwd_launches"),
-            "hash_plain": (StatsKey(he.stats), "plain_calls")}
+            "hash_plain": (StatsKey(he.stats), "plain_calls"),
+            "mlp_fwd": (StatsKey(nm.stats), "fwd_launches"),
+            "mlp_bwd": (StatsKey(nm.stats), "bwd_launches"),
+            "mlp_plain": (StatsKey(nm.stats), "plain_calls")}
 
 
 def reset_counts(fm, fb, fq) -> None:
@@ -817,9 +827,9 @@ def phase_train(fm, fb, fq, card: str):
     print(f"train: the draws' and Adam's launches {draws} (expected "
           f"threefry {9 * TRAIN_STEPS}, feistel {TRAIN_STEPS}, adam "
           f"{TRAIN_STEPS}, plain 0)", flush=True)
-    if draws != {"threefry": 9 * TRAIN_STEPS, "feistel": TRAIN_STEPS,
-                 "threefry_plain": 0, "feistel_plain": 0,
-                 "adam": TRAIN_STEPS, "adam_plain": 0}:
+    # Every other counter (the NGP field's hash and MLP kernels) reads 0.
+    if draws != {**dict.fromkeys(draws, 0), "threefry": 9 * TRAIN_STEPS,
+                 "feistel": TRAIN_STEPS, "adam": TRAIN_STEPS}:
         fail("train: the step's draws or Adam did not run exactly through "
              "their kernels")
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
@@ -3267,6 +3277,7 @@ def phase_adam(fm, card: str) -> dict:
 
 NGP_LAUNCHES = (65_536, 196_608)   # a train step's encodings: coarse, fine
 NGP_BWD_TOL = 1e-4                 # of the level's largest plain gradient
+NGP_SPR = (64, 192)                # a ray's samples in those encodings
 
 
 class StatsKey:
@@ -3438,20 +3449,158 @@ def phase_ngp_kernels(fm, card: str) -> dict:
     return {"rows": rows, "adam": adam, "ptxas": ptxas}
 
 
+# What a captured NGP step launches, read per replay.
+STEP_KEYS = ("hash_fwd", "hash_bwd", "mlp_fwd", "mlp_bwd", "adam")
+
+
+def phase_ngp_mlp(fm, card: str) -> dict:
+    """14a, the MLPs: the fused pair (``csrc/ngp_mlp.cu``) at a train step's
+    two passes (NGP_LAUNCHES samples, NGP_SPR a ray), the published MLPs,
+    features normal with σ 0.5 in bf16, an SH row a ray, a random upstream
+    gradient: the forward within twice the plain bf16 version's own
+    distance from the float32 chain; the backward's features' and five
+    weight gradients no farther from the plain version's than the plain
+    version is from the float32 chain's (the bf16 roundings the plain chain
+    adds) and no farther from the float32 chain than twice the plain
+    version; the backward bitwise over two launches. Each kernel timed
+    through CUDA graphs (``device_ms``; the backward with its reduction),
+    the plain version (the ``torch.matmul`` chain, forward and autograd's
+    backward) by CUDA events, a bound from operations (the forward's 9,408
+    and the backward's least 17,792 multiply-adds a sample at 989 TFLOP/s)
+    and bytes (features 64 B and output 16 B a sample forward; features,
+    gradient 16 B and features' gradient 128 B backward; 64 B of SH a ray;
+    the weights once) at 3.35 TB/s. ptxas registers and spills (a spill
+    fails). Launches and calls made here are taken back off the
+    counters."""
+    from cvnerf_torch.models.ngp_field import NgpFieldConfig, init_ngp_params
+    from cvnerf_torch.ops import ngp_mlp as nm
+    from cvnerf_torch.ops.encoding import sh_encode
+    from cvnerf_torch.ops.rng import PRNGKey
+    lib = fm.build_library("ngp_mlp", verbose=True)
+    ptxas = {}
+    for kernel in ("ngp_mlp_fwd", "ngp_mlp_bwd", "ngp_mlp_wgrad_reduce"):
+        check_ptxas(fm, lib, kernel)
+        ptxas[kernel] = ptxas_report(fm, lib, kernel)
+    saved = dict(nm.stats)
+    dev = torch.device("cuda")
+    cfg = NgpFieldConfig()
+    field = init_ngp_params(PRNGKey(SEED + 20), cfg, dev)["field"]
+    weights = [field[net][name] for net, name, _, _ in nm.LAYERS]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    fwd_macs = nm.WEIGHTS
+    bwd_macs = 2 * nm.WEIGHTS - nm.SH * nm.HIDDEN
+
+    def worst(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def plain_grads(feats, sh, spr, grad, dt):
+        x = feats.to(dt).detach().requires_grad_()
+        leaves = {net: {k: v.detach().clone().requires_grad_()
+                        for k, v in field[net].items()}
+                  for net in ("density", "color")}
+        out = nm.ngp_mlp_plain(x, sh, spr, leaves, dt)
+        out.backward(grad)
+        return out.detach(), [x.grad.float()] + [
+            leaves[net][name].grad for net, name, _, _ in nm.LAYERS]
+
+    def plain_step(feats, sh, spr, grad):
+        x = feats.detach().requires_grad_()
+        leaves = [w.detach().requires_grad_() for w in weights]
+        it = iter(leaves)
+        tree = {net: {name: next(it) for n2, name, _, _ in nm.LAYERS
+                      if n2 == net} for net in ("density", "color")}
+        out = nm.ngp_mlp_plain(x, sh, spr, tree, torch.bfloat16)
+        torch.autograd.grad(out, [x] + leaves, grad)
+
+    rows = []
+    for n, spr in zip(NGP_LAUNCHES, NGP_SPR):
+        feats = (torch.randn(n, 32, generator=gen, device=dev) * 0.5) \
+            .to(torch.bfloat16)
+        dirs = torch.randn(n // spr, 3, generator=gen, device=dev)
+        sh = sh_encode(dirs / dirs.norm(dim=-1, keepdim=True))
+        grad = torch.randn(n, 4, generator=gen, device=dev)
+        got = nm.ngp_mlp_fwd(feats, sh, spr, weights)
+        want, pgrads = plain_grads(feats, sh, spr, grad, torch.bfloat16)
+        exact, egrads = plain_grads(feats, sh, spr, grad, torch.float32)
+        fgrad, wgrads = nm.ngp_mlp_bwd(feats, sh, spr, weights, grad)
+        again = nm.ngp_mlp_bwd(feats, sh, spr, weights, grad)
+        torch.cuda.synchronize()
+        own = worst(want, exact)
+        fwd_err = worst(got, want)
+        if not fwd_err <= 2 * own + 1e-6 * float(exact.abs().max()):
+            fail(f"ngp_mlp_fwd n={n}: {fwd_err:.3e} from the plain version, "
+                 f"whose own distance from float32 is {own:.3e}")
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip([fgrad, *wgrads], [again[0], *again[1]]))
+        if not bitwise:
+            fail(f"ngp_mlp_bwd n={n}: two launches differ")
+        names = ["features"] + [f"{a} {b}" for a, b, _, _ in nm.LAYERS]
+        errs = {}
+        for name, k, p_, e in zip(names, [fgrad, *wgrads], pgrads, egrads):
+            scale = float(p_.abs().max())
+            plain_own = worst(p_, e)
+            errs[name] = worst(k, p_) / scale
+            if not (worst(k, p_) <= plain_own + 1e-6 * scale
+                    and worst(k, e) <= 2 * plain_own + 1e-6 * scale):
+                fail(f"ngp_mlp_bwd n={n} {name}: {worst(k, p_):.3e} from "
+                     f"the plain version and {worst(k, e):.3e} from "
+                     f"float32, against the plain version's own "
+                     f"{plain_own:.3e} from float32")
+        rays = n // spr
+        for name, macs, nbytes, fn, plain in (
+                ("ngp_mlp_fwd", fwd_macs,
+                 n * (64 + 16) + rays * 64 + 4 * nm.WEIGHTS,
+                 lambda: nm.ngp_mlp_fwd(feats, sh, spr, weights),
+                 lambda: nm.ngp_mlp_plain(feats, sh, spr, field,
+                                          torch.bfloat16)),
+                ("ngp_mlp_bwd", bwd_macs,
+                 n * (64 + 16 + 128) + rays * 64 + 8 * nm.WEIGHTS,
+                 lambda: nm.ngp_mlp_bwd(feats, sh, spr, weights, grad),
+                 lambda: plain_step(feats, sh, spr, grad))):
+            ops = 2 * n * macs
+            ops_ms = 1e3 * ops / H100_BF16_FLOPS
+            bytes_ms = 1e3 * nbytes / H100_BYTES_PER_S
+            rows.append({
+                "name": name, "n": n, "samples_per_ray": spr,
+                "max_abs_err": fwd_err if name == "ngp_mlp_fwd"
+                else max(errs.values()),
+                "ms": device_ms(fn, n=50), "plain_ms": time_ms(plain),
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "ops": ops, "bytes": nbytes, "bitwise_rerun": bitwise})
+        print(f"ngp mlp n={n}: forward {fwd_err:.3e} from the plain version "
+              f"(its own distance from float32 {own:.3e}); backward "
+              f"{ {k: f'{v:.2e}' for k, v in errs.items()} } of each plain "
+              f"gradient's largest, bitwise over two launches {bitwise}",
+              flush=True)
+        del feats, sh, grad, got, want, exact, pgrads, egrads, fgrad, wgrads
+    for r in rows:
+        plain = ("the torch.matmul chain" if r["name"] == "ngp_mlp_fwd"
+                 else "the chain forward and autograd's backward")
+        print(f"ngp mlp: {r['name']} n={r['n']}: {r['ms']:.4f} ms (graph "
+              f"of 50), plain {r['plain_ms']:.3f} ms ({plain}), bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['ops']:.3g} "
+              f"operations, {r['bytes']} B); card: {card}", flush=True)
+    nm.stats.update(saved)
+    return {"rows": rows, "ptxas": ptxas}
+
+
 def phase_ngp_train(fm, card: str) -> dict:
     """14b: the Instant-NGP field through ``Trainer`` (main path) at the
     ``ngp-fern-train`` cell's shape: the published field, 1024 NDC rays of
     a 378x504 image, 64 + 128 samples queried from one field (2^18 a
     step), bf16, lr 1e-2: 3 single steps, then blocks of 10 graphed steps
     (one captured after an eager warm-up, then replayed), 103 steps in
-    all. The hash kernels' and Adam's counters are set to 0 just before
-    and read just after (captured steps counted as they run, ``Graphs``):
-    every step launched 2 + 2 hash kernels and one Adam, no plain version
-    ran, the loss is finite and the table learned. The replayed blocks'
+    all. The hash kernels', the fused MLPs' and Adam's counters are set to
+    0 just before and read just after (captured steps counted as they run,
+    ``Graphs``): every step launched 2 + 2 hash kernels, 2 + 2 MLP kernels
+    (``ngp_mlp.stats``) and one Adam, no plain version ran, the loss is
+    finite and the table learned. The replayed blocks'
     median ms a step by CUDA events."""
     from cvnerf_torch.models.ngp_field import NgpFieldConfig
     from cvnerf_torch.ops import adam as fa
     from cvnerf_torch.ops import hash_encode as he
+    from cvnerf_torch.ops import ngp_mlp as nm
     from cvnerf_torch.ops.rng import PRNGKey
     from cvnerf_torch.render.renderer import RenderConfig
     from cvnerf_torch.train.loop import TrainConfig, Trainer
@@ -3477,6 +3626,8 @@ def phase_ngp_train(fm, card: str) -> dict:
     for k in ("fwd_launches", "bwd_launches", "plain_calls", "samples",
               "lookups"):
         he.stats[k] = 0
+    for k in nm.stats:
+        nm.stats[k] = 0
     fa.fused_adam.launches = fa.adam_plain.calls = 0
     n_blocks = len(GRAPHS.blocks)
     for j in range(3):
@@ -3494,6 +3645,9 @@ def phase_ngp_train(fm, card: str) -> dict:
     counts = {"hash_fwd": he.stats["fwd_launches"],
               "hash_bwd": he.stats["bwd_launches"],
               "hash_plain": he.stats["plain_calls"],
+              "mlp_fwd": nm.stats["fwd_launches"],
+              "mlp_bwd": nm.stats["bwd_launches"],
+              "mlp_plain": nm.stats["plain_calls"],
               "adam": fa.fused_adam.launches,
               "adam_plain": fa.adam_plain.calls}
     blocks = [b for b in GRAPHS.blocks[n_blocks:] if b["replayed"]]
@@ -3501,20 +3655,22 @@ def phase_ngp_train(fm, card: str) -> dict:
     steps = 3 + 10 * BLOCK
     per_step = blocks[0]["per_step"] if blocks else {}
     want = {"hash_fwd": 2 * (steps + warm), "hash_bwd": 2 * (steps + warm),
-            "hash_plain": 0, "adam": steps + warm, "adam_plain": 0}
+            "hash_plain": 0, "mlp_fwd": 2 * (steps + warm),
+            "mlp_bwd": 2 * (steps + warm), "mlp_plain": 0,
+            "adam": steps + warm, "adam_plain": 0}
     learned = not torch.equal(tr.state.params["field"]["table"]["0"], table0)
     med = float(np.median(times))
     print(f"ngp train: {steps} steps (3 single, {len(blocks)} graphed "
           f"blocks of {BLOCK}, {warm} eager warm-up steps), loss "
           f"{m['loss']:.5f}, table learned {learned}; launches {counts} "
           f"(expected {want}), a captured step "
-          f"{ {k: per_step.get(k) for k in ('hash_fwd', 'hash_bwd', 'adam')} }"
+          f"{ {k: per_step.get(k) for k in STEP_KEYS} }"
           f"; {med:.3f} ms a step ({[round(t, 3) for t in times]}); "
           f"trainer counters {tr.counters()}; card: {card}", flush=True)
     if not (counts == want and np.isfinite(m["loss"]) and learned
-            and {k: per_step.get(k) for k in ("hash_fwd", "hash_bwd",
-                                                "adam")}
-            == {"hash_fwd": 2, "hash_bwd": 2, "adam": 1}):
+            and {k: per_step.get(k) for k in STEP_KEYS}
+            == {"hash_fwd": 2, "hash_bwd": 2, "mlp_fwd": 2, "mlp_bwd": 2,
+                "adam": 1}):
         fail("the NGP train step did not run exactly through its kernels")
     fa.fused_adam.launches += saved[0]
     fa.adam_plain.calls += saved[1]
@@ -3998,6 +4154,7 @@ def main() -> int:
     adam_row = phase_adam(fm, card)
     # -- 14a. the NGP field's kernels against their plain versions --------
     ngp = phase_ngp_kernels(fm, card)
+    ngp_mlp_row = phase_ngp_mlp(fm, card)
     # From here on every draw and Adam launch counts (the comparisons above
     # are taken back off the counters).
     tf.threefry_bits.launches = tf.feistel_draw.launches = 0
@@ -4398,11 +4555,39 @@ def main() -> int:
         fail("Adam did not run through its kernel on the main path")
     if not hash_stats["fwd_launches"] or hash_stats["plain_calls"]:
         fail("the hash kernels did not run on the main path")
+    mlp_rows = ngp_mlp_row["rows"]
+    for name, launches in (("ngp_mlp_fwd", ngp_train["counts"]["mlp_fwd"]),
+                           ("ngp_mlp_bwd", ngp_train["counts"]["mlp_bwd"])):
+        rs = [r for r in mlp_rows if r["name"] == name]
+        report["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "cvnerf_torch/csrc/ngp_mlp.cu", "replaces": None,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": sum(r["ms"] for r in rs),
+            "plain_ms": sum(r["plain_ms"] for r in rs),
+            "bound_ms": sum(r["bound_ms"] for r in rs),
+            "bound_by": rs[-1]["bound_by"], "library_ms": None,
+            "shapes": rs,
+            "ptxas": ngp_mlp_row["ptxas"][name]
+            + (ngp_mlp_row["ptxas"]["ngp_mlp_wgrad_reduce"]
+               if name == "ngp_mlp_bwd" else []),
+            "note": "no TPU kernel: the JAX package has no hash grid; "
+                    "ms/plain_ms/bound_ms a train step (the coarse and "
+                    "fine passes, NGP_LAUNCHES samples; the backward with "
+                    "ngp_mlp_wgrad_reduce), phase 14a; max_abs_err: the "
+                    "forward's largest distance from the bf16 plain "
+                    "version, the backward's largest per-leaf share of "
+                    "the plain gradient's largest; launches: phase 14b's "
+                    "NGP steps (2 a step, as they ran), the plain version "
+                    "never; no single PyTorch call computes it, so "
+                    "library_ms is null"})
     print(json.dumps(report), flush=True)
     print(f"card: {card}", flush=True)
     print('kernels: ["fused_nerf_apply", "fused_nerf_bwd", '
           '"fused_nerf_apply_int8", "threefry_bits", "feistel_draw", '
-          '"fused_adam", "hash_encode_fwd", "hash_encode_bwd"]', flush=True)
+          '"fused_adam", "hash_encode_fwd", "hash_encode_bwd", '
+          '"ngp_mlp_fwd", "ngp_mlp_bwd"]', flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

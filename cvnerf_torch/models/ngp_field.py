@@ -16,12 +16,23 @@ sh_encode``) feed a colour MLP.
 Params: ``{"field": {"table": {"0": [entries, 2], ..., "15": ...},
 "density": {"l0": [32, 64], "l1": [64, 16]}, "color": {"l0": [32, 64],
 "l1": [64, 64], "l2": [64, 3]}}}``, each level its own leaf. One field
-serves both render passes. The products run through ``torch.matmul`` on
-operands in the compute dtype; the two output layers (the density MLP's,
-whose first output is the log-density, and the colour MLP's) return
-float32 sums of those operands' products, as the NeRF kernels' epilogues
-do, so ``σ = exp`` reads no bfloat16 rounding of its exponent. The table
-and its gradient stay float32.
+serves both render passes. The table and its gradient stay float32.
+
+The MLPs (``ops/ngp_mlp.py``): on a card in bfloat16 they run as one
+hand-written forward kernel and one backward kernel a pass
+(``csrc/ngp_mlp.cu``), the encoding's kernels beside them in one autograd
+node (``FusedField``); on the CPU, with ``kernels="off"``, and in float32
+on a card, as ``torch.matmul`` on operands in the compute dtype
+(``ngp_mlp_plain``). Both round at the same points: operands in the
+compute dtype; each hidden layer's float32 sum rounded to it after its
+ReLU; the two output layers (the density MLP's, whose first output is the
+log-density, and the colour MLP's) return float32 sums of those operands'
+products, as the NeRF kernels' epilogues do, so ``σ = exp`` reads no
+bfloat16 rounding of its exponent; ``geo`` and the SH rounded to the
+compute dtype as the colour MLP's input. Backward, the kernels keep the
+output layers' upstream gradients, the weight gradients and the features'
+gradient in float32 (the ``torch.matmul`` chain rounds the last two and
+the hidden input gradients to bfloat16).
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import math
 import numpy as np
 import torch
 
+from cvnerf_torch.ops import ngp_mlp
 from cvnerf_torch.ops.encoding import sh_encode
 from cvnerf_torch.ops.hash_encode import (FEATURES, GridLevel, grid_levels,
                                           hash_encode, total_entries)
@@ -150,35 +162,29 @@ def apply_ngp(params: dict, points: torch.Tensor, viewdirs: torch.Tensor,
     the field itself) at ``points [..., 3]`` with ``viewdirs`` of the same
     shape, or one a ray (``[R, 3]`` for ``[R, S, 3]`` points). RGB are
     logits; ``σ = exp(log-density) >= 0``, so the renderer's ReLU leaves it
-    as it is. ``kernels="off"`` runs the encoding's plain version on a
-    card too."""
+    as it is.
+
+    Card tensors in bfloat16 go through the kernels (``ngp_mlp.
+    fused_field``; a field of other widths raises); CPU tensors, and
+    ``kernels="off"``, through the encoding's and the MLPs' plain versions;
+    float32 on a card through the encoding's kernel and the plain MLPs
+    (``torch.matmul``: a plain large product, which no cell runs)."""
     field = params.get("field", params)
     lead = points.shape[:-1]
     tables = [field["table"][str(k)] for k in range(cfg.n_levels)]
     dt = compute_dtype
-    # The features in the dtype the first layer reads.
-    feats = hash_encode(unit_positions(points, cfg), tables, cfg.levels,
-                        out_dtype=dt, plain=kernels == "off")
-
-    def lin(x, w, out32=False):
-        x, w = x.to(dt), w.to(dt)
-        if out32:
-            # Products of the rounded operands, summed in float32 (exact
-            # products: TF32 is off for float32 matmuls by default).
-            return torch.matmul(x.float(), w.float())
-        return torch.matmul(x, w)
-    h = torch.relu(lin(feats, field["density"]["l0"]))
-    geo = lin(h, field["density"]["l1"], out32=True)      # [n, 16] float32
-    sh = sh_encode(viewdirs, SH_DEGREE)
-    if viewdirs.dim() == points.dim() - 1:
-        sh = sh[..., None, :].expand(*lead, sh.shape[-1])
-    h = torch.cat([geo, sh.reshape(-1, sh.shape[-1])], -1)
-    color = field["color"]
-    n_color = len(color)
-    for k in range(n_color):
-        last = k == n_color - 1
-        h = lin(h, color[f"l{k}"], out32=last)
-        if not last:
-            h = torch.relu(h)
-    sigma = torch.exp(geo[:, :1])
-    return torch.cat([h, sigma], -1).reshape(*lead, 4)
+    unit = unit_positions(points, cfg)
+    # One SH row a ray, or a sample where the directions are per sample.
+    per_ray = viewdirs.dim() == points.dim() - 1
+    spr = points.shape[-2] if per_ray else 1
+    sh = sh_encode(viewdirs, SH_DEGREE).reshape(-1, SH_DEGREE ** 2)
+    if points.is_cuda and kernels != "off" and dt == torch.bfloat16:
+        ngp_mlp.check_kernel_config(cfg)
+        weights = [field[net][name] for net, name, _, _ in ngp_mlp.LAYERS]
+        raw = ngp_mlp.fused_field(unit, tables, cfg.levels, sh, spr, weights)
+    else:
+        # The features in the dtype the first layer reads.
+        feats = hash_encode(unit, tables, cfg.levels, out_dtype=dt,
+                            plain=kernels == "off")
+        raw = ngp_mlp.ngp_mlp_plain(feats, sh, spr, field, dt)
+    return raw.reshape(*lead, 4)

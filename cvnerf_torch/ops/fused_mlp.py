@@ -8,8 +8,8 @@ kernel in ``cvnerf_torch/csrc/fused_mlp.cu`` (or raises); for CPU tensors it
 runs :func:`fused_nerf_plain`. Each kernel source in ``SOURCES`` (this
 forward, the backward of ``ops/fused_mlp_bwd.py``, the int8 forward of
 ``ops/fused_mlp_int8.py``, the draws of ``ops/threefry.py``, Adam's
-update of ``ops/adam.py`` and the hash encoding of ``ops/hash_encode.py``)
-is compiled with
+update of ``ops/adam.py``, the hash encoding of ``ops/hash_encode.py`` and
+the Instant-NGP MLPs of ``ops/ngp_mlp.py``) is compiled with
 ``nvcc`` at first use into its own library under
 ``build/cvnerf_torch_kernels/`` (keyed by the hash of the source and the
 shared headers) and bound with ``ctypes``; nothing is built at import time.
@@ -44,7 +44,8 @@ SOURCES = {"fused_mlp": _CSRC / "fused_mlp.cu",
            "fused_mlp_int8": _CSRC / "fused_mlp_int8.cu",
            "threefry": _CSRC / "threefry.cu",
            "adam": _CSRC / "adam.cu",
-           "hash_encode": _CSRC / "hash_encode.cu"}
+           "hash_encode": _CSRC / "hash_encode.cu",
+           "ngp_mlp": _CSRC / "ngp_mlp.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cvnerf_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -43,7 +43,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from cvnerf_torch.ops import hash_encode
+from cvnerf_torch.ops import hash_encode, ngp_mlp
 from cvnerf_torch.serve import NerfRenderer
 from cvnerf_torch.utils import tracing
 from cvnerf_torch.utils.image import to_byte
@@ -342,6 +342,8 @@ class NerfRequestHandler(BaseHTTPRequestHandler):
             # Instant-NGP field's; zeros for NeRF), counted at eager calls
             # and captures.
             "hash_stats": dict(hash_encode.stats),
+            # The NGP MLPs' kernel launches, plain calls and samples.
+            "mlp_stats": dict(ngp_mlp.stats),
         })
 
     def _read_json_body(self) -> dict | None:

@@ -78,7 +78,7 @@ import torch
 from cvnerf_torch import staged
 from cvnerf_torch.models.nerf_mlp import anneal_model_params
 from cvnerf_torch.models.ngp_field import is_ngp
-from cvnerf_torch.ops import hash_encode
+from cvnerf_torch.ops import hash_encode, ngp_mlp
 from cvnerf_torch.ops.compositing import distortion_loss, occlusion_loss
 from cvnerf_torch.ops.rays import (ndc_rays, rays_for_pixels,
                                    rays_for_pixels_batched)
@@ -813,11 +813,13 @@ class Trainer:
 
     def counters(self) -> dict:
         """The optimizer's counts (``Adam.stats``: updates, leaves and
-        values under ``skip_zero``) and the hash encoding's
-        (``ops/hash_encode.py::stats``, prefixed ``hash_``), as counted at
+        values under ``skip_zero``), the hash encoding's
+        (``ops/hash_encode.py::stats``, prefixed ``hash_``) and the NGP
+        MLPs' (``ops/ngp_mlp.py::stats``, prefixed ``mlp_``), as counted at
         eager calls and captures."""
         return {**self.opt.stats,
-                **{f"hash_{k}": v for k, v in hash_encode.stats.items()}}
+                **{f"hash_{k}": v for k, v in hash_encode.stats.items()},
+                **{f"mlp_{k}": v for k, v in ngp_mlp.stats.items()}}
 
     def _run(self, start: int, iters: int) -> dict:
         t0 = time.time()

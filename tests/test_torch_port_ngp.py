@@ -22,6 +22,7 @@ from cvnerf_torch.models.ngp_field import (NgpFieldConfig, apply_ngp,
                                            empty_ngp_params, init_ngp_params,
                                            ngp_param_count, unit_positions)
 from cvnerf_torch.ops import hash_encode as he
+from cvnerf_torch.ops import ngp_mlp as nm
 from cvnerf_torch.ops.adam import adam_plain
 from cvnerf_torch.ops.encoding import sh_encode
 from cvnerf_torch.ops.rng import PRNGKey, ray_sorted_uniform, ray_uniform
@@ -400,3 +401,168 @@ def test_unit_positions_and_the_shape_template():
     want = init_ngp_params(PRNGKey(0), TINY, "cpu")
     shapes = [t.shape for t in tree_leaves(empty_ngp_params(TINY))]
     assert shapes == [t.shape for t in tree_leaves(want)]
+
+
+# -- the MLPs' plain version and the kernels' wrapper -------------------------
+def _apply_before(params, points, viewdirs, cfg, dt):
+    """``apply_ngp`` as it ran before the MLPs moved to ``ops/ngp_mlp.py``
+    (the encoding's plain version, then the ``torch.matmul`` chain)."""
+    field = params.get("field", params)
+    lead = points.shape[:-1]
+    tables = [field["table"][str(k)] for k in range(cfg.n_levels)]
+    feats = he.hash_encode(unit_positions(points, cfg), tables, cfg.levels,
+                           out_dtype=dt)
+
+    def lin(x, w, out32=False):
+        x, w = x.to(dt), w.to(dt)
+        if out32:
+            return torch.matmul(x.float(), w.float())
+        return torch.matmul(x, w)
+    h = torch.relu(lin(feats, field["density"]["l0"]))
+    geo = lin(h, field["density"]["l1"], out32=True)
+    sh = sh_encode(viewdirs, 4)
+    if viewdirs.dim() == points.dim() - 1:
+        sh = sh[..., None, :].expand(*lead, sh.shape[-1])
+    h = torch.cat([geo, sh.reshape(-1, sh.shape[-1])], -1)
+    for k in range(3):
+        h = lin(h, field["color"][f"l{k}"], out32=k == 2)
+        if k < 2:
+            h = torch.relu(h)
+    return torch.cat([h, torch.exp(geo[:, :1])], -1).reshape(*lead, 4)
+
+
+def _leaf_tree(params):
+    leaves = [t.detach().clone().requires_grad_() for t in tree_leaves(params)]
+    it = iter(leaves)
+    return leaves, {"field": {k: {n: next(it) for n in v}
+                              for k, v in params["field"].items()}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_ray", [True, False])
+def test_plain_mlps_are_the_field_before_the_move_bitwise(dtype, per_ray):
+    """``apply_ngp`` on the CPU (the encoding's and ``ngp_mlp_plain``'s
+    plain versions) against the field as it ran before: the same ops in the
+    same order, so the output and every leaf's gradient bitwise, in both
+    compute dtypes, with directions a ray or a sample."""
+    p = _params(4)
+    o, d, vd = _rays()
+    t = torch.rand(24, 8, generator=torch.Generator().manual_seed(12))
+    pts = o[:, None] + d[:, None] * t[..., None]
+    if not per_ray:
+        vd = vd[:, None].expand(24, 8, 3).contiguous()
+    g = torch.randn(24, 8, 4, generator=torch.Generator().manual_seed(13))
+    outs = []
+    for fn in (lambda tree: apply_ngp(tree, pts, vd, TINY, dtype),
+               lambda tree: _apply_before(tree, pts, vd, TINY, dtype)):
+        leaves, tree = _leaf_tree(p)
+        out = fn(tree)
+        grads = torch.autograd.grad(out, leaves, g)
+        outs.append([out, *grads])
+    for a, b in zip(*outs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,spr", [(24 * 8, 8), (5 * 64, 64), (7, 1)])
+def test_sample_sh_reads_row_sample_over_samples_per_ray(n, spr):
+    """The SH a sample reads: row ``i // samples_per_ray`` of the per-ray
+    SH (the kernels' indexing), equal to the per-ray SH expanded over a
+    ray's samples as ``apply_ngp`` formed it before."""
+    vd = torch.randn(n // spr, 3, generator=torch.Generator().manual_seed(n))
+    sh = sh_encode(vd / torch.linalg.norm(vd, dim=-1, keepdim=True))
+    rows = torch.arange(n) // spr
+    got = nm.sample_sh(sh, n, spr)
+    expanded = sh[:, None, :].expand(n // spr, spr, 16).reshape(-1, 16)
+    assert torch.equal(got, sh[rows]) and torch.equal(got, expanded)
+
+
+def test_plain_calls_count_cpu_calls():
+    """Each CPU call of the field runs the plain version once (counted with
+    its samples) and launches no kernel."""
+    p = _params()
+    o, d, vd = _rays()
+    pts = o[:, None] + d[:, None] * torch.rand(
+        24, 8, generator=torch.Generator().manual_seed(14))[..., None]
+    before = dict(nm.stats)
+    apply_ngp(p, pts, vd, TINY, torch.bfloat16)
+    apply_ngp(p, pts, vd, TINY, torch.float32, kernels="off")
+    assert nm.stats["plain_calls"] - before["plain_calls"] == 2
+    assert nm.stats["samples"] - before["samples"] == 2 * 24 * 8
+    assert nm.stats["fwd_launches"] == before["fwd_launches"]
+    assert nm.stats["bwd_launches"] == before["bwd_launches"]
+
+
+def _kernel_args():
+    """Arguments the kernels take, but on the CPU: 6 samples, 2 a ray, the
+    published MLPs' leaf shapes."""
+    return {"feats": torch.zeros(6, 32, dtype=torch.bfloat16),
+            "sh": torch.zeros(3, 16), "samples_per_ray": 2,
+            "weights": [torch.zeros(a, b) for _, _, a, b in nm.LAYERS]}
+
+
+@pytest.mark.parametrize("case", [
+    "device", "feats_dtype", "feats_width", "feats_strided", "sh_dtype",
+    "sh_width", "sh_rows", "sh_strided", "weight_width", "weight_dtype",
+    "weight_strided", "weight_count", "samples_per_ray"])
+def test_the_kernel_wrappers_refuse_what_they_do_not_take(case):
+    """``ngp_mlp_fwd`` and ``ngp_mlp_bwd`` raise on a device, dtype, width
+    or layout the kernels do not take (checked before any library is
+    loaded), each naming the problem; correct card tensors are the only
+    way in."""
+    a = _kernel_args()
+    w = list(a["weights"])
+    change = {
+        "device": {},
+        "feats_dtype": {"feats": a["feats"].float()},
+        "feats_width": {"feats": torch.zeros(6, 16, dtype=torch.bfloat16)},
+        "feats_strided": {"feats": torch.zeros(32, 6, dtype=torch.bfloat16).t()},
+        "sh_dtype": {"sh": a["sh"].double()},
+        "sh_width": {"sh": torch.zeros(3, 9)},
+        "sh_rows": {"sh": torch.zeros(4, 16)},
+        "sh_strided": {"sh": torch.zeros(16, 3).t()},
+        "weight_width": {"weights": w[:1] + [torch.zeros(64, 8)] + w[2:]},
+        "weight_dtype": {"weights": [w[0].to(torch.bfloat16)] + w[1:]},
+        "weight_strided": {"weights": w[:3] + [w[3].t()] + w[4:]},
+        "weight_count": {"weights": w[:4]},
+        "samples_per_ray": {"samples_per_ray": 0},
+    }[case]
+    a.update(change)
+    with pytest.raises(ValueError,
+                       match="card" if case == "device" else "."):
+        nm.ngp_mlp_fwd(**a)
+    with pytest.raises(ValueError):
+        nm.ngp_mlp_bwd(**a, grad=torch.zeros(6, 4))
+
+
+@pytest.mark.parametrize("cfg", [TINY, dataclasses.replace(
+    NgpFieldConfig(), hidden=32), dataclasses.replace(NgpFieldConfig(),
+                                                      n_levels=8)])
+def test_other_widths_are_refused_for_the_kernels(cfg):
+    """A field whose MLPs are not 64 wide or whose encoding is not 32
+    features cannot take the kernels: the check names ``kernels='off'``;
+    the published field passes."""
+    with pytest.raises(ValueError, match="kernels='off'"):
+        nm.check_kernel_config(cfg)
+    nm.check_kernel_config(NgpFieldConfig())
+
+
+def test_trainer_counters_report_the_mlps():
+    """``Trainer.counters`` carries the MLPs' counts under ``mlp_``, beside
+    the hash encoding's; a CPU step runs the plain version, twice (coarse
+    and fine)."""
+    from cvnerf_torch.train.loop import TrainConfig, Trainer
+    cfg = TrainConfig(height=12, width=16, focal=14.0, near=0.0, far=1.0,
+                      n_rays=16, lr=1e-2, lr_decay=0, ndc=True,
+                      render=RenderConfig(n_coarse=4, n_fine=4, mlp=TINY))
+    state = create_train_state(PRNGKey(2), lr=1e-2, lr_decay=0, mlp=TINY,
+                               device="cpu")
+    images = np.random.default_rng(2).random((2, 12, 16, 3)) \
+        .astype(np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32)[:3], (2, 1, 1))
+    tr = Trainer(cfg, state, images, poses, [0, 1], steps_per_call=1)
+    before = nm.stats["plain_calls"]
+    tr.run(0, 1)
+    counters = tr.counters()
+    assert counters["mlp_plain_calls"] - before == 2
+    assert {f"mlp_{k}" for k in nm.stats} <= set(counters)
+    assert "hash_plain_calls" in counters
