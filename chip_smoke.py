@@ -149,9 +149,8 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      card): params, moments, count, step and EMA slot bitwise, no plain
      call, each captured step launching what an eager step launches (2 +
      2, 1 + 1 through a grid, 2 + 2 a shard); c. eager
-     steps and blocks of 10 one-step graph replays in interleaved rounds
-     (``scripts/time_block_graphs.py`` adds a graph of 10 steps), median ms
-     a step, the profiler's idle share, the capture seconds and graph pool
+     steps and blocks of 10 one-step graph replays in interleaved rounds,
+     median ms a step, the profiler's idle share, the capture seconds and graph pool
      bytes; d. phase 7's run at
      ``--steps_per_call 1``: its checkpoints at 30 and 60 bitwise phase
      7's at 10; e. Adam's update of every leaf in one launch (``fused_adam``,
@@ -195,10 +194,7 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
      kernels, other device work and idle time, capture seconds and pool
      bytes, at 400x400 chunk 8192 (bf16, int8, full nearest, merge
      trilinear), bf16 at factor 2 and 4, 200x200 at chunk 4096, and the
-     probes of one chunk inside a graph (``python3
-     scripts/time_frame_graphs.py`` adds a graph of one chunk replayed
-     through a device counter, the design the frame program did not
-     take); c. ``render_video`` of 3 poses bitwise 3 ``render_pose``
+     probes of one chunk inside a graph; c. ``render_video`` of 3 poses bitwise 3 ``render_pose``
      calls; d. phase 7's validations and test frames one capture and 5
      replays, each logged validation PSNR equal to the same views scored
      through eager frames from the step's checkpoint.
@@ -325,10 +321,10 @@ def inputs(n: int, gen: torch.Generator, scale: float = 2.0):
     return pts.contiguous(), dirs.contiguous()
 
 
-def check_ptxas(fm, library: Path, kernel: str) -> None:
+def check_ptxas(library: Path, kernel: str) -> None:
     """Print ptxas' registers and spills of every instantiation of
     ``kernel``; fail if there is none or one spills."""
-    report = ptxas_report(fm, library, kernel)
+    report = ptxas_report(library, kernel)
     if not report:
         fail(f"no {kernel} kernel in the ptxas report")
     for k in report:
@@ -340,10 +336,11 @@ def check_ptxas(fm, library: Path, kernel: str) -> None:
             fail(f"{kernel} spills ({k['kernel']})")
 
 
-def ptxas_report(fm, library: Path, kernel: str) -> list[dict]:
+def ptxas_report(library: Path, kernel: str) -> list[dict]:
     """Registers and spills of every instantiation of ``kernel`` in the
     ptxas report of a verbose build, and the wgmma warnings ptxas gave it."""
-    log = fm.ptxas_log(library)
+    from cvnerf_torch.utils.kernels import ptxas_log
+    log = ptxas_log(library)
     if not log.exists():
         fail(f"no ptxas report beside {library.name}: delete "
              f"{library.parent} and rerun")
@@ -426,19 +423,20 @@ def int8_gemm_chain_ms(cfg, n: int) -> tuple[float, float]:
 def phase_kernels(fm, cfg, params):
     """Build every kernel, then check and time the forward kernel; returns
     its per-shape rows (without ``launches``)."""
+    from cvnerf_torch.utils.kernels import SOURCES, build_library
     t0 = time.time()
     with ThreadPoolExecutor() as pool:   # one nvcc per kernel source
-        libs = dict(zip(fm.SOURCES, pool.map(
-            lambda name: fm.build_library(name, verbose=True), fm.SOURCES)))
+        libs = dict(zip(SOURCES, pool.map(
+            lambda name: build_library(name, verbose=True), SOURCES)))
     print(f"built {[str(p.name) for p in libs.values()]} in "
           f"{time.time() - t0:.1f} s", flush=True)
-    check_ptxas(fm, libs["fused_mlp"], "fused_nerf_wgmma")
-    check_ptxas(fm, libs["fused_mlp"], "fused_nerf_ffma")
-    check_ptxas(fm, libs["fused_mlp_int8"], "fused_nerf_int8_wgmma")
-    check_ptxas(fm, libs["fused_mlp_bwd"], "fused_nerf_bwd_wgmma")
-    check_ptxas(fm, libs["fused_mlp_bwd"], "wgrad_wgmma")
-    check_ptxas(fm, libs["fused_mlp_bwd"], "fused_nerf_bwd_ffma")
-    check_ptxas(fm, libs["fused_mlp_bwd"], "wgrad_ffma")
+    check_ptxas(libs["fused_mlp"], "fused_nerf_wgmma")
+    check_ptxas(libs["fused_mlp"], "fused_nerf_ffma")
+    check_ptxas(libs["fused_mlp_int8"], "fused_nerf_int8_wgmma")
+    check_ptxas(libs["fused_mlp_bwd"], "fused_nerf_bwd_wgmma")
+    check_ptxas(libs["fused_mlp_bwd"], "wgrad_wgmma")
+    check_ptxas(libs["fused_mlp_bwd"], "fused_nerf_bwd_ffma")
+    check_ptxas(libs["fused_mlp_bwd"], "wgrad_ffma")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(SEED + 1)
     rows = []
@@ -1025,7 +1023,8 @@ def phase_step_vs_off(cfg):
     from cvnerf_torch.data.synthetic import bench_scene
     from cvnerf_torch.ops.rng import PRNGKey, fold_in
     from cvnerf_torch.train.loop import make_train_step
-    from cvnerf_torch.train.state import create_train_state, tree_leaves
+    from cvnerf_torch.train.state import create_train_state
+    from cvnerf_torch.utils.tree import tree_leaves
     images, poses = bench_scene(TRAIN_HW, TRAIN_HW)
     images = torch.as_tensor(images, device="cuda")
     poses = torch.as_tensor(poses, device="cuda")
@@ -1280,7 +1279,8 @@ def phase_cli(fm, fb, fq, card: str, tmp: str) -> dict:
     from cvnerf_torch.train.checkpoint import (Checkpointer,
                                                restore_checkpoint,
                                                restore_params)
-    from cvnerf_torch.train.state import create_train_state, tree_leaves
+    from cvnerf_torch.train.state import create_train_state
+    from cvnerf_torch.utils.tree import tree_leaves
     data = os.path.join(tmp, "lego_fixture")
     t0 = time.perf_counter()
     make_blender_dataset(data, n_train=8, n_val=2, n_test=2, h=800, w=800,
@@ -1494,7 +1494,7 @@ def compare_steps(what: str, old, on, off, m_on: dict, m_off: dict,
     of each leaf's largest; params (and the EMA slot) within 2·lr; on an
     update count of 0, where Adam's step is ~lr·sign(g), within 1e-6 where
     |g| exceeds 0.3 of its leaf's largest."""
-    from cvnerf_torch.train.state import tree_leaves
+    from cvnerf_torch.utils.tree import tree_leaves
     first = old.opt_state.count == 0
     loss_err = abs(m_on["loss"] - m_off["loss"]) / abs(m_off["loss"])
     g_err, p_any, p_big = 0.0, 0.0, 0.0
@@ -1772,7 +1772,7 @@ def phase_lever_cli(fm, fb, fq, card: str, tmp: str, data: str) -> dict:
     from cvnerf_torch.render.frames import render_image
     from cvnerf_torch.serve import NerfRenderer
     from cvnerf_torch.train.checkpoint import restore_params
-    from cvnerf_torch.train.state import tree_leaves
+    from cvnerf_torch.utils.tree import tree_leaves
     logs = os.path.join(tmp, "lever_logs")
     lego = str(Path(__file__).resolve().parent / "configs" / "lego.txt")
     base = ["--config", lego, "--data_dir", data,
@@ -2303,7 +2303,8 @@ def phase_occ_steps(fm, fb, fq, card: str) -> dict:
     from cvnerf_torch.render.occupancy import (bake_scene_occupancy,
                                                occupied_fraction)
     from cvnerf_torch.train.loop import make_train_step
-    from cvnerf_torch.train.state import create_train_state, tree_leaves
+    from cvnerf_torch.train.state import create_train_state
+    from cvnerf_torch.utils.tree import tree_leaves
     images_np, poses_np = bench_scene(TRAIN_HW, TRAIN_HW)
     images = torch.as_tensor(images_np, device="cuda")
     poses = torch.as_tensor(poses_np, device="cuda")
@@ -2729,7 +2730,8 @@ def phase_dist_cli(fm, fb, fq, card: str, tmp: str) -> dict:
     from cvnerf_torch.ops.rng import PRNGKey
     from cvnerf_torch.parallel.mesh import initialize_distributed, make_mesh
     from cvnerf_torch.train.loop import Trainer
-    from cvnerf_torch.train.state import create_train_state, tree_leaves
+    from cvnerf_torch.train.state import create_train_state
+    from cvnerf_torch.utils.tree import tree_leaves
     logs = os.path.join(tmp, "cli_logs")
     base = cli_base(tmp)
     per_frame = {"fwd": 2 * -(-SERVE_HW * SERVE_HW // 4096)}
@@ -2892,7 +2894,7 @@ def feistel_encryptions(tf, key, n: int, m: int) -> int:
     return total
 
 
-def phase_draws(fm, card: str) -> list[dict]:
+def phase_draws(card: str) -> list[dict]:
     """12a: the draw kernels against their plain versions on the card,
     bitwise, at the key derivations', the lego step's ray streams' and the
     Feistel draws' shapes, each launched twice; ptxas spills 0; the
@@ -2900,9 +2902,10 @@ def phase_draws(fm, card: str) -> list[dict]:
     The launches made here are taken back off the counters."""
     from cvnerf_torch.ops import threefry as tf
     from cvnerf_torch.ops.rng import PRNGKey
-    lib = fm.build_library("threefry", verbose=True)
-    check_ptxas(fm, lib, "threefry_bits_kernel")
-    check_ptxas(fm, lib, "feistel_draw_kernel")
+    from cvnerf_torch.utils.kernels import build_library
+    lib = build_library("threefry", verbose=True)
+    check_ptxas(lib, "threefry_bits_kernel")
+    check_ptxas(lib, "feistel_draw_kernel")
     saved = (tf.threefry_bits.launches, tf.feistel_draw.launches)
     dev = torch.device("cuda")
     ids = torch.arange(1024, dtype=torch.int64, device=dev)
@@ -3184,7 +3187,7 @@ def foreach_adam(params, grads, mu, nu, step: float, bc1: float, bc2: float,
     return torch._foreach_add(params, u), m, v
 
 
-def phase_adam(fm, card: str) -> dict:
+def phase_adam(card: str) -> dict:
     """12e: ``fused_adam`` against ``adam_plain`` on the card at the lego
     nets' 48 leaves, p, m and v bitwise, at ADAM_COUNTS with random, zero
     and large gradients, and one launch captured in a CUDA graph replayed
@@ -3194,10 +3197,12 @@ def phase_adam(fm, card: str) -> dict:
     calls made here are taken back off the counters."""
     from cvnerf_torch.ops import adam as fa
     from cvnerf_torch.ops.rng import PRNGKey
-    from cvnerf_torch.train.state import Adam, create_train_state, tree_leaves
-    lib = fm.build_library("adam", verbose=True)
-    check_ptxas(fm, lib, "fused_adam_kernel")
-    ptxas = ptxas_report(fm, lib, "fused_adam_kernel")
+    from cvnerf_torch.train.state import Adam, create_train_state
+    from cvnerf_torch.utils.tree import tree_leaves
+    from cvnerf_torch.utils.kernels import build_library
+    lib = build_library("adam", verbose=True)
+    check_ptxas(lib, "fused_adam_kernel")
+    ptxas = ptxas_report(lib, "fused_adam_kernel")
     saved = (fa.fused_adam.launches, fa.adam_plain.calls)
     dev = torch.device("cuda")
     opt = Adam(lr=5e-4, lr_decay=500)
@@ -3301,7 +3306,7 @@ def ngp_touched(he, levels, unit: torch.Tensor) -> int:
                for lv in levels)
 
 
-def phase_ngp_kernels(fm, card: str) -> dict:
+def phase_ngp_kernels(card: str) -> dict:
     """14a: the hash kernels (``csrc/hash_encode.cu``) and the skip-zero
     and L2 rules of ``fused_adam`` at the published widths (16 levels, 2^19
     entries a level) and a train step's two encodings, NGP_LAUNCHES
@@ -3325,12 +3330,14 @@ def phase_ngp_kernels(fm, card: str) -> dict:
     from cvnerf_torch.ops import adam as fa
     from cvnerf_torch.ops import hash_encode as he
     from cvnerf_torch.ops.rng import PRNGKey
-    from cvnerf_torch.train.state import make_optimizer, tree_leaves
-    lib = fm.build_library("hash_encode", verbose=True)
+    from cvnerf_torch.train.state import make_optimizer
+    from cvnerf_torch.utils.tree import tree_leaves
+    from cvnerf_torch.utils.kernels import build_library
+    lib = build_library("hash_encode", verbose=True)
     ptxas = {}
     for kernel in ("hash_encode_fwd", "hash_encode_bwd"):
-        check_ptxas(fm, lib, kernel)
-        ptxas[kernel] = ptxas_report(fm, lib, kernel)
+        check_ptxas(lib, kernel)
+        ptxas[kernel] = ptxas_report(lib, kernel)
     saved = (dict(he.stats), fa.fused_adam.launches, fa.adam_plain.calls)
     dev = torch.device("cuda")
     cfg = NgpFieldConfig()
@@ -3453,7 +3460,7 @@ def phase_ngp_kernels(fm, card: str) -> dict:
 STEP_KEYS = ("hash_fwd", "hash_bwd", "mlp_fwd", "mlp_bwd", "adam")
 
 
-def phase_ngp_mlp(fm, card: str) -> dict:
+def phase_ngp_mlp(card: str) -> dict:
     """14a, the MLPs: the fused pair (``csrc/ngp_mlp.cu``) at a train step's
     two passes (NGP_LAUNCHES samples, NGP_SPR a ray), the published MLPs,
     features normal with σ 0.5 in bf16, an SH row a ray, a random upstream
@@ -3476,11 +3483,12 @@ def phase_ngp_mlp(fm, card: str) -> dict:
     from cvnerf_torch.ops import ngp_mlp as nm
     from cvnerf_torch.ops.encoding import sh_encode
     from cvnerf_torch.ops.rng import PRNGKey
-    lib = fm.build_library("ngp_mlp", verbose=True)
+    from cvnerf_torch.utils.kernels import build_library
+    lib = build_library("ngp_mlp", verbose=True)
     ptxas = {}
     for kernel in ("ngp_mlp_fwd", "ngp_mlp_bwd", "ngp_mlp_wgrad_reduce"):
-        check_ptxas(fm, lib, kernel)
-        ptxas[kernel] = ptxas_report(fm, lib, kernel)
+        check_ptxas(lib, kernel)
+        ptxas[kernel] = ptxas_report(lib, kernel)
     saved = dict(nm.stats)
     dev = torch.device("cuda")
     cfg = NgpFieldConfig()
@@ -4149,12 +4157,12 @@ def main() -> int:
     # -- 1c. the int8 kernel against its plain version --------------------
     int8_rows = phase_int8(fm, fq, tq, rng, cfg, params)
     # -- 12a. the draw kernels against their plain versions ---------------
-    draw_rows = phase_draws(fm, card)
+    draw_rows = phase_draws(card)
     # -- 12e. Adam's kernel against its plain version ----------------------
-    adam_row = phase_adam(fm, card)
+    adam_row = phase_adam(card)
     # -- 14a. the NGP field's kernels against their plain versions --------
-    ngp = phase_ngp_kernels(fm, card)
-    ngp_mlp_row = phase_ngp_mlp(fm, card)
+    ngp = phase_ngp_kernels(card)
+    ngp_mlp_row = phase_ngp_mlp(card)
     # From here on every draw and Adam launch counts (the comparisons above
     # are taken back off the counters).
     tf.threefry_bits.launches = tf.feistel_draw.launches = 0

@@ -244,10 +244,8 @@ def _run(args, dev, run_dir: str) -> dict:
 
     from cvnerf_torch.config import snapshot_config
     from cvnerf_torch.data.datasets import load_scene
-    from cvnerf_torch.models.nerf_mlp import (NerfMLPConfig,
-                                              anneal_model_params)
-    from cvnerf_torch.models.ngp_field import NgpFieldConfig
-    from cvnerf_torch.ops.fused_mlp import FusedNerfWeights
+    from cvnerf_torch.models.family import family_named
+    from cvnerf_torch.models.nerf_mlp import anneal_model_params
     from cvnerf_torch.ops.rng import PRNGKey
     from cvnerf_torch.parallel.mesh import make_mesh
     from cvnerf_torch.render.frames import (FramePrograms,
@@ -301,23 +299,13 @@ def _run(args, dev, run_dir: str) -> dict:
               "port has no separate network chunking")
 
     # --- model / state ---
-    if args.model == "ngp":
-        # The published widths; the grid spans the NDC cube, or the
-        # --occupancy_bound cube around the scene's origin.
-        mlp = NgpFieldConfig(bound=1.0 if scene.ndc
-                             else args.occupancy_bound)
-        nerf_only = [flag for flag, on in (
-            ("--occ_train", args.occ_train), ("--occupancy", args.occupancy),
-            ("--int8", args.int8), ("--freq_anneal", args.freq_anneal > 0))
-            if on]
-        if nerf_only:
-            sys.exit(f"--model ngp trains and renders without "
-                     f"{', '.join(nerf_only)} (NeRF's levers)")
-    else:
-        mlp = NerfMLPConfig(xyz_freqs=args.xyz_freqs,
-                            dir_freqs=args.dir_freqs,
-                            trunk_width=args.trunk_width,
-                            head_width=args.head_width)
+    family = family_named(args.model)
+    mlp = family.config_from_args(args, scene.ndc)
+    refused = family.refused(occ_train=args.occ_train, occupancy=args.occupancy,
+                             int8=args.int8, freq_anneal=args.freq_anneal > 0)
+    if refused:
+        sys.exit(f"--model {args.model} trains and renders without "
+                 f"{', '.join('--' + lv for lv in refused)} (NeRF's levers)")
     if args.occ_train and args.n_fine_samples <= 0:
         sys.exit("--occ_train requires n_fine_samples > 0 (occupancy "
                  "sampling resamples n_fine points from the grid probe "
@@ -376,14 +364,6 @@ def _run(args, dev, run_dir: str) -> dict:
         if args.freq_anneal > 0 and step < args.freq_anneal:
             return anneal_model_params(params, mlp, step / args.freq_anneal)
         return params
-
-    def frame_nets(params: dict) -> dict:
-        """The nets a render takes: packed once for the forward kernel, or
-        as they are for kernels="off" and for an Instant-NGP field."""
-        if rcfg_test.kernels == "off" or args.model == "ngp":
-            return params
-        return {k: FusedNerfWeights(v, mlp, rcfg_test.compute_dtype)
-                for k, v in params.items()}
 
     best_meta_path = os.path.join(run_dir, "best.json")
 
@@ -566,7 +546,7 @@ def _run(args, dev, run_dir: str) -> dict:
                       f"the best-val model (step {start}); pass "
                       f"--no-track_best for the last checkpoint")
         params = render_params(deploy_params(state), start)
-        nets = frame_nets(params)
+        nets = family.frame_nets(params, rcfg_test)
         occ = None
         if (args.occ_train or preserve_occ is not None) and not args.occupancy:
             # An --occ_train run's checkpoints carry an untrained coarse
@@ -755,18 +735,18 @@ def _run(args, dev, run_dir: str) -> dict:
 
     @_non_fatal
     def vid_cb(i, tr, m):
-        frames = spiral_video(
-            i, frame_nets(render_params(deploy_params(tr.state), i)),
-            occupancy=tr.occupancy)
+        params = render_params(deploy_params(tr.state), i)
+        frames = spiral_video(i, family.frame_nets(params, rcfg_test),
+                              occupancy=tr.occupancy)
         logger.log_image(i, "spiral_frame0", frames[0])
 
     @_non_fatal
     def val_cb(i, tr, m):
         if not len(val_views):
             return
-        v, s, rgb, _ = score_views(
-            frame_nets(render_params(deploy_params(tr.state), i)), val_views,
-            123, occupancy=tr.occupancy)
+        params = render_params(deploy_params(tr.state), i)
+        v, s, rgb, _ = score_views(family.frame_nets(params, rcfg_test),
+                                   val_views, 123, occupancy=tr.occupancy)
         logger.log(i, val_psnr=v, val_ssim=s, val_views=len(val_views))
         logger.log_image(i, "val_render", rgb)
         if best_writer is not None and v > best["psnr"]:
@@ -828,9 +808,9 @@ def _run(args, dev, run_dir: str) -> dict:
         # Held-out test scores on the test views (disjoint from the
         # validation views where the dataset allows).
         step = int(trainer.state.step)
-        p, s, _, lp = score_views(
-            frame_nets(render_params(deploy_params(trainer.state), step)),
-            test_views, 7, occupancy=trainer.occupancy)
+        params = render_params(deploy_params(trainer.state), step)
+        p, s, _, lp = score_views(family.frame_nets(params, rcfg_test),
+                                  test_views, 7, occupancy=trainer.occupancy)
         extra = {} if lp is None else {"test_lpips": lp}
         logger.log(int(trainer.state.step), test_psnr=p, test_ssim=s,
                    test_views=len(test_views), **extra)
@@ -851,9 +831,9 @@ def _run(args, dev, run_dir: str) -> dict:
                     print("[WARN] best-val occupancy bake is empty — "
                           "scoring the best model grid-less", flush=True)
                     occ_best = None
-                pb, sb, _, lpb = score_views(frame_nets(params_best),
-                                             test_views, 7,
-                                             occupancy=occ_best)
+                pb, sb, _, lpb = score_views(
+                    family.frame_nets(params_best, rcfg_test), test_views, 7,
+                    occupancy=occ_best)
                 extra = {} if lpb is None else {"test_lpips_best": lpb}
                 logger.log(int(trainer.state.step), test_psnr_best=pb,
                            test_ssim_best=sb,

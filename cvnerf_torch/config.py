@@ -17,6 +17,8 @@ import json
 import os
 import shlex
 
+from cvnerf_torch.models.family import FAMILIES, family_named
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -266,7 +268,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dir_freqs", type=int, default=4,
                    help="positional-encoding L for view directions")
     p.add_argument("--model", type=str, default="nerf",
-                   choices=["nerf", "ngp"],
+                   choices=list(FAMILIES),
                    help="the field: nerf (two MLPs, coarse and fine) or ngp "
                         "(Instant-NGP's hash grid and small MLPs at the "
                         "published widths, one field for both passes; "
@@ -385,7 +387,7 @@ def snapshot_config(args: argparse.Namespace, run_dir: str) -> str:
     os.makedirs(run_dir, exist_ok=True)
     path = os.path.join(run_dir, "config_resolved.json")
     out = dict(vars(args))
-    if out.get("model", "nerf") == "nerf":
+    if family_named(out.get("model")).tag is None:
         out.pop("model", None)
     with open(path, "w") as fp:
         json.dump(out, fp, indent=2, sort_keys=True)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from cvnerf_torch.ops.encoding import encoding_dim
+from cvnerf_torch.ops.rng import split, uniform
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +65,6 @@ def init_nerf_params(key: torch.Tensor,
     draws are the JAX package's ``init_nerf_params(key)`` bit for bit (a key
     per weight and per bias, ``jax.random.uniform`` with the bound in
     float32), so a key gives the same weights on every device."""
-    from cvnerf_torch.ops.rng import split, uniform
     dims = _layer_dims(cfg)
     keys = split(key, 2 * len(dims))
     params = {}

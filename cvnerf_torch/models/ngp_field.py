@@ -48,6 +48,7 @@ from cvnerf_torch.ops import ngp_mlp
 from cvnerf_torch.ops.encoding import sh_encode
 from cvnerf_torch.ops.hash_encode import (FEATURES, GridLevel, grid_levels,
                                           hash_encode, total_entries)
+from cvnerf_torch.ops.rng import split, uniform
 
 
 # The published widths that the kernels and the tree fix: 2 features a
@@ -103,10 +104,6 @@ def _levels(n_levels, log2_table, base_res, max_res):
     return grid_levels(n_levels, log2_table, base_res, max_res)
 
 
-def is_ngp(cfg) -> bool:
-    return isinstance(cfg, NgpFieldConfig)
-
-
 def ngp_param_count(cfg: NgpFieldConfig) -> tuple[int, int]:
     """``(table values, MLP weights)`` of a field."""
     return (FEATURES * total_entries(cfg.levels),
@@ -132,7 +129,6 @@ def init_ngp_params(key: torch.Tensor,
     level's entries ``U(-init_scale, init_scale)`` (the paper's §4), drawn
     on ``device``; each MLP weight Xavier-uniform ``U(±sqrt(6 / (fan_in +
     fan_out)))``, tiny-cuda-nn's initialisation, drawn on the CPU."""
-    from cvnerf_torch.ops.rng import split, uniform
     layers = cfg.mlp_layers()
     keys = split(key, cfg.n_levels + len(layers))
     s = cfg.init_scale

@@ -28,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-from cvnerf_torch.ops.fused_mlp import load_library
+from cvnerf_torch.utils.kernels import load_library
 
 # The leaves one launch takes (csrc/adam.cu kLeaves: the most whose table of
 # 7 pointers and 2 counts a leaf fits the kernel's 4 KB of parameters).

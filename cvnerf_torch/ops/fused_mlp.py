@@ -5,14 +5,8 @@ PyTorch version (port of the JAX package's ``ops/pallas/fused_mlp.py``).
 both inputs followed by the full 12-layer MLP and returns ``[n, 4]`` raw
 ``(r, g, b, sigma)`` in fp32. For CUDA tensors it launches the hand-written
 kernel in ``cvnerf_torch/csrc/fused_mlp.cu`` (or raises); for CPU tensors it
-runs :func:`fused_nerf_plain`. Each kernel source in ``SOURCES`` (this
-forward, the backward of ``ops/fused_mlp_bwd.py``, the int8 forward of
-``ops/fused_mlp_int8.py``, the draws of ``ops/threefry.py``, Adam's
-update of ``ops/adam.py``, the hash encoding of ``ops/hash_encode.py`` and
-the Instant-NGP MLPs of ``ops/ngp_mlp.py``) is compiled with
-``nvcc`` at first use into its own library under
-``build/cvnerf_torch_kernels/`` (keyed by the hash of the source and the
-shared headers) and bound with ``ctypes``; nothing is built at import time.
+runs :func:`fused_nerf_plain`. The kernel is built at first use
+(``utils/kernels.py``) and bound with ``ctypes``.
 
 Weights are packed once, by :class:`FusedNerfWeights`, into the kernels'
 operand layout (``csrc/nerf_common.cuh``): the l6 and l10 weights are split
@@ -23,35 +17,12 @@ a multiple of 16, and every operand rounded to the compute dtype.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 
 import torch
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, apply_nerf
 from cvnerf_torch.ops.encoding import freq_encode
-
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-# One shared library per kernel source; every source includes headers in
-# csrc/ (nerf_common.cuh, hopper.cuh), so they are part of each build's hash.
-SOURCES = {"fused_mlp": _CSRC / "fused_mlp.cu",
-           "fused_mlp_bwd": _CSRC / "fused_mlp_bwd.cu",
-           "fused_mlp_int8": _CSRC / "fused_mlp_int8.cu",
-           "threefry": _CSRC / "threefry.cu",
-           "adam": _CSRC / "adam.cu",
-           "hash_encode": _CSRC / "hash_encode.cu",
-           "ngp_mlp": _CSRC / "ngp_mlp.cu"}
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cvnerf_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-
-_libs: dict = {}
-_lib_lock = threading.Lock()
+from cvnerf_torch.utils.kernels import load_library
 
 
 def forward_flops(cfg: NerfMLPConfig) -> int:
@@ -60,66 +31,6 @@ def forward_flops(cfg: NerfMLPConfig) -> int:
     macs = (cfg.xyz_dim * w + 6 * w * w + (w + cfg.xyz_dim) * w + w * w + w
             + (w + cfg.dir_dim) * h + 3 * h)
     return 2 * macs
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the fused MLP kernels are built from "
-                       f"{_CSRC} on a machine with the CUDA toolkit")
-
-
-def build_library(name: str = "fused_mlp", verbose: bool = False) -> Path:
-    """Compile the kernel source ``SOURCES[name]`` into a shared library (if
-    this source and header hash has not been built yet) and return its
-    path. Safe to call from several processes and threads: each compiles
-    to a temporary file and renames it. ``verbose`` builds with
-    ``-Xptxas -v``, prints the report (registers, stack, spills per kernel)
-    and keeps it beside the library (:func:`ptxas_log`)."""
-    source = SOURCES[name]
-    blob = source.read_bytes() + b"".join(
-        p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"{name}_{digest[:16]}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {source.name} ({res.returncode}):"
-                           f"\n{res.stderr}")
-    if verbose:
-        if res.stderr:
-            print(res.stderr, flush=True)
-        ptxas_log(out).write_text(res.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-def ptxas_log(library: Path) -> Path:
-    """Where a verbose build keeps the ptxas report of ``library``."""
-    return library.with_suffix(".ptxas.txt")
-
-
-def load_library(name: str, bind) -> ctypes.CDLL:
-    """The built library ``name``, loaded once; ``bind(lib)`` sets its
-    functions' ctypes signatures on first load."""
-    with _lib_lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(build_library(name)))
-            bind(lib)
-            _libs[name] = lib
-        return _libs[name]
 
 
 def _bind_forward(lib) -> None:

@@ -36,7 +36,8 @@ from cvnerf_torch.ops.encoding import freq_encode
 from cvnerf_torch.ops.fused_mlp import (FP32_THREADS, SMEM_LIMIT,
                                         FusedNerfWeights, fp32_block_plan,
                                         forward_flops, fused_nerf_apply,
-                                        load_library, mat_blocks, packed_size)
+                                        mat_blocks, packed_size)
+from cvnerf_torch.utils.kernels import load_library
 
 # Param leaves in the order the autograd function takes them.
 LEAVES = tuple((name, part)

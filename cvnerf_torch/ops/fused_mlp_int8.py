@@ -8,7 +8,7 @@ and its plain PyTorch version (port of the JAX package's
 b, sigma)`` in fp32. For CUDA tensors it launches the hand-written kernel
 in ``cvnerf_torch/csrc/fused_mlp_int8.cu`` (or raises); for CPU tensors it
 runs :func:`fused_nerf_int8_plain`. The kernel is built and bound like the
-float kernels (``ops/fused_mlp.py``: ``SOURCES``, ``build_library``).
+float kernels (``utils/kernels.py``).
 
 A net's :class:`~cvnerf_torch.ops.quantize.QuantizedNerfParams` are packed
 once, by :class:`QuantizedNerfWeights`, into the kernel's operand layout
@@ -27,8 +27,9 @@ from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
 from cvnerf_torch.ops.encoding import freq_encode
 from cvnerf_torch.ops.fused_mlp import (SMEM_LIMIT, _round_up,
                                        check_kernel_inputs,
-                                       check_point_inputs, load_library)
+                                       check_point_inputs)
 from cvnerf_torch.ops.quantize import QuantizedNerfParams, apply_nerf_quant
+from cvnerf_torch.utils.kernels import load_library
 
 
 def check_int8_kernel_config(cfg: NerfMLPConfig) -> None:

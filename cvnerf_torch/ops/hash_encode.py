@@ -49,7 +49,7 @@ import math
 import numpy as np
 import torch
 
-from cvnerf_torch.ops.fused_mlp import load_library
+from cvnerf_torch.utils.kernels import load_library
 
 _M32 = 0xFFFFFFFF
 PRIMES = (1, 2654435761, 805459861)

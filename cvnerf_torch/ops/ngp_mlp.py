@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from cvnerf_torch.ops import hash_encode as he
-from cvnerf_torch.ops.fused_mlp import load_library
+from cvnerf_torch.utils.kernels import load_library
 
 # The widths the kernels take: 32 hash features (16 levels of 2), 64
 # hidden, 16 density outputs, degree-4 SH (16 values), 3 colours.

@@ -23,7 +23,7 @@ import ctypes
 import numpy as np
 import torch
 
-from cvnerf_torch.ops.fused_mlp import load_library
+from cvnerf_torch.utils.kernels import load_library
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)

@@ -13,10 +13,7 @@ chunk size. ``render_rays`` is differentiable in the params (training);
 graph on a card). Near and far may be Python floats, ``[n_rays]`` tensors
 or 0-d tensors on the rays' device: a frame program passes 0-d tensors,
 so that a captured frame reads them from device memory and nothing
-renders from a value frozen at capture. A net given as
-int8 params (``QuantizedNerfParams``, or its packed
-``QuantizedNerfWeights``) is queried through the int8 path and ignores
-``compute_dtype``, as in the JAX package. With a baked occupancy grid
+renders from a value frozen at capture. With a baked occupancy grid
 (``render/occupancy.py``) the grid probe replaces the coarse MLP:
 ``"merge"`` keeps the fine pass's shape, ``"full"`` draws every fine
 sample from the probe CDF (with ``occ_floor`` of them from a stratified
@@ -27,10 +24,8 @@ into contiguous shards with their global ids, renders each shard on its
 device and puts the shards back in order (across processes through an
 ``all_gather``, so every rank holds the whole result); the draws' keying
 makes that bitwise the unsharded render, up to the kernels' own rounding.
-An ``NgpFieldConfig`` in ``RenderConfig.mlp`` renders the Instant-NGP
-field (``models/ngp_field.py``): ``params["field"]`` is queried by both
-passes, through the hash-encode kernels (their plain version for CPU
-tensors or ``kernels="off"``).
+Which net a pass queries, and how, is the family of ``RenderConfig.mlp``
+(``models/family.py``): NeRF's pair or the one Instant-NGP field.
 """
 
 from __future__ import annotations
@@ -39,16 +34,9 @@ import dataclasses
 
 import torch
 
-from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, apply_nerf
-from cvnerf_torch.models.ngp_field import apply_ngp, is_ngp
+from cvnerf_torch.models.family import family_of
+from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
 from cvnerf_torch.ops.compositing import volume_render
-from cvnerf_torch.ops.encoding import freq_encode
-from cvnerf_torch.ops.fused_mlp import FusedNerfWeights, fused_nerf_apply
-from cvnerf_torch.ops.fused_mlp_bwd import fused_nerf_train_apply
-from cvnerf_torch.ops.fused_mlp_int8 import (QuantizedNerfWeights,
-                                             fused_nerf_apply_int8,
-                                             fused_nerf_int8_plain)
-from cvnerf_torch.ops.quantize import QuantizedNerfParams
 from cvnerf_torch.ops.rng import (key_on, ray_normal, ray_sorted_uniform,
                                   ray_uniform)
 from cvnerf_torch.ops.sampling import (merge_sorted, sample_pdf,
@@ -112,75 +100,11 @@ class RenderConfig:
                 or (self.n_fine > 0 and not self.deterministic_resample))
 
 
-def _net_params(net) -> dict:
-    return net.params if isinstance(net, FusedNerfWeights) else net
-
-
 def _query_mlp(net, points: torch.Tensor, viewdirs: torch.Tensor,
                cfg: RenderConfig) -> torch.Tensor:
-    """Encode and evaluate one net at ``points`` ``[n_rays, n_samples, 3]``
-    with per-ray ``viewdirs`` ``[n_rays, 3]``; returns ``[n_rays,
-    n_samples, 4]``.
-
-    With ``kernels="on"`` the points go through the fused kernels (their
-    plain versions for CPU tensors): a :class:`FusedNerfWeights` (packed
-    once by a server) through the forward kernel alone, a params dict
-    through ``fused_nerf_train_apply``, which packs it on every call and is
-    differentiable in it (the forward kernel, then the backward kernel).
-
-    Int8 nets take the same two routes: with ``kernels="on"`` through the
-    int8 kernel (its plain version for CPU tensors), a
-    :class:`QuantizedNerfWeights` as packed once by a server, a
-    ``QuantizedNerfParams`` packed on every call; with ``kernels="off"``
-    through the kernel's plain version, ``fused_nerf_int8_plain``.
-    """
-    shape = (*points.shape[:2], 4)
-    if is_ngp(cfg.mlp):
-        return apply_ngp(net, points, viewdirs, cfg.mlp, cfg.compute_dtype,
-                         cfg.kernels)
-    if isinstance(net, (QuantizedNerfWeights, QuantizedNerfParams)):
-        if cfg.kernels == "off":
-            qp = net.qp if isinstance(net, QuantizedNerfWeights) else net
-            raw = fused_nerf_int8_plain(qp, *_flat(points, viewdirs), cfg.mlp)
-        else:
-            if isinstance(net, QuantizedNerfParams):
-                net = QuantizedNerfWeights(net, cfg.mlp)
-            raw = fused_nerf_apply_int8(net, *_flat(points, viewdirs))
-        return raw.reshape(shape)
-    if cfg.kernels == "on":
-        pts_flat, dirs_flat = _flat(points, viewdirs)
-        if isinstance(net, FusedNerfWeights):
-            raw = fused_nerf_apply(net, pts_flat, dirs_flat)
-        else:
-            raw = fused_nerf_train_apply(net, pts_flat, dirs_flat, cfg.mlp,
-                                         cfg.compute_dtype)
-        return raw.reshape(shape)
-    return apply_nerf(_net_params(net), *_encoded(points, viewdirs, cfg.mlp),
-                      cfg.mlp, compute_dtype=cfg.compute_dtype)
-
-
-def _flat(points: torch.Tensor, viewdirs: torch.Tensor):
-    """``[n_rays, n_samples, 3]`` points and per-ray ``[n_rays, 3]``
-    viewdirs as two contiguous ``[n, 3]`` tensors."""
-    n_rays, n_samples = points.shape[:2]
-    return (points.reshape(-1, 3).contiguous(),
-            viewdirs[:, None, :].expand(n_rays, n_samples, 3)
-            .reshape(-1, 3).contiguous())
-
-
-def _encoded(points: torch.Tensor, viewdirs: torch.Tensor, mlp):
-    """Both encodings, the per-ray dir encoding broadcast over the
-    samples."""
-    xyz_enc = freq_encode(points, mlp.xyz_freqs)
-    dir_enc = freq_encode(viewdirs, mlp.dir_freqs)
-    return xyz_enc, dir_enc[..., None, :].expand(*points.shape[:-1],
-                                                 dir_enc.shape[-1])
-
-
-def _net(params: dict, name: str, cfg: RenderConfig):
-    """The net a pass queries: ``params[name]``, or the Instant-NGP
-    field, which serves both passes."""
-    return params["field"] if is_ngp(cfg.mlp) else params[name]
+    """One net's raw ``[n_rays, n_samples, 4]`` at ``points`` with per-ray
+    ``viewdirs``, as the model's family queries it."""
+    return family_of(cfg.mlp).query(net, points, viewdirs, cfg)
 
 
 def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
@@ -193,10 +117,8 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
     params.
 
     Args:
-        params: ``{"coarse": net, "fine": net}``, each a params dict, a
-            :class:`FusedNerfWeights`, or int8 params
-            (``QuantizedNerfParams`` / ``QuantizedNerfWeights``); or
-            ``{"field": ...}``, an Instant-NGP field.
+        params: the nets of ``cfg.mlp``'s family: ``{"coarse", "fine"}``
+            (params, packed or int8 nets) or ``{"field"}``.
         rays_o, rays_d: ``[n_rays, 3]`` (possibly NDC-warped) rays.
         viewdirs: ``[n_rays, 3]`` unit directions of the pre-NDC rays.
         near, far: scalars or ``[n_rays]`` bounds.
@@ -214,6 +136,7 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
         depths ``t``.
     """
     cfg.check_supported()
+    family = family_of(cfg.mlp)
     if key is None and cfg.needs_key():
         raise ValueError("this configuration draws random numbers (perturb, "
                          "noise_std or a stochastic resample): pass key=")
@@ -241,7 +164,8 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
         coarse = volume_render(raw, t_coarse, rays_d, noise_std=0.0,
                                white_bkg=cfg.white_bkg, noise=None)
     else:
-        raw = _query_mlp(_net(params, "coarse", cfg), points, viewdirs, cfg)
+        raw = _query_mlp(family.net(params, "coarse"), points, viewdirs,
+                         cfg)
         noise_c = (ray_normal(key, 3, ray_ids, cfg.n_coarse) * noise_scale
                    if cfg.noise_std > 0 else None)
         coarse = volume_render(raw, t_coarse, rays_d,
@@ -290,7 +214,7 @@ def render_rays(params: dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
         t_fine = t_coarse
 
     points = rays_o[..., None, :] + rays_d[..., None, :] * t_fine[..., :, None]
-    raw = _query_mlp(_net(params, "fine", cfg), points, viewdirs, cfg)
+    raw = _query_mlp(family.net(params, "fine"), points, viewdirs, cfg)
     noise_f = (ray_normal(key, 4, ray_ids, t_fine.shape[-1]) * noise_scale
                if cfg.noise_std > 0 else None)
     fine = volume_render(raw, t_fine, rays_d, noise_std=cfg.noise_std,

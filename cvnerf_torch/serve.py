@@ -33,10 +33,9 @@ ranks, splits each chunk's rays over a ``'rays'`` mesh
 (``parallel/mesh.py``) with the nets and the grid replicated over it; on
 one card there is no mesh.
 
-An Instant-NGP run (``models/ngp_field.py``; its ``scene.json`` says
-``"model": "ngp"``, its checkpoints hold the field's tree) serves through
-the same frame programs, the field as it is (nothing to pack); int8,
-occupancy and meshing are NeRF's alone.
+An Instant-NGP run serves through the same frame programs; reading a
+checkpoint, packing and the refused levers are the family's
+(``models/family.py``).
 """
 
 from __future__ import annotations
@@ -50,9 +49,8 @@ import numpy as np
 import torch
 
 from cvnerf_torch import resolve_device
+from cvnerf_torch.models.family import family_named, family_of
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, anneal_model_params
-from cvnerf_torch.models.ngp_field import NgpFieldConfig, is_ngp
-from cvnerf_torch.ops.fused_mlp import FusedNerfWeights
 from cvnerf_torch.ops.fused_mlp_int8 import QuantizedNerfWeights
 from cvnerf_torch.ops.quantize import (calibration_samples, quantize_nerf,
                                        ray_calibration_samples)
@@ -62,8 +60,7 @@ from cvnerf_torch.render.occupancy import (bake_scene_occupancy,
 from cvnerf_torch.ops.rng import PRNGKey
 from cvnerf_torch.parallel.mesh import Mesh, make_mesh, replicate_to_mesh
 from cvnerf_torch.render.renderer import RenderConfig
-from cvnerf_torch.train.checkpoint import load_ngp_checkpoint
-from cvnerf_torch.utils.convert import load_torch_checkpoint
+from cvnerf_torch.utils.tree import tree_map
 
 SCENE_SNAPSHOT = "scene.json"
 CKPT_SUBDIR = "torch_checkpoints"
@@ -147,8 +144,9 @@ def write_scene_snapshot(run_dir: str, *, height: int, width: int,
         "sorted_resample": bool(sorted_resample), "pallas": pallas,
         "mlp": dataclasses.asdict(mlp),
     }
-    if is_ngp(mlp):
-        payload["model"] = "ngp"
+    tag = family_of(mlp).tag
+    if tag is not None:
+        payload["model"] = tag
     if ema_decay > 0:
         payload["ema_decay"] = float(ema_decay)
     if freq_anneal > 0:
@@ -219,21 +217,14 @@ class NerfRenderer:
         # The renderer's frame programs: one a frame shape and net kind.
         self.programs = FramePrograms()
 
-        if is_ngp(self.cfg.mlp):
-            self._load_ngp(ckpt_path)
-            return
-        params, found, step = load_torch_checkpoint(ckpt_path)
-        if found != self.cfg.mlp:
-            raise ValueError(f"{ckpt_path} holds architecture {found}, the "
-                             f"render config expects {self.cfg.mlp}")
+        self.family = family_of(self.cfg.mlp)
+        params, step = self.family.read(ckpt_path, self.cfg.mlp)
         self.step = 0 if step is None else step
         if anneal is not None:
             # A raw checkpoint from inside a freq_anneal horizon: its
             # weights were only ever trained through this window.
             params = anneal_model_params(params, self.cfg.mlp, anneal)
-        self.params = {k: {n: {p: t.to(self.device) for p, t in layer.items()}
-                           for n, layer in net.items()}
-                       for k, net in params.items()}
+        self.params = tree_map(lambda t: t.to(self.device), params)
         # The float master copy: enable_int8 swaps the nets a render uses,
         # never these.
         self._float_params = self.params
@@ -241,32 +232,8 @@ class NerfRenderer:
         # when the run's snapshot stores poses.
         self.calib_poses = None
         # Pack once for the kernel; every render reuses the packing.
-        if self.cfg.kernels == "on":
-            self._nets = self._placed(
-                {k: FusedNerfWeights(net, self.cfg.mlp,
-                                     self.cfg.compute_dtype)
-                 for k, net in self.params.items()})
-        else:
-            self._nets = self._placed(self.params)
-
-    def _load_ngp(self, ckpt_path: str) -> None:
-        """An Instant-NGP checkpoint, checked against the configured
-        field's shapes, on the renderer's device; served as it is."""
-        from cvnerf_torch.models.ngp_field import empty_ngp_params
-        from cvnerf_torch.train.checkpoint import match_tree
-        params, step = load_ngp_checkpoint(ckpt_path)
-        want = empty_ngp_params(self.cfg.mlp)
-        self.step = 0 if step is None else step
-        self.params = match_tree(params, want, ckpt_path, "params",
-                                 self.device)
-        self._float_params = self.params
-        self.calib_poses = None
-        self._nets = self._placed(self.params)
-
-    def _nerf_only(self, what: str) -> None:
-        if is_ngp(self.cfg.mlp):
-            raise ValueError(f"{what} is NeRF's: an Instant-NGP field "
-                             "serves without it")
+        self._nets = self._placed(self.family.frame_nets(self.params,
+                                                         self.cfg))
 
     def _placed(self, x):
         """``x`` replicated over the mesh, or as it is without one."""
@@ -305,8 +272,7 @@ class NerfRenderer:
                 f"{path} not found — {run_dir!r} is not a run directory")
         if which not in ("auto", "best", "last"):
             raise ValueError(f"which must be auto|best|last, got {which!r}")
-        mlp = (NgpFieldConfig(**geo["mlp"]) if geo.get("model") == "ngp"
-               else NerfMLPConfig(**geo["mlp"]))
+        mlp = family_named(geo.get("model")).config(**geo["mlp"])
         cfg = RenderConfig(
             n_coarse=geo["n_coarse"], n_fine=geo["n_fine"],
             white_bkg=geo["white_bkg"], mlp=mlp,
@@ -385,7 +351,9 @@ class NerfRenderer:
         The bake reflects the current weights: re-enable after loading
         others. With ``require_occupied``, an empty bake keeps grid-less
         serving, with a warning. Returns self."""
-        self._nerf_only("occupancy")
+        if self.family.refused(occupancy=True):
+            raise ValueError("occupancy is NeRF's: an Instant-NGP field "
+                             "serves without it")
         if mode not in ("merge", "full"):
             raise ValueError(f"mode must be 'merge' or 'full', got {mode!r}")
         if interp not in ("trilinear", "nearest"):
@@ -428,7 +396,9 @@ class NerfRenderer:
         (``bound=None`` → ``far``), a heuristic: rays reach ``|origin| +
         far``, and an under-sized box clips the position encoding.
         """
-        self._nerf_only("int8 serving")
+        if self.family.refused(int8=True):
+            raise ValueError("int8 serving is NeRF's: an Instant-NGP field "
+                             "serves without it")
         key = PRNGKey(seed)
         if poses is None:
             poses = self.calib_poses
@@ -463,7 +433,9 @@ class NerfRenderer:
         the float master copy: in the NDC box for an NDC-trained run (the
         only region it was queried in), else the ``±bound`` cube."""
         from cvnerf_torch.render.mesh import extract_mesh
-        self._nerf_only("meshing")
+        if self.family.refused(meshing=True):
+            raise ValueError("meshing is NeRF's: an Instant-NGP field "
+                             "serves without it")
         bbox_min, bbox_max = scene_bbox(self.ndc, bound)
         if net == "fine" and self.cfg.n_fine == 0:
             net = "coarse"

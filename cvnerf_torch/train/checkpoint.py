@@ -1,28 +1,12 @@
 """Checkpoint save/restore of a whole ``TrainState`` (port of the JAX
 package's ``train/checkpoint.py``, without orbax).
 
-A checkpoint is one plain-tensor file ``<dir>/<step:06d>.pt``::
-
-    {"coarse": state_dict, "fine": state_dict, "step": N,
-     "opt_state": {"count": int, "mu": {"coarse": sd, "fine": sd},
-                   "nu": {"coarse": sd, "fine": sd}},
-     "raw_params": True}
-
-and, for a state with the EMA slot, ``"ema_params": {"coarse": sd,
-"fine": sd}``, the Polyak average (the deployable weights, which
-``restore_params`` and serving prefer). The state dicts are
-reference-``Model`` ``nn.Linear`` layouts
-(``utils/convert.py::torch_state_dict_from_params``), the Adam moments in
-the same layout, so ``torch.load(weights_only=True)`` reads the file and
-``load_torch_checkpoint`` and ``NerfRenderer`` serve it as they serve an
-exported one. ``raw_params`` marks weights saved as training holds them
-(not windowed for serving, as ``cvnerf-import --export`` writes them).
-
-A state of the Instant-NGP field (``{"field": ...}`` params) is saved as
-its trees, ``{"model": "ngp", "params": tree, "step": N, "opt_state":
-{"count", "mu": tree, "nu": tree}, "raw_params": True}`` (and
-``"ema_params": tree``); a params-only file (``{"model": "ngp", "params":
-tree}``) serves too (``load_ngp_checkpoint``).
+A checkpoint is one plain-tensor file ``<dir>/<step:06d>.pt``: the params
+in their family's layout (``models/family.py``), ``"step"``,
+``"opt_state": {"count", "mu", "nu"}`` (the moments in the same layout),
+``"raw_params": True`` (not windowed for serving, as ``cvnerf-import
+--export`` writes them) and, with the EMA slot, ``"ema_params"``, the
+Polyak average that ``restore_params`` and serving prefer.
 """
 
 from __future__ import annotations
@@ -33,11 +17,9 @@ from concurrent.futures import Future, ThreadPoolExecutor
 
 import torch
 
-from cvnerf_torch.train.state import (AdamState, TrainState, clone_tree,
-                                      tree_leaves)
-from cvnerf_torch.utils.convert import (load_torch_checkpoint,
-                                        params_from_torch_state_dict,
-                                        torch_state_dict_from_params)
+from cvnerf_torch.models.family import family_named, family_of_params
+from cvnerf_torch.train.state import AdamState, TrainState, clone_tree
+from cvnerf_torch.utils.tree import tree_leaves
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
@@ -60,33 +42,17 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def _host(tree: dict) -> dict:
-    return {k: _host(v) if isinstance(v, dict) else v.detach().cpu().clone()
-            for k, v in tree.items()}
-
-
 def _payload(state: TrainState) -> dict:
     """The checkpoint of ``state``, copied to the host."""
+    fam = family_of_params(state.params)
     opt = state.opt_state
-    if "field" in state.params:
-        out = {"model": "ngp", "params": _host(state.params),
-               "step": int(state.step),
-               "opt_state": {"count": int(opt.count), "mu": _host(opt.mu),
-                             "nu": _host(opt.nu)},
-               "raw_params": True}
-        if state.ema_params is not None:
-            out["ema_params"] = _host(state.ema_params)
-        return out
-
-    def sds(tree):
-        return {net: torch_state_dict_from_params(p)
-                for net, p in tree.items()}
-    out = {**sds(state.params), "step": int(state.step),
-           "opt_state": {"count": int(opt.count), "mu": sds(opt.mu),
-                         "nu": sds(opt.nu)},
+    out = {**fam.file_params(fam.encode(state.params)),
+           "step": int(state.step),
+           "opt_state": {"count": int(opt.count), "mu": fam.encode(opt.mu),
+                         "nu": fam.encode(opt.nu)},
            "raw_params": True}
     if state.ema_params is not None:
-        out["ema_params"] = sds(state.ema_params)
+        out["ema_params"] = fam.encode(state.ema_params)
     return out
 
 
@@ -193,46 +159,9 @@ def restore_params(ckpt_dir: str, step: int | None = None,
     if path is None:
         raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}")
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(blob, dict) and blob.get("model") == "ngp":
-        params, found = _ngp_params(blob, prefer_ema)
-        return params, int(found or 0)
-    params, _, found = load_torch_checkpoint(path, prefer_ema=prefer_ema)
+    fam = family_named(blob.get("model") if isinstance(blob, dict) else None)
+    params, found = fam.read(path, prefer_ema=prefer_ema)
     return params, int(found or 0)
-
-
-def load_ngp_checkpoint(path: str, prefer_ema: bool = True
-                        ) -> tuple[dict, int | None]:
-    """An Instant-NGP checkpoint's params (on the CPU) and step (None where
-    the file has none): the Polyak average of an EMA run unless
-    ``prefer_ema=False``."""
-    blob = torch.load(path, map_location="cpu", weights_only=True)
-    if not isinstance(blob, dict) or blob.get("model") != "ngp":
-        raise ValueError(f"{path} holds no Instant-NGP field")
-    return _ngp_params(blob, prefer_ema)
-
-
-def _ngp_params(blob: dict, prefer_ema: bool) -> tuple[dict, int | None]:
-    params = blob["params"]
-    if prefer_ema and isinstance(blob.get("ema_params"), dict):
-        params = blob["ema_params"]
-    step = blob.get("step")
-    return params, None if step is None else int(step)
-
-
-def match_tree(got: dict, want: dict, path: str, what: str, device) -> dict:
-    """``got`` in ``want``'s layout and leaf order on ``device``; raises
-    where a leaf is missing or of another shape."""
-    if isinstance(want, dict):
-        if not isinstance(got, dict) or set(got) != set(want):
-            raise ValueError(f"{path}: {what} holds keys "
-                             f"{sorted(got) if isinstance(got, dict) else got}"
-                             f", the run expects {sorted(want)}")
-        return {k: match_tree(got[k], v, path, f"{what}.{k}", device)
-                for k, v in want.items()}
-    if got.shape != want.shape:
-        raise ValueError(f"{path}: {what} has shape {tuple(got.shape)}, "
-                         f"the run expects {tuple(want.shape)}")
-    return got.to(device)
 
 
 def restore_checkpoint(ckpt_dir: str, template: TrainState,
@@ -256,49 +185,21 @@ def restore_checkpoint(ckpt_dir: str, template: TrainState,
             "NerfRenderer serves it; to fine-tune from it, import it "
             "(python -m cvnerf_torch.utils.convert <file.pt> <run>) and "
             "pass --ft_path <run>/torch_checkpoints")
+    fam = family_of_params(template.params)
+    if family_named(blob.get("model")) is not fam:
+        raise ValueError(f"{path}: the checkpoint's model and the run's "
+                         f"differ (one is an Instant-NGP field)")
     device = tree_leaves(template.params)[0].device
-    if blob.get("model") == "ngp" or "field" in template.params:
-        if blob.get("model") != "ngp" or "field" not in template.params:
-            raise ValueError(f"{path}: the checkpoint's model and the run's "
-                             f"differ (one is an Instant-NGP field)")
-        opt = blob["opt_state"]
-        def tree(got, what):
-            return match_tree(got, template.params, path, what, device)
-        params = tree(blob["params"], "params")
-        stored = blob.get("ema_params")
-        ema = None
-        if template.ema_params is not None:
-            ema = (tree(stored, "ema_params") if stored is not None
-                   else clone_tree(params))
-        return TrainState(
-            params=params,
-            opt_state=AdamState(count=int(opt["count"]),
-                                mu=tree(opt["mu"], "mu"),
-                                nu=tree(opt["nu"], "nu")),
-            step=int(blob["step"]), ema_params=ema)
 
-    def nets(sds: dict, what: str) -> dict:
-        out = {}
-        for net, want in template.params.items():
-            got, _ = params_from_torch_state_dict(sds[net])
-            for layer, leaves in want.items():
-                for q, t in leaves.items():
-                    if got[layer][q].shape != t.shape:
-                        raise ValueError(
-                            f"{path}: {what} {net}.{layer}.{q} has shape "
-                            f"{tuple(got[layer][q].shape)}, the run expects "
-                            f"{tuple(t.shape)}")
-            # The template's leaf order, which the train step follows.
-            out[net] = {layer: {q: got[layer][q].to(device) for q in leaves}
-                        for layer, leaves in want.items()}
-        return out
+    def tree(stored: dict, what: str) -> dict:
+        return fam.decode(stored, template.params, path, what, device)
 
     opt = blob["opt_state"]
-    params = nets({k: blob[k] for k in template.params}, "params")
+    params = tree(fam.stored_params(blob), "params")
     stored = blob.get("ema_params")
     ema = None
     if template.ema_params is not None:
-        ema = (nets(stored, "ema_params") if stored is not None
+        ema = (tree(stored, "ema_params") if stored is not None
                else clone_tree(params))
     elif stored is not None:
         print(f"[WARN] checkpoint at step {int(blob['step'])} carries an "
@@ -308,6 +209,6 @@ def restore_checkpoint(ckpt_dir: str, template: TrainState,
     return TrainState(
         params=params,
         opt_state=AdamState(count=int(opt["count"]),
-                            mu=nets(opt["mu"], "mu"),
-                            nu=nets(opt["nu"], "nu")),
+                            mu=tree(opt["mu"], "mu"),
+                            nu=tree(opt["nu"], "nu")),
         step=int(blob["step"]), ema_params=ema)

@@ -32,11 +32,9 @@ decay, the count advances, as optax does), and their updates are zeroed,
 so the coarse net stays as it was at the switch. ``Trainer.set_occupancy``
 and ``maybe_set_occupancy`` install the grid.
 
-The Instant-NGP field (``models/ngp_field.py``, an ``NgpFieldConfig`` in
-``RenderConfig.mlp``; ``TrainConfig.model`` reads ``"ngp"``) trains on the
-same path: its params are ``{"field": ...}``, queried by both passes, and
-its optimizer is the paper's (``optimizer_for``). Occupancy training and the
-frequency anneal are NeRF's alone.
+The Instant-NGP field trains on the same path, with its family's
+optimizer (``optimizer_for``); occupancy training and the frequency anneal
+are NeRF's alone (``models/family.py``).
 
 Data parallelism (``parallel/mesh.py``): ``make_train_step(cfg, mesh)``
 splits the ray batch over the mesh's ``'rays'`` axis. Every shard draws
@@ -76,9 +74,8 @@ import numpy as np
 import torch
 
 from cvnerf_torch import staged
+from cvnerf_torch.models.family import family_of
 from cvnerf_torch.models.nerf_mlp import anneal_model_params
-from cvnerf_torch.models.ngp_field import is_ngp
-from cvnerf_torch.ops import hash_encode, ngp_mlp
 from cvnerf_torch.ops.compositing import distortion_loss, occlusion_loss
 from cvnerf_torch.ops.rays import (ndc_rays, rays_for_pixels,
                                    rays_for_pixels_batched)
@@ -92,10 +89,10 @@ from cvnerf_torch.render.occupancy import occupied_fraction
 from cvnerf_torch.render.renderer import RenderConfig, render_rays
 from cvnerf_torch.train.state import (Adam, AdamState, TrainState,
                                       clone_tree, ema_update,
-                                      make_optimizer, tree_leaves, tree_like,
-                                      tree_map)
+                                      make_optimizer)
 from cvnerf_torch.utils import tracing
 from cvnerf_torch.utils.graphs import GraphProgram
+from cvnerf_torch.utils.tree import tree_leaves, tree_like, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,12 +126,6 @@ class TrainConfig:
     fused_allreduce: bool = False
     render: RenderConfig = RenderConfig()
 
-    @property
-    def model(self) -> str:
-        """The field kind: ``"ngp"`` for an ``NgpFieldConfig`` in
-        ``render.mlp``, else ``"nerf"``."""
-        return "ngp" if is_ngp(self.render.mlp) else "nerf"
-
 
 def optimizer_for(cfg: TrainConfig) -> Adam:
     """The optimizer of ``cfg``'s model (``state.make_optimizer``)."""
@@ -143,8 +134,9 @@ def optimizer_for(cfg: TrainConfig) -> Adam:
 
 def check_supported(cfg: TrainConfig, with_occupancy: bool = False) -> None:
     """Raise for the JAX step's invalid configurations, and for the levers
-    the Instant-NGP field does not take."""
-    if cfg.model == "ngp" and (with_occupancy or cfg.freq_anneal > 0):
+    the model's family does not take."""
+    if family_of(cfg.render.mlp).refused(occ_train=with_occupancy,
+                                         freq_anneal=cfg.freq_anneal > 0):
         raise ValueError("the Instant-NGP field trains without occupancy "
                          "training and without freq_anneal")
     if cfg.pixel_sampling not in ("prp", "parity", "replace"):
@@ -807,19 +799,12 @@ class Trainer:
             return dict(self._last_metrics)
         with tracing.span("train.run", steps=iters - start) as sp:
             out = self._run(start, iters)
-            if self.cfg.model == "ngp":
-                sp.set(**self.counters())
+            sp.set(**self.counters())
             return out
 
     def counters(self) -> dict:
-        """The optimizer's counts (``Adam.stats``: updates, leaves and
-        values under ``skip_zero``), the hash encoding's
-        (``ops/hash_encode.py::stats``, prefixed ``hash_``) and the NGP
-        MLPs' (``ops/ngp_mlp.py::stats``, prefixed ``mlp_``), as counted at
-        eager calls and captures."""
-        return {**self.opt.stats,
-                **{f"hash_{k}": v for k, v in hash_encode.stats.items()},
-                **{f"mlp_{k}": v for k, v in ngp_mlp.stats.items()}}
+        """The model family's counters (the Instant-NGP field's)."""
+        return family_of(self.cfg.render.mlp).counters(self.opt)
 
     def _run(self, start: int, iters: int) -> dict:
         t0 = time.time()

@@ -16,13 +16,9 @@ JAX one; on a card an update of every leaf is one kernel launch
 An EMA run (``--ema_decay``) also carries the Polyak average of the params
 (``ema_update``).
 
-The Instant-NGP field (``models/ngp_field.py``) trains with the paper's
-Adam (``make_optimizer(..., field=NgpFieldConfig)``): β₂ 0.99, ε 1e-15,
-an L2 of 1e-6 added to the MLP weights' gradients, and its table entries
-left untouched, moments and all, where their gradient is exactly 0 (leaves
-named by path prefix, ``skip_zero`` and ``l2_on``). ``Adam.stats`` counts
-updates and the leaves and values under ``skip_zero``, at eager calls and
-at captures.
+The Instant-NGP field's family (``models/family.py``) adds the paper's β₂,
+ε, an L2 on the MLP weights (``l2_on``) and no step where a table entry's
+gradient is 0 (``skip_zero``), which ``Adam.stats`` counts.
 """
 
 from __future__ import annotations
@@ -33,10 +29,10 @@ import numpy as np
 import torch
 
 from cvnerf_torch import resolve_device
-from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params
-from cvnerf_torch.models.ngp_field import init_ngp_params, is_ngp
+from cvnerf_torch.models.family import family_of
+from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
 from cvnerf_torch.ops.adam import fused_adam
-from cvnerf_torch.ops.rng import split
+from cvnerf_torch.utils.tree import leaf_paths, tree_leaves, tree_like, tree_map
 
 
 @dataclasses.dataclass
@@ -56,35 +52,6 @@ class TrainState:
     opt_state: AdamState
     step: int
     ema_params: dict | None = None
-
-
-def tree_map(fn, *trees):
-    if isinstance(trees[0], dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
-def leaf_paths(tree, prefix: str = "") -> list[str]:
-    """The ``/``-joined key path of every tensor of a nested dict, in
-    ``tree_leaves`` order."""
-    if isinstance(tree, dict):
-        return [p for k, v in tree.items()
-                for p in leaf_paths(v, f"{prefix}{k}/")]
-    return [prefix[:-1]]
-
-
-def tree_leaves(tree) -> list[torch.Tensor]:
-    """The tensors of a nested dict, in insertion order."""
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
-    return [tree]
-
-
-def tree_like(tree: dict, leaves: list) -> dict:
-    """``leaves`` (in ``tree_leaves`` order) in the nested layout of
-    ``tree``."""
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), tree)
 
 
 def _f32(x: float) -> torch.Tensor:
@@ -170,13 +137,10 @@ def make_lr_schedule(lr: float, lr_decay: int):
     return Adam(lr=lr, lr_decay=lr_decay).learning_rate
 
 
-def make_optimizer(lr: float, lr_decay: int, field=None) -> Adam:
-    """The optimizer of a model: NeRF's Adam, or with ``field`` an
-    ``NgpFieldConfig`` the Instant-NGP paper's (see the module
-    docstring)."""
-    if is_ngp(field):
-        return Adam(lr=lr, lr_decay=lr_decay, **field.adam())
-    return Adam(lr=lr, lr_decay=lr_decay)
+def make_optimizer(lr: float, lr_decay: int, mlp=NerfMLPConfig()) -> Adam:
+    """The optimizer of ``mlp``'s model: NeRF's Adam, or the Instant-NGP
+    paper's (see the module docstring)."""
+    return Adam(lr=lr, lr_decay=lr_decay, **family_of(mlp).adam(mlp))
 
 
 def clone_tree(tree: dict) -> dict:
@@ -199,20 +163,13 @@ def create_train_state(key: torch.Tensor, lr: float = 5e-4,
                        mlp: NerfMLPConfig = NerfMLPConfig(),
                        device: str | torch.device = "cuda",
                        ema: bool = False) -> TrainState:
-    """Fresh coarse+fine networks and a zeroed Adam state, on ``device``
-    (with ``mlp`` an ``NgpFieldConfig``, one Instant-NGP field from
-    ``key``: ``{"field": init_ngp_params(key)}``).
-    The nets are the JAX package's ``create_train_state(key)`` nets bit for
-    bit: the ``PRNGKey`` ``key`` is split into a coarse and a fine key.
+    """Fresh params of ``mlp``'s family and a zeroed Adam state, on
+    ``device``: coarse+fine networks, the JAX package's
+    ``create_train_state(key)`` nets bit for bit, or with ``mlp`` an
+    ``NgpFieldConfig`` one Instant-NGP field from ``key``.
     ``ema=True`` allocates the Polyak-average slot as a copy of the fresh
     params (pair it with ``TrainConfig.ema_decay > 0``)."""
-    dev = resolve_device(device)
-    if is_ngp(mlp):
-        params = init_ngp_params(key, mlp, dev)
-    else:
-        kc, kf = split(key)
-        params = {"coarse": init_nerf_params(kc, mlp, dev),
-                  "fine": init_nerf_params(kf, mlp, dev)}
+    params = family_of(mlp).init_params(key, mlp, resolve_device(device))
     return TrainState(params=params,
                       opt_state=make_optimizer(lr, lr_decay, mlp)
                       .init(params),

@@ -34,7 +34,6 @@ import torch
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig
 from cvnerf_torch.ops.quantize import QuantizedNerfParams
-from cvnerf_torch.train.state import AdamState, TrainState
 
 # our layer name -> reference nn.Module attribute
 _NAME_MAP = {
@@ -200,6 +199,8 @@ def train_state_from_jax(state, device: str | torch.device = "cpu"):
     ``TrainState`` on ``device``: params, the Adam moments ``mu``/``nu``
     and count of its ``optax.adam`` state, the step and the EMA slot. Lets both
     frameworks continue from one mid-run state."""
+    from cvnerf_torch.train.state import AdamState, TrainState
+
     adam = state.opt_state[0]
     ema = getattr(state, "ema_params", None)
     return TrainState(
@@ -221,7 +222,7 @@ def import_torch_checkpoint(path: str, out_dir: str, step: int = 0,
     from cvnerf_torch.ops.rng import PRNGKey
     from cvnerf_torch.serve import CKPT_SUBDIR
     from cvnerf_torch.train.checkpoint import save_checkpoint
-    from cvnerf_torch.train.state import create_train_state
+    from cvnerf_torch.train.state import TrainState, create_train_state
 
     params, cfg, _ = load_torch_checkpoint(path, allow_pickle=allow_pickle)
     template = create_train_state(PRNGKey(0), mlp=cfg, device="cpu")

@@ -43,8 +43,9 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params  # noqa: E402
 from cvnerf_torch.ops import fused_mlp as fm  # noqa: E402
-from cvnerf_torch.ops.rng import PRNGKey  # noqa: E402
 from cvnerf_torch.ops import fused_mlp_bwd as fb  # noqa: E402
+from cvnerf_torch.ops.rng import PRNGKey  # noqa: E402
+from cvnerf_torch.utils import kernels  # noqa: E402
 
 CSRC = ROOT / "cvnerf_torch" / "csrc"
 OUT = ROOT / "build" / "backward_cost_probe"
@@ -107,7 +108,7 @@ def build(name: str, src: str) -> Path:
         (out / h.name).write_text(h.read_text())
     cu, so = out / "fused_mlp_bwd.cu", out / "fused_mlp_bwd.so"
     cu.write_text(src)
-    res = subprocess.run([fm._nvcc(), *fm.NVCC_FLAGS, "-o", str(so), str(cu)],
+    res = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise SystemExit(f"nvcc failed on {name}:\n{res.stderr[-3000:]}")

@@ -37,6 +37,7 @@ import torch  # noqa: E402
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params  # noqa: E402
 from cvnerf_torch.ops import fused_mlp as fm  # noqa: E402
 from cvnerf_torch.ops.rng import PRNGKey  # noqa: E402
+from cvnerf_torch.utils import kernels  # noqa: E402
 
 CSRC = ROOT / "cvnerf_torch" / "csrc"
 OUT = ROOT / "build" / "forward_cost_probe"
@@ -76,7 +77,7 @@ def build(name: str, files: dict[str, str]) -> Path:
     for f in list(CSRC.glob("*.cuh")) + [CSRC / "fused_mlp.cu"]:
         (out / f.name).write_text(files.get(f.name, f.read_text()))
     so = out / "fused_mlp.so"
-    res = subprocess.run([fm._nvcc(), *fm.NVCC_FLAGS, "-o", str(so), str(out / "fused_mlp.cu")],
+    res = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(out / "fused_mlp.cu")],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise SystemExit(f"nvcc failed on {name}:\n{res.stderr[-3000:]}")

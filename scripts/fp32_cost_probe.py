@@ -44,8 +44,9 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params  # noqa: E402
 from cvnerf_torch.ops import fused_mlp as fm  # noqa: E402
-from cvnerf_torch.ops.rng import PRNGKey  # noqa: E402
 from cvnerf_torch.ops import fused_mlp_bwd as fb  # noqa: E402
+from cvnerf_torch.ops.rng import PRNGKey  # noqa: E402
+from cvnerf_torch.utils import kernels  # noqa: E402
 
 CSRC = ROOT / "cvnerf_torch" / "csrc"
 OUT = ROOT / "build" / "fp32_cost_probe"
@@ -121,7 +122,7 @@ def build(job: tuple[str, dict, str]) -> Path:
         (out / h.name).write_text(files.get(h.name, h.read_text()))
     cu, so = out / source, out / source.replace(".cu", ".so")
     cu.write_text(files[source])
-    res = subprocess.run([fm._nvcc(), *fm.NVCC_FLAGS, "-o", str(so), str(cu)],
+    res = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise SystemExit(f"nvcc failed on {name}/{source}:\n{res.stderr[-3000:]}")

@@ -48,10 +48,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from cvnerf_torch.models.nerf_mlp import NerfMLPConfig, init_nerf_params  # noqa: E402
-from cvnerf_torch.ops import fused_mlp as fm  # noqa: E402
 from cvnerf_torch.ops import fused_mlp_int8 as fq  # noqa: E402
 from cvnerf_torch.ops import quantize as tq  # noqa: E402
 from cvnerf_torch.ops import rng  # noqa: E402
+from cvnerf_torch.utils import kernels  # noqa: E402
 
 CSRC = ROOT / "cvnerf_torch" / "csrc"
 OUT = ROOT / "build" / "int8_cost_probe"
@@ -95,11 +95,11 @@ def build(name: str, src: str) -> Path:
         (OUT / h.name).write_text(h.read_text())
     cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
     cu.write_text(src)
-    res = subprocess.run([fm._nvcc(), "-Xptxas=-v", *fm.NVCC_FLAGS, "-o",
+    res = subprocess.run([kernels.nvcc(), "-Xptxas=-v", *kernels.NVCC_FLAGS, "-o",
                           str(so), str(cu)], capture_output=True, text=True)
     if res.returncode != 0:
         raise SystemExit(f"nvcc failed on {name}:\n{res.stderr[-3000:]}")
-    fm.ptxas_log(so).write_text(res.stderr)
+    kernels.ptxas_log(so).write_text(res.stderr)
     return so
 
 
@@ -107,7 +107,7 @@ def ptxas_summary(so: Path) -> str:
     """Registers and spills of each instantiation, from the build's report."""
     import re
     out, name = [], None
-    for line in fm.ptxas_log(so).read_text().splitlines():
+    for line in kernels.ptxas_log(so).read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = "fixed" if "ILi256E" in m.group(1) else "run-time"

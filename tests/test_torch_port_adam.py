@@ -17,6 +17,7 @@ import torch
 
 from cvnerf_torch.ops import adam as fa
 from cvnerf_torch.train.state import Adam, AdamState
+from cvnerf_torch.utils.kernels import load_library
 
 # The lego nets' leaves, one net in init_nerf_params order (l1-l9, alpha,
 # l10, l11; w then b), and the two nets' counts.
@@ -239,7 +240,7 @@ def test_a_captured_update_reads_each_rows_scalars_on_card(cuda_device):
 def test_misaligned_leaves_and_several_tables_on_card(cuda_device):
     """120 leaves of 0-70 values, every third one 4 bytes off a 16-byte
     boundary: three launches, bitwise the plain version."""
-    assert fa.load_library("adam", fa._bind).cvnerf_fused_adam_table_leaves() \
+    assert load_library("adam", fa._bind).cvnerf_fused_adam_table_leaves() \
         == fa.TABLE_LEAVES
     rng = np.random.default_rng(11)
     x = {k: [] for k in ("params", "grads", "mu", "nu")}

@@ -29,11 +29,11 @@ from cvnerf_torch.ops.rng import PRNGKey
 from cvnerf_torch.serve import NerfRenderer, latest_checkpoint
 from cvnerf_torch.serve import write_scene_snapshot
 from cvnerf_torch.train import checkpoint as ckpt
-from cvnerf_torch.train.state import (AdamState, TrainState,
-                                      create_train_state, tree_leaves)
+from cvnerf_torch.train.state import AdamState, TrainState, create_train_state
 from cvnerf_torch.utils.convert import (load_torch_checkpoint,
                                         torch_state_dict_from_params,
                                         train_state_from_jax)
+from cvnerf_torch.utils.tree import tree_leaves
 from cvnerf_tpu.models.nerf_mlp import NerfMLPConfig as JaxCfg
 from cvnerf_tpu.serve import write_scene_snapshot as jax_write_snapshot
 from cvnerf_tpu.train.state import create_train_state as jax_create_state

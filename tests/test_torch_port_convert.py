@@ -30,8 +30,9 @@ from cvnerf_torch.ops.encoding import freq_encode
 from cvnerf_torch.ops.rng import PRNGKey
 from cvnerf_torch.serve import NerfRenderer, write_scene_snapshot
 from cvnerf_torch.train import checkpoint as tckpt
-from cvnerf_torch.train.state import create_train_state, tree_leaves
+from cvnerf_torch.train.state import create_train_state
 from cvnerf_torch.utils import convert as tconv
+from cvnerf_torch.utils.tree import tree_leaves
 from test_torch_parity import _TorchReferenceModel, _torch_freq_embed
 
 TINY = dict(xyz_dim=3 + 6 * 4, dir_dim=3 + 6 * 2, w=32, h=16)

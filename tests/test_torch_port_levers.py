@@ -32,9 +32,9 @@ from cvnerf_torch.ops.compositing import distortion_loss, occlusion_loss
 from cvnerf_torch.ops.rays import rays_for_pixels_batched
 from cvnerf_torch.render.renderer import RenderConfig, render_rays
 from cvnerf_torch.train.loop import TrainConfig, _sample_pixels, schedules
-from cvnerf_torch.train.state import (create_train_state, ema_update,
-                                      tree_leaves)
+from cvnerf_torch.train.state import create_train_state, ema_update
 from cvnerf_torch.utils.convert import params_from_jax
+from cvnerf_torch.utils.tree import tree_leaves
 
 SIZES = [1, 2, 1625, 1626, 40_000, 160_000]
 DRAWS = [(m, n) for m in SIZES for n in (1, 1024) if n <= m]

@@ -29,8 +29,8 @@ from cvnerf_torch.ops.rng import PRNGKey, ray_sorted_uniform, ray_uniform
 from cvnerf_torch.render.renderer import RenderConfig, render_rays
 from cvnerf_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from cvnerf_torch.train.state import (AdamState, TrainState,
-                                      create_train_state, make_optimizer,
-                                      tree_leaves)
+                                      create_train_state, make_optimizer)
+from cvnerf_torch.utils.tree import tree_leaves
 
 TINY = NgpFieldConfig(n_levels=4, log2_table=8, base_res=4, max_res=32,
                       hidden=16)

@@ -26,7 +26,8 @@ from cvnerf_torch.ops.rng import PRNGKey
 from cvnerf_torch.render.renderer import RenderConfig
 from cvnerf_torch.train.loop import TrainConfig, Trainer
 from cvnerf_torch.train.state import (Adam, TrainState, create_train_state,
-                                      make_optimizer, tree_leaves)
+                                      make_optimizer)
+from cvnerf_torch.utils.tree import tree_leaves
 
 N = 1 << 18
 CFG = NgpFieldConfig()

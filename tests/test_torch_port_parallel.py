@@ -53,8 +53,9 @@ from cvnerf_torch.render.frames import render_image
 from cvnerf_torch.render.renderer import RenderConfig
 from cvnerf_torch.train import loop
 from cvnerf_torch.train.loop import TrainConfig, Trainer, make_train_step
-from cvnerf_torch.train.state import create_train_state, tree_leaves
+from cvnerf_torch.train.state import create_train_state
 from cvnerf_torch.utils.convert import params_from_jax, train_state_from_jax
+from cvnerf_torch.utils.tree import tree_leaves
 from test_torch_port_train import _compare_states
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

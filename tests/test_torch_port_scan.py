@@ -58,8 +58,9 @@ from cvnerf_torch.train.loop import (ROW, TrainConfig, Trainer,
                                      make_train_scan, schedules, state_leaves,
                                      step_row)
 from cvnerf_torch.train.state import (Adam, create_train_state,
-                                      make_optimizer, tree_leaves)
+                                      make_optimizer)
 from cvnerf_torch.utils.convert import train_state_from_jax
+from cvnerf_torch.utils.tree import tree_leaves
 
 TINY = dict(xyz_freqs=4, dir_freqs=2, trunk_width=32, head_width=16)
 LR = 5e-4

@@ -52,9 +52,9 @@ from cvnerf_torch.parallel.mesh import make_mesh
 from cvnerf_torch.render.renderer import (RenderConfig, render_rays,
                                           render_rays_chunked)
 from cvnerf_torch.train.loop import TrainConfig, Trainer, make_train_step
-from cvnerf_torch.train.state import (Adam, create_train_state,
-                                      tree_leaves)
+from cvnerf_torch.train.state import Adam, create_train_state
 from cvnerf_torch.utils.convert import params_from_jax, train_state_from_jax
+from cvnerf_torch.utils.tree import tree_leaves
 
 TINY = dict(xyz_freqs=4, dir_freqs=2, trunk_width=32, head_width=16)
 
